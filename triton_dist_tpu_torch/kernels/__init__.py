@@ -1,0 +1,10 @@
+"""Kernels of the port: each hand-written CUDA kernel (csrc/) beside its
+plain PyTorch version, plus the int8 quantizers and `qmm`."""
+
+from triton_dist_tpu_torch.kernels._build import (  # noqa: F401
+    launch_counts, reset_launch_counts)
+from triton_dist_tpu_torch.kernels.flash_attn import (  # noqa: F401
+    flash_decode, flash_decode_ref, kv_update, kv_update_ref)
+from triton_dist_tpu_torch.kernels.quant import (  # noqa: F401
+    QuantW, dequantize_kv_int8, qmm, quantize_int8, quantize_kv_int8)
+from triton_dist_tpu_torch.kernels.swiglu import swiglu, swiglu_ref  # noqa: F401

@@ -1,0 +1,63 @@
+"""Build, load and count the package's CUDA kernels.
+
+All kernel sources in `csrc/` and the one small binding file
+(`csrc/binding.cpp`, the only source that includes PyTorch's headers)
+are compiled by one `torch.utils.cpp_extension.load` call, for
+`sm_90a`, into `build/torch_ext/` at the root of the checkout, at first
+use; `load` compiles the sources in parallel (ninja) and rebuilds when
+a source changes. Nothing here runs at import time.
+
+Every kernel wrapper adds one to its entry of the launch counts each
+time it launches its kernel, and nowhere else, so a run can show that a
+path went through the kernels (`launch_counts`, `reset_launch_counts`).
+"""
+
+from __future__ import annotations
+
+from pathlib import Path
+
+import torch
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_ext"
+KERNELS = ("flash_decode", "kv_update", "swiglu")
+CUDA_FLAGS = ["-gencode=arch=compute_90a,code=sm_90a", "-O3", "-lineinfo"]
+# dtype codes of csrc/launchers.h (tdt::Dtype)
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
+
+_ext = None
+_launches = dict.fromkeys(KERNELS, 0)
+
+
+def launch_counts() -> dict[str, int]:
+    """Launches of each kernel since the last reset."""
+    return dict(_launches)
+
+
+def reset_launch_counts() -> None:
+    for name in _launches:
+        _launches[name] = 0
+
+
+def ext():
+    """The loaded extension module (built on first call): one function
+    per kernel, each raising on a launch error."""
+    global _ext
+    if _ext is None:
+        from torch.utils.cpp_extension import load
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        sources = [CSRC / "binding.cpp"] + [CSRC / f"{n}.cu" for n in KERNELS]
+        _ext = load(name="tdt_kernels", sources=[str(s) for s in sources],
+                    build_directory=str(BUILD_DIR), extra_cflags=["-O3"],
+                    extra_cuda_cflags=CUDA_FLAGS, verbose=False)
+    return _ext
+
+
+def count(name: str) -> None:
+    """Count one launch of kernel `name` (called after the launch)."""
+    _launches[name] += 1
+
+
+def stream_ptr(device: torch.device) -> int:
+    """The current PyTorch stream of `device`, as a pointer-sized int."""
+    return torch.cuda.current_stream(device).cuda_stream

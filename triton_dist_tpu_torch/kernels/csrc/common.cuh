@@ -1,0 +1,70 @@
+// Helpers shared by the package's CUDA kernels: dtype codes, conversions
+// to and from float, 16-byte vector loads and warp reductions.
+//
+// The launchers these kernels are reached through are declared in
+// launchers.h and bound to Python by binding.cpp (kernels/_build.py).
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "launchers.h"
+
+using tdt::kBF16;
+using tdt::kF32;
+using tdt::kI8;
+
+template <typename T> __device__ __forceinline__ float to_f(T x);
+template <> __device__ __forceinline__ float to_f<float>(float x) { return x; }
+template <> __device__ __forceinline__ float to_f<__nv_bfloat16>(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+template <> __device__ __forceinline__ float to_f<int8_t>(int8_t x) {
+  return static_cast<float>(x);
+}
+
+template <typename T> __device__ __forceinline__ T from_f(float x);
+template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
+template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
+  return __float2bfloat16_rn(x);
+}
+
+// x rounded to T's precision and widened back (round to nearest even)
+template <typename T> __device__ __forceinline__ float round_to(float x) {
+  return to_f<T>(from_f<T>(x));
+}
+
+// elements of T in one 16-byte vector
+template <typename T> struct Vec16 { static constexpr int n = 16 / sizeof(T); };
+
+// 16-byte load of Vec16<T>::n elements, widened to float; p is 16-byte aligned
+template <typename T>
+__device__ __forceinline__ void load16(const T* p, float* out) {
+  const uint4 raw = *reinterpret_cast<const uint4*>(p);
+  const T* e = reinterpret_cast<const T*>(&raw);
+#pragma unroll
+  for (int i = 0; i < Vec16<T>::n; ++i) out[i] = to_f<T>(e[i]);
+}
+
+// narrows Vec16<T>::n floats to T and stores them as one 16-byte vector
+template <typename T>
+__device__ __forceinline__ void store16(T* p, const float* in) {
+  uint4 raw;
+  T* e = reinterpret_cast<T*>(&raw);
+#pragma unroll
+  for (int i = 0; i < Vec16<T>::n; ++i) e[i] = from_f<T>(in[i]);
+  *reinterpret_cast<uint4*>(p) = raw;
+}
+
+__device__ __forceinline__ float warp_max(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}

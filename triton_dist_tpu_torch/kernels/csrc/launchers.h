@@ -1,0 +1,35 @@
+// Host launchers of the package's CUDA kernels, declared once for the
+// kernel sources that define them and for binding.cpp that binds them,
+// so that a mismatch between the two fails to compile.
+//
+// Each launcher takes raw device pointers, strides and sizes, launches on
+// the given stream, allocates nothing, and returns cudaGetLastError()
+// after its launch, or cudaErrorInvalidValue without launching for a
+// dtype code or head dim it has no instance for.
+#pragma once
+
+#include <cuda_runtime.h>
+
+namespace tdt {
+
+// dtype codes shared with the Python wrappers (kernels/_build.py DTYPE_CODES)
+enum Dtype { kF32 = 0, kBF16 = 1, kI8 = 2 };
+
+// csrc/flash_decode.cu. Strides in elements: st = {q_sb, q_ss, q_sh, kv_sb,
+// kv_sh, kv_st, sc_sb, sc_sh}; ks/vs are null for a bf16/f32 cache.
+cudaError_t flash_decode(int q_dtype, int kv_dtype, const void* q, const void* k,
+                         const void* v, const void* ks, const void* vs, void* o,
+                         int kv_len, int B, int S, int Hq, int Hkv, int T, int HD,
+                         float scale, const long long* st, cudaStream_t stream);
+
+// csrc/kv_update.cu. cache: [B, H, T, row_bytes] contiguous bytes; src
+// strides in bytes.
+cudaError_t kv_update(void* cache, const void* src, int pos, int B, int H, int T, int S,
+                      int row_bytes, long long src_sb, long long src_sh,
+                      long long src_ss, cudaStream_t stream);
+
+// csrc/swiglu.cu. x: [M, 2I] with row stride ld (elements); out: [M, I].
+cudaError_t swiglu(int dtype, const void* x, void* out, long long M, int I, long long ld,
+                   cudaStream_t stream);
+
+}  // namespace tdt

@@ -1,0 +1,161 @@
+"""Cached GQA attention and the in-place KV-cache row insert.
+
+Counterpart of triton_dist_tpu/kernels/flash_attn.py (`flash_decode`,
+`kv_update`, `attention_cached_ref`), same layouts:
+    q [B, S, Hq, d]; cache k, v [B, Hkv, T, d] (T = static capacity);
+    int8 caches carry per-position f32 scales [B, Hkv, T].
+`kv_len` counts the valid cache positions INCLUDING the S query
+positions: query s sits at kv_len - S + s and attends causally.
+
+`flash_decode` and `kv_update` launch the hand-written CUDA kernels
+(csrc/flash_decode.cu, csrc/kv_update.cu) for CUDA tensors and take the
+plain PyTorch versions (`flash_decode_ref`, `kv_update_ref`) only for
+CPU tensors. The cache is updated in place where the JAX package
+aliased (donated) the buffer.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from triton_dist_tpu_torch.kernels import _build
+from triton_dist_tpu_torch.kernels.quant import dequantize_kv_int8
+
+_HEAD_DIMS = (64, 128)   # head dims csrc/flash_decode.cu is instantiated for
+
+
+def flash_decode_ref(q, k, v, kv_len: int, *, scale: Optional[float] = None,
+                     k_scale=None, v_scale=None):
+    """Plain version of flash_decode: masked f32 softmax over the whole
+    static T (the math of the JAX `attention_cached_ref`); an int8 cache
+    is dequantized with its per-position scales first. Returns q's
+    dtype."""
+    B, S, Hq, d = q.shape
+    _, Hkv, T, _ = k.shape
+    rep = Hq // Hkv
+    if scale is None:
+        scale = d ** -0.5
+    if k_scale is not None:
+        kf, vf = dequantize_kv_int8(k, k_scale), dequantize_kv_int8(v, v_scale)
+    else:
+        kf, vf = k.float(), v.float()
+    qg = q.reshape(B, S, Hkv, rep, d).float()
+    logits = torch.einsum("bsgrd,bgtd->bgsrt", qg, kf) * scale
+    si = torch.arange(S, device=q.device)[:, None]
+    ti = torch.arange(T, device=q.device)[None, :]
+    mask = ti <= si + (kv_len - S)                             # [S, T]
+    logits = logits.masked_fill(~mask[None, None, :, None, :], float("-inf"))
+    p = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bgsrt,bgtd->bsgrd", p, vf)
+    return out.reshape(B, S, Hq, d).to(q.dtype)
+
+
+def _check_kv_len(kv_len: int, S: int, T: int) -> None:
+    if not S <= kv_len <= T:
+        raise ValueError(f"flash_decode: kv_len={kv_len} outside [S={S}, T={T}]")
+
+
+def flash_decode(q, k, v, kv_len: int, *, scale: Optional[float] = None,
+                 k_scale=None, v_scale=None):
+    """Cached GQA attention (decode and prefill-into-cache).
+
+    q: [B, S, Hq, d] (last dim contiguous); k, v: [B, Hkv, T, d] of q's
+    dtype, or int8 with k_scale/v_scale [B, Hkv, T] f32 (then q is bf16).
+    kv_len: valid positions including the S new ones. Returns
+    [B, S, Hq, d] in q's dtype."""
+    B, S, Hq, d = q.shape
+    _, Hkv, T, _ = k.shape
+    _check_kv_len(kv_len, S, T)
+    if q.device.type == "cpu":
+        return flash_decode_ref(q, k, v, kv_len, scale=scale, k_scale=k_scale,
+                                v_scale=v_scale)
+    if scale is None:
+        scale = d ** -0.5
+    quant = k_scale is not None
+    _validate_flash(q, k, v, k_scale, v_scale, quant)
+    out = torch.empty((B, S, Hq, d), dtype=q.dtype, device=q.device)
+    ks_ptr = k_scale.data_ptr() if quant else 0
+    vs_ptr = v_scale.data_ptr() if quant else 0
+    sc_strides = (k_scale.stride(0), k_scale.stride(1)) if quant else (0, 0)
+    _build.ext().flash_decode(
+        _build.DTYPE_CODES[q.dtype], _build.DTYPE_CODES[k.dtype],
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), ks_ptr, vs_ptr,
+        out.data_ptr(), kv_len, B, S, Hq, Hkv, T, d,
+        float(scale), q.stride(0), q.stride(1), q.stride(2), k.stride(0),
+        k.stride(1), k.stride(2), *sc_strides, _build.stream_ptr(q.device))
+    _build.count("flash_decode")
+    return out
+
+
+def _validate_flash(q, k, v, k_scale, v_scale, quant: bool) -> None:
+    B, S, Hq, d = q.shape
+    tensors = [q, k, v] + ([k_scale, v_scale] if quant else [])
+    if any(t.device != q.device for t in tensors):
+        raise ValueError("flash_decode: all tensors must be on one device")
+    if k.shape != v.shape or k.shape[0] != B or k.shape[3] != d:
+        raise ValueError(f"flash_decode: q {tuple(q.shape)} does not match "
+                         f"k {tuple(k.shape)} / v {tuple(v.shape)}")
+    Hkv = k.shape[1]
+    if Hq % Hkv:
+        raise ValueError(f"flash_decode: Hq={Hq} is not a multiple of Hkv={Hkv}")
+    if d not in _HEAD_DIMS:
+        raise ValueError(f"flash_decode: head_dim {d} not in {_HEAD_DIMS}")
+    if quant:
+        if q.dtype != torch.bfloat16 or k.dtype != torch.int8 or v.dtype != torch.int8:
+            raise ValueError("flash_decode: an int8 cache takes a bf16 query")
+        if v_scale is None or k_scale.shape != k.shape[:3] or v_scale.shape != k.shape[:3]:
+            raise ValueError("flash_decode: k_scale/v_scale must be [B, Hkv, T]")
+        if (k_scale.dtype != torch.float32 or v_scale.dtype != torch.float32
+                or k_scale.stride() != v_scale.stride() or k_scale.stride(2) != 1):
+            raise ValueError("flash_decode: scales must be f32 with equal "
+                             "strides and contiguous positions")
+    else:
+        if q.dtype not in (torch.bfloat16, torch.float32) or k.dtype != q.dtype \
+                or v.dtype != q.dtype:
+            raise ValueError(f"flash_decode: q {q.dtype}, k {k.dtype}, v {v.dtype}: "
+                             "want bf16 or f32 throughout")
+    if q.stride(3) != 1 or k.stride(3) != 1 or k.stride() != v.stride():
+        raise ValueError("flash_decode: head_dim must be contiguous and k, v "
+                         "must share strides")
+    size = k.element_size()
+    if (any(s * size % 16 for s in k.stride()[:3])
+            or k.data_ptr() % 16 or v.data_ptr() % 16):
+        raise ValueError("flash_decode: every K/V row must be 16-byte aligned")
+
+
+def kv_update_ref(cache: torch.Tensor, new: torch.Tensor, pos: int) -> torch.Tensor:
+    """Plain version of kv_update: cache[:, :, pos:pos+S] = new, in place."""
+    cache[:, :, pos:pos + new.shape[2]] = new
+    return cache
+
+
+def kv_update(cache: torch.Tensor, new: torch.Tensor, pos: int) -> torch.Tensor:
+    """In-place insert of new rows [B, H, S, d] into cache [B, H, T, d]
+    at row `pos` (any row: the 8-row alignment of the TPU kernel was a
+    Mosaic constraint). Returns the cache, updated in place."""
+    B, H, S, d = new.shape
+    T = cache.shape[2]
+    if cache.shape != (B, H, T, d) or cache.dtype != new.dtype:
+        raise ValueError(f"kv_update: new {tuple(new.shape)} {new.dtype} does not "
+                         f"fit cache {tuple(cache.shape)} {cache.dtype}")
+    if not 0 <= pos <= T - S:
+        raise ValueError(f"kv_update: rows [{pos}, {pos + S}) outside the "
+                         f"cache's {T}")
+    if cache.device != new.device:
+        raise ValueError("kv_update: cache and new must be on one device")
+    if cache.device.type == "cpu":
+        return kv_update_ref(cache, new, pos)
+    size = new.element_size()
+    row_bytes = d * size
+    if (not cache.is_contiguous() or new.stride(3) != 1 or row_bytes % 16
+            or any(s * size % 16 for s in new.stride()[:3])
+            or cache.data_ptr() % 16 or new.data_ptr() % 16):
+        raise ValueError("kv_update: the cache must be contiguous and every row "
+                         "16-byte aligned")
+    _build.ext().kv_update(cache.data_ptr(), new.data_ptr(), pos, B, H, T, S,
+                           row_bytes, new.stride(0) * size, new.stride(1) * size,
+                           new.stride(2) * size, _build.stream_ptr(cache.device))
+    _build.count("kv_update")
+    return cache

@@ -1,0 +1,49 @@
+"""Shared layer math: RMSNorm, RoPE, weight packing.
+
+Counterpart of triton_dist_tpu/layers/common.py (`rms_norm`,
+`precompute_rope`, `apply_rope`, `shard_cols_packed`).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+
+def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-6):
+    """RMSNorm computed in f32; the result keeps x's dtype even for an
+    f32 weight."""
+    x32 = x.float()
+    var = (x32 * x32).mean(dim=-1, keepdim=True)
+    return (x32 * torch.rsqrt(var + eps) * weight.float()).to(x.dtype)
+
+
+def precompute_rope(head_dim: int, max_seq: int, theta: float = 1e6,
+                    device=None):
+    """cos/sin tables [max_seq, head_dim//2] in f32 (Qwen3: theta=1e6),
+    computed in float64 with numpy as the JAX package does."""
+    inv = 1.0 / (theta ** (np.arange(0, head_dim, 2) / head_dim))
+    freqs = np.outer(np.arange(max_seq), inv)
+    return (torch.from_numpy(np.cos(freqs).astype(np.float32)).to(device),
+            torch.from_numpy(np.sin(freqs).astype(np.float32)).to(device))
+
+
+def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor,
+               positions: torch.Tensor):
+    """Rotate half-split pairs in f32: x [..., S, H, D]; cos/sin
+    [max_seq, D/2]; positions [S]. Returns x's dtype."""
+    c = cos[positions][:, None, :]
+    s = sin[positions][:, None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    return torch.cat([x1 * c - x2 * s, x2 * c + x1 * s], dim=-1).to(x.dtype)
+
+
+def shard_cols_packed(mats, n: int) -> torch.Tensor:
+    """Pack column-parallel weights into n per-rank blocks, each the
+    concat of every input's rank slice: [m0_r | m1_r | ...] for rank r."""
+    blocks = []
+    for r in range(n):
+        for m in mats:
+            cols = m.shape[1] // n
+            blocks.append(m[:, r * cols:(r + 1) * cols])
+    return torch.cat(blocks, dim=1)

@@ -1,0 +1,64 @@
+"""Build the port's DenseLLM from the JAX model's parameters as numpy.
+
+`from_jax_arrays(cfg, arrays, device)` takes a flat dict of numpy
+arrays named after the JAX DenseLLM's attributes:
+    embed, final_norm, lm_head,
+    layers.{i}.attn.w_qkv / w_o / q_norm / k_norm,
+    layers.{i}.mlp.w_gate_up / w_down, layers.{i}.ln_attn / ln_mlp,
+where a weight quantized to int8 (QuantW) comes as `{name}.q` and
+`{name}.s`. The packed layouts ([q | k | v], [gate | up]) are the JAX
+package's at tensor-parallel size 1, so they are copied as they are.
+This module sees numpy arrays only, never a jax object.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from triton_dist_tpu_torch.kernels.quant import QuantW
+from triton_dist_tpu_torch.layers import TP_Attn, TP_MLP, precompute_rope
+from triton_dist_tpu_torch.models.config import ModelConfig
+from triton_dist_tpu_torch.models.dense import DenseLayer, DenseLLM
+from triton_dist_tpu_torch.runtime.device import resolve_device
+
+
+def to_torch(a: np.ndarray, device=None) -> torch.Tensor:
+    """A copy of a numpy array as a tensor on `device`. bfloat16 arrays
+    (numpy's ml_dtypes extension type, which torch.from_numpy rejects)
+    travel as their uint16 bits."""
+    a = np.array(a, order="C")
+    if a.dtype.name == "bfloat16":
+        t = torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16)
+    else:
+        t = torch.from_numpy(a)
+    return t.to(device)
+
+
+def from_jax_arrays(cfg: ModelConfig, arrays: dict, device=None) -> DenseLLM:
+    """The port's DenseLLM holding the given parameters on `device`."""
+    dev = resolve_device(device)
+
+    def get(name):
+        if f"{name}.q" in arrays:
+            return QuantW(q=to_torch(arrays[f"{name}.q"], dev),
+                          s=to_torch(arrays[f"{name}.s"], dev))
+        return to_torch(arrays[name], dev)
+
+    def opt(name):
+        return get(name) if name in arrays else None
+
+    layers = []
+    for i in range(cfg.num_layers):
+        p = f"layers.{i}."
+        attn = TP_Attn(w_qkv=get(p + "attn.w_qkv"), w_o=get(p + "attn.w_o"),
+                       q_norm=opt(p + "attn.q_norm"), k_norm=opt(p + "attn.k_norm"),
+                       n_heads=cfg.num_heads, n_kv_heads=cfg.num_kv_heads,
+                       head_dim=cfg.head_dim)
+        mlp = TP_MLP(w_gate_up=get(p + "mlp.w_gate_up"), w_down=get(p + "mlp.w_down"))
+        layers.append(DenseLayer(attn=attn, mlp=mlp, ln_attn=get(p + "ln_attn"),
+                                 ln_mlp=get(p + "ln_mlp")))
+    cos, sin = precompute_rope(cfg.head_dim, cfg.max_position_embeddings,
+                               cfg.rope_theta, device=dev)
+    return DenseLLM(embed=get("embed"), layers=layers, final_norm=get("final_norm"),
+                    lm_head=get("lm_head"), cos=cos, sin=sin, config=cfg)

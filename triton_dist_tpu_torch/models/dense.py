@@ -1,0 +1,165 @@
+"""Dense Qwen3-family LLM: counterpart of triton_dist_tpu/models/dense.py
+(`random_init`, `from_hf`, `quantize_int8`, `forward_tokens`,
+`make_cache`) at tensor-parallel size 1.
+
+The model is a dataclass of tensors on one device (the JAX pytree's
+leaves); `forward_tokens` fills the cache in place.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import os
+
+import torch
+
+from triton_dist_tpu_torch.kernels.quant import Weight, qmm, quantize_int8
+from triton_dist_tpu_torch.layers import TP_Attn, TP_MLP, precompute_rope, rms_norm
+from triton_dist_tpu_torch.models.config import ModelConfig
+from triton_dist_tpu_torch.models.kv_cache import KVCache
+from triton_dist_tpu_torch.runtime.device import resolve_device
+
+
+@dataclasses.dataclass
+class DenseLayer:
+    attn: TP_Attn
+    mlp: TP_MLP
+    ln_attn: torch.Tensor
+    ln_mlp: torch.Tensor
+
+
+@dataclasses.dataclass
+class DenseLLM:
+    embed: torch.Tensor          # [V, D]
+    layers: list                 # of DenseLayer
+    final_norm: torch.Tensor     # [D]
+    lm_head: Weight              # [D, V]
+    cos: torch.Tensor
+    sin: torch.Tensor
+    config: ModelConfig
+
+    @property
+    def device(self) -> torch.device:
+        return self.embed.device
+
+    @staticmethod
+    def random_init(cfg: ModelConfig, device=None, seed: int = 0) -> "DenseLLM":
+        """Random weights with Qwen3 shapes, drawn on `device` (default
+        "cuda") from a torch.Generator seeded with `seed`. A tied head
+        is a view of the embedding."""
+        dev = resolve_device(device)
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        D, I = cfg.hidden_size, cfg.intermediate_size
+        Hq, Hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+        dt = cfg.torch_dtype
+
+        def w(*shape, scale=None):
+            s = scale if scale is not None else shape[0] ** -0.5
+            return (torch.randn(shape, generator=gen, device=dev, dtype=dt)
+                    * torch.tensor(s, dtype=dt, device=dev))
+
+        def ones(n, dtype=dt):
+            return torch.ones(n, dtype=dtype, device=dev)
+
+        layers = []
+        for _ in range(cfg.num_layers):
+            attn = TP_Attn.init(
+                w(D, Hq * hd), w(D, Hkv * hd), w(D, Hkv * hd), w(Hq * hd, D),
+                n_heads=Hq, n_kv_heads=Hkv, head_dim=hd,
+                q_norm=ones(hd, torch.float32), k_norm=ones(hd, torch.float32))
+            mlp = TP_MLP.init(w(D, I), w(D, I), w(I, D))
+            layers.append(DenseLayer(attn=attn, mlp=mlp, ln_attn=ones(D),
+                                     ln_mlp=ones(D)))
+        cos, sin = precompute_rope(hd, cfg.max_position_embeddings,
+                                   cfg.rope_theta, device=dev)
+        embed = w(cfg.vocab_size, D, scale=0.02)
+        lm_head = (embed.T if cfg.tie_word_embeddings
+                   else w(D, cfg.vocab_size, scale=0.02))
+        return DenseLLM(embed=embed, layers=layers, final_norm=ones(D),
+                        lm_head=lm_head, cos=cos, sin=sin, config=cfg)
+
+    @staticmethod
+    def from_hf(path: str, device=None) -> "DenseLLM":
+        """Load a HF Qwen3 safetensors checkpoint from a local directory."""
+        from safetensors.torch import load_file
+
+        dev = resolve_device(device)
+        cfg = ModelConfig.from_hf_config(path)
+        dt = cfg.torch_dtype
+        tensors = {}
+        for fn in sorted(os.listdir(path)):
+            if fn.endswith(".safetensors"):
+                tensors.update(load_file(os.path.join(path, fn)))
+
+        def t(name, dtype=dt):
+            return tensors[name].to(device=dev, dtype=dtype)
+
+        def opt(name):
+            return t(name, tensors[name].dtype) if name in tensors else None
+
+        layers = []
+        for li in range(cfg.num_layers):
+            p = f"model.layers.{li}."
+            # HF stores projections transposed ([out, in])
+            attn = TP_Attn.init(
+                t(p + "self_attn.q_proj.weight").T, t(p + "self_attn.k_proj.weight").T,
+                t(p + "self_attn.v_proj.weight").T, t(p + "self_attn.o_proj.weight").T,
+                n_heads=cfg.num_heads, n_kv_heads=cfg.num_kv_heads,
+                head_dim=cfg.head_dim, q_norm=opt(p + "self_attn.q_norm.weight"),
+                k_norm=opt(p + "self_attn.k_norm.weight"))
+            mlp = TP_MLP.init(t(p + "mlp.gate_proj.weight").T,
+                              t(p + "mlp.up_proj.weight").T,
+                              t(p + "mlp.down_proj.weight").T)
+            layers.append(DenseLayer(
+                attn=attn, mlp=mlp, ln_attn=t(p + "input_layernorm.weight"),
+                ln_mlp=t(p + "post_attention_layernorm.weight")))
+        cos, sin = precompute_rope(cfg.head_dim, cfg.max_position_embeddings,
+                                   cfg.rope_theta, device=dev)
+        embed = t("model.embed_tokens.weight")
+        lm_head = (embed.T if cfg.tie_word_embeddings
+                   else t("lm_head.weight").T)
+        return DenseLLM(embed=embed, layers=layers,
+                        final_norm=t("model.norm.weight"), lm_head=lm_head,
+                        cos=cos, sin=sin, config=cfg)
+
+    def quantize_int8(self) -> "DenseLLM":
+        """Weight-only int8 copy: the projection weights and the lm_head
+        become QuantW (int8 + per-column f32 scale); the embedding stays
+        in the model dtype (it is a gather, not a product)."""
+        layers = [
+            dataclasses.replace(
+                ly,
+                attn=dataclasses.replace(ly.attn, w_qkv=quantize_int8(ly.attn.w_qkv),
+                                         w_o=quantize_int8(ly.attn.w_o)),
+                mlp=dataclasses.replace(ly.mlp, w_gate_up=quantize_int8(ly.mlp.w_gate_up),
+                                        w_down=quantize_int8(ly.mlp.w_down)))
+            for ly in self.layers]
+        return dataclasses.replace(self, layers=layers,
+                                   lm_head=quantize_int8(self.lm_head))
+
+    def forward_tokens(self, ids: torch.Tensor, cache: KVCache,
+                       mode: str = "flash"):
+        """One forward pass over ids [B, S] starting at cache.offset; fills
+        the cache in place and returns (last-position logits [B, V] f32,
+        cache). mode: "flash" (kernels) or "xla" (plain versions)."""
+        B, S = ids.shape
+        cfg = self.config
+        x = self.embed[ids].reshape(B * S, cfg.hidden_size)
+        kv_start = cache.offset
+        for li, layer in enumerate(self.layers):
+            h = rms_norm(x, layer.ln_attn, cfg.rms_norm_eps)
+            a, _ = layer.attn.fwd_cached(h, self.cos, self.sin, B,
+                                         cache.layer(li), kv_start, mode)
+            x = x + a
+            h = rms_norm(x, layer.ln_mlp, cfg.rms_norm_eps)
+            x = x + layer.mlp(h, mode)
+        cache.advance(S)
+        x = rms_norm(x, self.final_norm, cfg.rms_norm_eps)
+        last = x.reshape(B, S, -1)[:, -1]
+        return qmm(last, self.lm_head, out_dtype=torch.float32), cache
+
+    def make_cache(self, batch: int, max_seq: int, dtype=None) -> KVCache:
+        cfg = self.config
+        return KVCache.create(cfg.num_layers, batch, max_seq, cfg.num_kv_heads,
+                              cfg.head_dim, device=self.device,
+                              dtype=dtype or cfg.torch_dtype)
