@@ -1,6 +1,7 @@
 """The port's slice as a whole (DenseLLM.forward_tokens, Engine.serve)
 against the JAX package on tiny_qwen3(1) with carried weights, plus the
-port's isolation from JAX and its device and capability gates.
+port's isolation from JAX and its device and capability gates (every
+path not ported yet raises NotImplementedError).
 
 The JAX model runs on a one-device mesh with its Pallas kernels in
 interpret mode; the port runs on the CPU (device="cpu"), where its
@@ -24,7 +25,9 @@ import torch
 from triton_dist_tpu.models import DenseLLM as JaxDenseLLM
 from triton_dist_tpu.models import Engine as JaxEngine
 from triton_dist_tpu.models.config import tiny_qwen3 as jax_tiny_qwen3
-from triton_dist_tpu_torch.models import AutoLLM, DenseLLM, Engine, ModelConfig, tiny_qwen3
+from triton_dist_tpu_torch.kernels import flash_decode, flash_decode_paged
+from triton_dist_tpu_torch.models import (AutoLLM, ContinuousScheduler, DenseLLM, Engine,
+                                          ModelConfig, Request, tiny_qwen3)
 from triton_dist_tpu_torch.models.convert import from_jax_arrays
 
 B, S, GEN = 2, 8, 4
@@ -214,15 +217,48 @@ def test_engine_gates(kw, exc):
         Engine(model, device="cpu", **kw)
 
 
-def test_not_ported_paths_raise():
-    model = AutoLLM.from_config(tiny_qwen3(1), device="cpu")
-    eng = Engine(model, device="cpu")
+def _gate_cases():
+    """What the port does not run yet, each as a call that must raise
+    NotImplementedError("... not yet ported")."""
+    def model():
+        return AutoLLM.from_config(tiny_qwen3(1), device="cpu")
+
+    def sched(**kw):
+        return ContinuousScheduler(Engine(model(), max_seq=32, device="cpu"), batch=2,
+                                   **kw)
+
+    def submit(**kw):
+        sched().submit(Request(rid=0, ids=np.zeros(4, np.int32), gen_len=2, **kw))
+
+    q = torch.zeros(1, 1, 2, 32)
+    kv = torch.zeros(1, 1, 8, 32)
+    pool = torch.zeros(3, 8, 32)
+    table = torch.zeros(1, 2, dtype=torch.int32)
+    lens = torch.ones(1, dtype=torch.int32)
+    return {
+        "moe": lambda: AutoLLM.from_config(ModelConfig(num_experts=4), device="cpu"),
+        "mode_dist": lambda: model().forward_tokens(
+            torch.zeros(1, 1, dtype=torch.long), model().make_cache(1, 8), mode="dist"),
+        "spec": lambda: sched(spec=2),
+        "prefill_budget": lambda: sched(prefill_budget=8),
+        "overlap": lambda: sched(overlap=True),
+        "host_pool_pages": lambda: sched(paged=True, host_pool_pages=4),
+        "watchdog_s": lambda: sched(watchdog_s=1.0),
+        "fault": lambda: sched(fault=object()),
+        "slo_classes": lambda: sched(slo_classes={}),
+        "request_slo": lambda: submit(slo="interactive"),
+        "request_deadline_ms": lambda: submit(deadline_ms=100.0),
+        "request_n": lambda: submit(n=2),
+        "request_grammar": lambda: submit(grammar=object()),
+        "flash_decode_q_lens": lambda: flash_decode(q, kv, kv, kv_lens=lens, q_lens=lens),
+        "flash_decode_paged_q_lens": lambda: flash_decode_paged(
+            q, pool, pool, table, kv_lens=lens, q_lens=lens),
+        "flash_decode_paged_partial": lambda: flash_decode_paged(
+            q, pool, pool, table, kv_lens=lens, tile_owned=table),
+    }
+
+
+@pytest.mark.parametrize("case", list(_gate_cases()))
+def test_not_ported_paths_raise(case):
     with pytest.raises(NotImplementedError, match="not yet ported"):
-        eng.make_slot_cache(2)
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        eng.make_paged_slot_cache(2)
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        AutoLLM.from_config(ModelConfig(num_experts=4), device="cpu")
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        model.forward_tokens(torch.zeros(1, 1, dtype=torch.long),
-                             model.make_cache(1, 8), mode="dist")
+        _gate_cases()[case]()

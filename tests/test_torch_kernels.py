@@ -16,11 +16,13 @@ import torch
 
 from triton_dist_tpu.kernels.flash_attn import flash_decode as jax_flash_decode
 from triton_dist_tpu.kernels.flash_attn import kv_update as jax_kv_update
+from triton_dist_tpu.kernels.paged_kv import flash_decode_paged as jax_flash_decode_paged
 from triton_dist_tpu.kernels.quant import quantize_int8 as jax_quantize_int8
 from triton_dist_tpu.kernels.quant import quantize_kv_int8 as jax_quantize_kv_int8
 from triton_dist_tpu.kernels.swiglu import swiglu as jax_swiglu
-from triton_dist_tpu_torch.kernels import (flash_decode, kv_update, quantize_int8,
-                                           quantize_kv_int8, swiglu)
+from triton_dist_tpu_torch.kernels import (flash_decode, flash_decode_paged,
+                                           flash_decode_paged_ref, kv_update,
+                                           quantize_int8, quantize_kv_int8, swiglu)
 from triton_dist_tpu_torch.models.convert import to_torch
 
 
@@ -125,3 +127,88 @@ def test_quantizers_bitwise():
     tk, ts = quantize_kv_int8(torch.from_numpy(x))
     np.testing.assert_array_equal(tk.numpy(), np.asarray(jk))
     np.testing.assert_allclose(ts.numpy(), np.asarray(js), rtol=1e-7, atol=0)
+
+
+def _cast(kind, q, k, v):
+    """f32 inputs as the kind's q and K/V: f32, bf16, or bf16 q with int8
+    K/V quantized per position (scales returned)."""
+    if kind == "f32":
+        return q, k, v, {}
+    q = q.astype(jnp.bfloat16)
+    if kind == "bf16":
+        return q, k.astype(jnp.bfloat16), v.astype(jnp.bfloat16), {}
+    (k, ks), (v, vs) = jax_quantize_kv_int8(k), jax_quantize_kv_int8(v)
+    return q, k, v, dict(k_scale=ks, v_scale=vs)
+
+
+def _assert_attn_close(kind, got, want):
+    assert got.dtype == (torch.float32 if kind == "f32" else torch.bfloat16)
+    if kind == "f32":
+        np.testing.assert_allclose(_np(got), _np(want), atol=5e-5, rtol=1e-5)
+    else:
+        # bf16 output rounding plus the Pallas kernel's bf16 rounding of
+        # P, which the plain version keeps in f32 (as above)
+        ref = _np(want)
+        assert np.abs(_np(got) - ref).max() <= 2.0 ** -6 * np.abs(ref).max()
+
+
+@pytest.mark.parametrize("kind", ["f32", "bf16", "int8"])
+def test_flash_decode_kv_lens_matches_pallas(kind):
+    """Per-row lengths (the contiguous slot tick): row b attends exactly
+    kv_lens[b] positions; the cache past each row's length holds 100x
+    values, which a read one key too far would carry into the output."""
+    B, Hq, Hkv, T, d = 3, 4, 2, 32, 32
+    rng = np.random.RandomState(11 + len(kind))
+    lens = np.asarray([5, 16, 29], np.int32)          # mid-tile, on a boundary
+    q = jnp.asarray(rng.randn(B, 1, Hq, d) * 0.5, jnp.float32)
+    kv = rng.randn(2, B, Hkv, T, d) * 0.5
+    for b, n in enumerate(lens):
+        kv[:, b, :, n:] *= 100
+    q, k, v, kw = _cast(kind, q, jnp.asarray(kv[0], jnp.float32),
+                        jnp.asarray(kv[1], jnp.float32))
+    with jax.default_matmul_precision("highest"):
+        want = jax_flash_decode(q, k, v, int(lens.max()), kv_lens=jnp.asarray(lens), **kw)
+    t = lambda a: to_torch(np.asarray(a))
+    got = flash_decode(t(q), t(k), t(v), kv_lens=torch.from_numpy(lens),
+                       **{n: t(a) for n, a in kw.items()})
+    _assert_attn_close(kind, got, want)
+
+
+@pytest.mark.parametrize("kind", ["f32", "bf16", "int8"])
+def test_flash_decode_paged_ref_matches_pallas(kind):
+    """flash_decode_paged (its plain version on the CPU) against the
+    Pallas paged kernel on a scattered table: pages are a random
+    permutation of the pool, lengths end mid-page, on a page boundary
+    and at one position, table entries past each stream's pages point at
+    random pages, and every page the streams do not use (the trash page
+    0 included) and every row past a stream's length holds 100x
+    values, scales too."""
+    B, Hq, Hkv, d, page, maxp = 3, 4, 2, 32, 8, 4
+    X = B * Hkv
+    NP = 1 + X * maxp + 3
+    rng = np.random.RandomState(5 + len(kind))
+    lens = np.asarray([13, 16, 1], np.int32)
+    perm = 1 + rng.permutation(NP - 1)[:X * maxp]
+    table = perm.reshape(X, maxp).astype(np.int32)
+    pools = rng.randn(2, NP, page, d) * 0.5
+    used = np.zeros((NP, page), bool)
+    for x in range(X):
+        n = int(lens[x // Hkv])
+        npg = -(-n // page)
+        for t in range(n):
+            used[table[x, t // page], t % page] = True
+        table[x, npg:] = rng.randint(0, NP, maxp - npg)
+    pools[:, ~used] *= 100
+    q = jnp.asarray(rng.randn(B, 1, Hq, d) * 0.5, jnp.float32)
+    q, pk, pv, kw = _cast(kind, q, jnp.asarray(pools[0], jnp.float32),
+                          jnp.asarray(pools[1], jnp.float32))
+    with jax.default_matmul_precision("highest"):
+        want = jax_flash_decode_paged(q, pk, pv, jnp.asarray(table), int(lens.max()),
+                                      kv_lens=jnp.asarray(lens), **kw)
+    t = lambda a: to_torch(np.asarray(a))
+    args = (t(q), t(pk), t(pv), torch.from_numpy(table))
+    tkw = {n: t(a) for n, a in kw.items()}
+    got = flash_decode_paged(*args, kv_lens=torch.from_numpy(lens), **tkw)
+    _assert_attn_close(kind, got, want)
+    ref = flash_decode_paged_ref(*args, kv_lens=torch.from_numpy(lens), **tkw)
+    assert torch.equal(got, ref)            # the CPU wrapper is the plain version

@@ -136,3 +136,93 @@ def test_mlp_fwd_flash_matches_jax(weights):
     assert got.dtype == torch.bfloat16
     # bf16 products and activation: a few ulps of bf16
     _close(got, want, 2e-2)
+
+
+def _slot_attn(rng):
+    """Carried bf16 attention weights (JAX layer, port layer) and RoPE
+    tables, for the slot forms."""
+    ws = [jnp.asarray(rng.randn(*shape) * 0.1).astype(jnp.bfloat16)
+          for shape in ((D, HQ * HD), (D, HKV * HD), (D, HKV * HD), (HQ * HD, D))]
+    qn = np.abs(rng.randn(HD)).astype(np.float32)
+    kn = np.abs(rng.randn(HD)).astype(np.float32)
+    jattn = JaxAttn.init(*ws, mesh=_mesh(), n_heads=HQ, n_kv_heads=HKV, head_dim=HD,
+                         q_norm=qn, k_norm=kn)
+    attn = TP_Attn(w_qkv=_t(jattn.w_qkv), w_o=_t(jattn.w_o), q_norm=_t(qn),
+                   k_norm=_t(kn), n_heads=HQ, n_kv_heads=HKV, head_dim=HD)
+    return jattn, attn
+
+
+def _random_kv(rng, cache, shape):
+    """A filled cache or pool tuple as numpy: bf16 K/V, or int8 K/V with
+    per-position f32 scales over shape[:-1]."""
+    if cache == "bf16":
+        return [np.asarray(jnp.asarray(rng.randn(*shape)).astype(jnp.bfloat16))
+                for _ in range(2)]
+    return ([rng.randint(-127, 128, shape).astype(np.int8) for _ in range(2)]
+            + [np.abs(rng.randn(*shape[:-1])).astype(np.float32) * 0.02
+               for _ in range(2)])
+
+
+def _check_kv(cache, got, want):
+    if cache == "bf16":
+        for g, w in zip(got, want):
+            _close(g, w, 2.0 ** -6)
+    else:
+        for g, w in zip(got[:2], want[:2]):     # int8 values: off by one at most
+            assert np.abs(g.numpy().astype(int) - np.asarray(w).astype(int)).max() <= 1
+        for g, w in zip(got[2:], want[2:]):     # per-position f32 scales
+            _close(g, w, 2.0 ** -6)
+
+
+@pytest.mark.parametrize("mode", ["flash", "xla"])
+@pytest.mark.parametrize("cache", ["bf16", "int8"])
+def test_attn_fwd_cached_slots_matches_jax(mode, cache):
+    """Two continuous-batching steps, each row at its own position (one
+    row reaching the cache's last column), on a filled contiguous cache:
+    the outputs and the updated caches."""
+    B, T = 3, 16
+    rng = np.random.RandomState(6)
+    jattn, attn = _slot_attn(rng)
+    jcos, jsin = jax_precompute_rope(HD, T)
+    cos, sin = precompute_rope(HD, T)
+    kv0 = _random_kv(rng, cache, (B, HKV, T, HD))
+    jkv = tuple(jnp.asarray(a) for a in kv0)
+    kv = tuple(_t(a) for a in kv0)
+    fwd = jax.jit(lambda a, x, c, p, b: a.fwd_cached_slots(x, jcos, jsin, b, c, p, mode),
+                  static_argnums=(4,))
+    for pos in (np.asarray([3, 9, 14], np.int32), np.asarray([4, 10, 15], np.int32)):
+        x = jnp.asarray(rng.randn(B, D)).astype(jnp.bfloat16)
+        want, jkv = fwd(jattn, x, jkv, jnp.asarray(pos), B)
+        got, kv = attn.fwd_cached_slots(_t(x), cos, sin, B, kv, torch.from_numpy(pos),
+                                        mode)
+        _close(got, want, 2e-2)                 # bf16 projections and attention
+    _check_kv(cache, kv, jkv)
+
+
+@pytest.mark.parametrize("mode", ["flash", "xla"])
+@pytest.mark.parametrize("cache", ["bf16", "int8"])
+def test_attn_fwd_cached_slots_paged_matches_jax(mode, cache):
+    """The same two steps over a filled page pool behind a scattered
+    table (rows' positions end mid-page and on a page's last row): the
+    outputs and the updated pools and scale pools."""
+    B, page, maxp = 3, 8, 2
+    X = B * HKV
+    NP = 1 + X * maxp + 2
+    rng = np.random.RandomState(7)
+    jattn, attn = _slot_attn(rng)
+    jcos, jsin = jax_precompute_rope(HD, maxp * page)
+    cos, sin = precompute_rope(HD, maxp * page)
+    table = (1 + rng.permutation(NP - 1)[:X * maxp]).reshape(X, maxp).astype(np.int32)
+    kv0 = _random_kv(rng, cache, (NP, 1, page, HD))
+    jkv = tuple(jnp.asarray(a) for a in kv0)
+    kv = tuple(_t(a) for a in kv0)
+    fwd = jax.jit(lambda a, x, c, tb, p, b: a.fwd_cached_slots_paged(
+        x, jcos, jsin, b, c, tb, p, mode), static_argnums=(5,))
+    for pos in (np.asarray([3, 6, 14], np.int32), np.asarray([4, 7, 15], np.int32)):
+        x = jnp.asarray(rng.randn(B, D)).astype(jnp.bfloat16)
+        want, jkv = fwd(jattn, x, jkv, jnp.asarray(table), jnp.asarray(pos), B)
+        got, kv = attn.fwd_cached_slots_paged(_t(x), cos, sin, B, kv,
+                                              torch.from_numpy(table),
+                                              torch.from_numpy(pos), mode)
+        _close(got, want, 2e-2)
+    _check_kv(cache, kv, jkv)

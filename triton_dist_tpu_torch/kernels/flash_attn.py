@@ -5,7 +5,8 @@ Counterpart of triton_dist_tpu/kernels/flash_attn.py (`flash_decode`,
     q [B, S, Hq, d]; cache k, v [B, Hkv, T, d] (T = static capacity);
     int8 caches carry per-position f32 scales [B, Hkv, T].
 `kv_len` counts the valid cache positions INCLUDING the S query
-positions: query s sits at kv_len - S + s and attends causally.
+positions: query s sits at kv_len - S + s and attends causally; the
+continuous-batching tick passes per-row lengths `kv_lens` [B] instead.
 
 `flash_decode` and `kv_update` launch the hand-written CUDA kernels
 (csrc/flash_decode.cu, csrc/kv_update.cu) for CUDA tensors and take the
@@ -26,11 +27,12 @@ from triton_dist_tpu_torch.kernels.quant import dequantize_kv_int8
 _HEAD_DIMS = (64, 128)   # head dims csrc/flash_decode.cu is instantiated for
 
 
-def flash_decode_ref(q, k, v, kv_len: int, *, scale: Optional[float] = None,
-                     k_scale=None, v_scale=None):
+def flash_decode_ref(q, k, v, kv_len=None, *, scale: Optional[float] = None,
+                     k_scale=None, v_scale=None, kv_lens=None):
     """Plain version of flash_decode: masked f32 softmax over the whole
     static T (the math of the JAX `attention_cached_ref`); an int8 cache
-    is dequantized with its per-position scales first. Returns q's
+    is dequantized with its per-position scales first. kv_lens [B]
+    gives each batch row its own length in place of kv_len. Returns q's
     dtype."""
     B, S, Hq, d = q.shape
     _, Hkv, T, _ = k.shape
@@ -45,8 +47,12 @@ def flash_decode_ref(q, k, v, kv_len: int, *, scale: Optional[float] = None,
     logits = torch.einsum("bsgrd,bgtd->bgsrt", qg, kf) * scale
     si = torch.arange(S, device=q.device)[:, None]
     ti = torch.arange(T, device=q.device)[None, :]
-    mask = ti <= si + (kv_len - S)                             # [S, T]
-    logits = logits.masked_fill(~mask[None, None, :, None, :], float("-inf"))
+    if kv_lens is None:
+        mask = (ti <= si + (kv_len - S))[None]                 # [1, S, T]
+    else:
+        lens = kv_lens.to(q.device, torch.long)[:, None, None]
+        mask = ti[None] <= si[None] + (lens - S)                # [B, S, T]
+    logits = logits.masked_fill(~mask[:, None, :, None, :], float("-inf"))
     p = torch.softmax(logits, dim=-1)
     out = torch.einsum("bgsrt,bgtd->bsgrd", p, vf)
     return out.reshape(B, S, Hq, d).to(q.dtype)
@@ -57,24 +63,39 @@ def _check_kv_len(kv_len: int, S: int, T: int) -> None:
         raise ValueError(f"flash_decode: kv_len={kv_len} outside [S={S}, T={T}]")
 
 
-def flash_decode(q, k, v, kv_len: int, *, scale: Optional[float] = None,
-                 k_scale=None, v_scale=None):
+def flash_decode(q, k, v, kv_len: Optional[int] = None, *,
+                 scale: Optional[float] = None, k_scale=None, v_scale=None,
+                 kv_lens=None, q_lens=None):
     """Cached GQA attention (decode and prefill-into-cache).
 
     q: [B, S, Hq, d] (last dim contiguous); k, v: [B, Hkv, T, d] of q's
     dtype, or int8 with k_scale/v_scale [B, Hkv, T] f32 (then q is bf16).
-    kv_len: valid positions including the S new ones. Returns
-    [B, S, Hq, d] in q's dtype."""
+    kv_len: valid positions including the S new ones. kv_lens: per-row
+    lengths [B] int32 on q's device in place of kv_len (S == 1, the
+    continuous-batching tick): row b attends exactly kv_lens[b]
+    positions; the values stay on the device (the kernel reads them), so
+    they are not range-checked here. Returns [B, S, Hq, d] in q's
+    dtype."""
+    if q_lens is not None:
+        raise NotImplementedError("flash_decode q_lens (verify and chunked-"
+                                  "prefill windows): not yet ported")
     B, S, Hq, d = q.shape
     _, Hkv, T, _ = k.shape
-    _check_kv_len(kv_len, S, T)
+    if kv_lens is None:
+        _check_kv_len(kv_len, S, T)
+    elif S != 1 or kv_lens.shape != (B,) or kv_lens.dtype != torch.int32:
+        raise ValueError(f"flash_decode: kv_lens must be int32 [B={B}] with S == 1 "
+                         f"(got {tuple(kv_lens.shape)} {kv_lens.dtype}, S={S})")
     if q.device.type == "cpu":
         return flash_decode_ref(q, k, v, kv_len, scale=scale, k_scale=k_scale,
-                                v_scale=v_scale)
+                                v_scale=v_scale, kv_lens=kv_lens)
     if scale is None:
         scale = d ** -0.5
     quant = k_scale is not None
     _validate_flash(q, k, v, k_scale, v_scale, quant)
+    if kv_lens is not None and (kv_lens.device != q.device
+                                or not kv_lens.is_contiguous()):
+        raise ValueError("flash_decode: kv_lens must be contiguous on q's device")
     out = torch.empty((B, S, Hq, d), dtype=q.dtype, device=q.device)
     ks_ptr = k_scale.data_ptr() if quant else 0
     vs_ptr = v_scale.data_ptr() if quant else 0
@@ -82,7 +103,8 @@ def flash_decode(q, k, v, kv_len: int, *, scale: Optional[float] = None,
     _build.ext().flash_decode(
         _build.DTYPE_CODES[q.dtype], _build.DTYPE_CODES[k.dtype],
         q.data_ptr(), k.data_ptr(), v.data_ptr(), ks_ptr, vs_ptr,
-        out.data_ptr(), kv_len, B, S, Hq, Hkv, T, d,
+        0 if kv_lens is None else kv_lens.data_ptr(), out.data_ptr(),
+        0 if kv_len is None else kv_len, B, S, Hq, Hkv, T, d,
         float(scale), q.stride(0), q.stride(1), q.stride(2), k.stride(0),
         k.stride(1), k.stride(2), *sc_strides, _build.stream_ptr(q.device))
     _build.count("flash_decode")

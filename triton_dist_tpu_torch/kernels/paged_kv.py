@@ -1,0 +1,201 @@
+"""Decode attention through a page table, and the host page allocator.
+
+Counterpart of triton_dist_tpu/kernels/paged_kv.py (`flash_decode_paged`
+in its per-slot `kv_lens` decode form, `PageAllocator`), same layouts:
+    q [B, 1, Hq, d]; page pools k, v [NP, page, d] (one page = `page`
+    consecutive positions of ONE (slot, kv-head) stream); page table
+    [B*Hkv, max_pages] int32 (row b*Hkv + h is stream (b, h)); int8
+    pools carry per-position f32 scale pages [NP, page].
+The serving cache keeps its pools as [NP, 1, page, d] (models/kv_cache.py
+`PagedSlotCache`, the JAX head-group layout at tensor-parallel size 1);
+the layer hands plane 0 (`pool[:, 0]`, a strided view) to this function.
+
+`flash_decode_paged` launches the hand-written CUDA kernel
+(csrc/flash_decode_paged.cu) for CUDA tensors and takes the plain
+PyTorch version, `flash_decode_paged_ref`, only for CPU tensors.
+"""
+
+from __future__ import annotations
+
+from typing import List, Optional
+
+import torch
+
+from triton_dist_tpu_torch.kernels import _build
+from triton_dist_tpu_torch.kernels.flash_attn import _HEAD_DIMS, flash_decode_ref
+
+
+def flash_decode_paged_ref(q, pages_k, pages_v, page_table, *, kv_lens,
+                           scale: Optional[float] = None, k_scale=None,
+                           v_scale=None):
+    """Plain version of flash_decode_paged: gather every stream's pages
+    through the table into a contiguous [B, Hkv, max_pages*page, d]
+    cache (scales too) and run the plain contiguous attention
+    (flash_decode_ref) with per-row lengths — the JAX layer's "xla"
+    oracle. Rows of the table past a stream's length are gathered but
+    masked, so they must only hold in-range page ids."""
+    B, S, Hq, d = q.shape
+    X, maxp = page_table.shape
+    Hkv = X // B
+    page = pages_k.shape[1]
+    tbl = page_table.long()
+
+    def gather(pool):
+        return pool[tbl].reshape((B, Hkv, maxp * page) + pool.shape[2:])
+
+    ks = vs = None
+    if k_scale is not None:
+        ks, vs = gather(k_scale), gather(v_scale)
+    return flash_decode_ref(q, gather(pages_k), gather(pages_v), scale=scale,
+                            k_scale=ks, v_scale=vs, kv_lens=kv_lens)
+
+
+def flash_decode_paged(q, pages_k, pages_v, page_table, *, kv_lens,
+                       scale: Optional[float] = None, q_lens=None,
+                       k_scale=None, v_scale=None, tile_owned=None):
+    """Cached GQA decode attention through a page table.
+
+    q: [B, 1, Hq, d] (last dim contiguous); pages_k/v: [NP, page, d] of
+    q's dtype, or int8 with k_scale/v_scale [NP, page] f32 (then q is
+    bf16); page_table: [B*Hkv, max_pages] int32; kv_lens: per-row
+    lengths [B] int32 on q's device: row b attends positions
+    [0, kv_lens[b]) of its own streams,
+    whose table entries must be valid page ids for those positions
+    (entries past them are never read). Returns [B, 1, Hq, d] in q's
+    dtype."""
+    if q_lens is not None:
+        raise NotImplementedError("flash_decode_paged q_lens (verify and "
+                                  "chunked-prefill windows): not yet ported")
+    if tile_owned is not None:
+        raise NotImplementedError("flash_decode_paged_partial (the sequence-"
+                                  "parallel split-KV form): not yet ported")
+    B, S, Hq, d = q.shape
+    X, maxp = page_table.shape
+    if S != 1 or X % B:
+        raise ValueError(f"flash_decode_paged: q {tuple(q.shape)} and table "
+                         f"{tuple(page_table.shape)}: want S == 1 and B*Hkv rows")
+    if kv_lens.shape != (B,) or kv_lens.dtype != torch.int32:
+        raise ValueError(f"flash_decode_paged: kv_lens must be int32 [B={B}], got "
+                         f"{tuple(kv_lens.shape)} {kv_lens.dtype}")
+    if q.device.type == "cpu":
+        return flash_decode_paged_ref(q, pages_k, pages_v, page_table, scale=scale,
+                                      kv_lens=kv_lens, k_scale=k_scale,
+                                      v_scale=v_scale)
+    Hkv = X // B
+    page = pages_k.shape[1]
+    if scale is None:
+        scale = d ** -0.5
+    quant = k_scale is not None
+    _validate_paged(q, pages_k, pages_v, page_table, kv_lens, k_scale, v_scale, quant)
+    out = torch.empty((B, 1, Hq, d), dtype=q.dtype, device=q.device)
+    _build.ext().flash_decode_paged(
+        _build.DTYPE_CODES[q.dtype], _build.DTYPE_CODES[pages_k.dtype],
+        q.data_ptr(), pages_k.data_ptr(), pages_v.data_ptr(),
+        k_scale.data_ptr() if quant else 0, v_scale.data_ptr() if quant else 0,
+        page_table.data_ptr(), kv_lens.data_ptr(), out.data_ptr(), B, Hq, Hkv, maxp,
+        page, d, float(scale), q.stride(0), q.stride(2), pages_k.stride(0),
+        pages_k.stride(1), k_scale.stride(0) if quant else 0,
+        _build.stream_ptr(q.device))
+    _build.count("flash_decode_paged")
+    return out
+
+
+def _validate_paged(q, pk, pv, table, lens, k_scale, v_scale, quant: bool) -> None:
+    B, _, Hq, d = q.shape
+    X = table.shape[0]
+    tensors = [q, pk, pv, table, lens] + ([k_scale, v_scale] if quant else [])
+    if any(t.device != q.device for t in tensors):
+        raise ValueError("flash_decode_paged: all tensors must be on one device")
+    if pk.dim() != 3 or pk.shape != pv.shape or pk.shape[2] != d:
+        raise ValueError(f"flash_decode_paged: q {tuple(q.shape)} does not match "
+                         f"pools {tuple(pk.shape)} / {tuple(pv.shape)}")
+    if Hq % (X // B):
+        raise ValueError(f"flash_decode_paged: Hq={Hq} is not a multiple of "
+                         f"Hkv={X // B}")
+    if d not in _HEAD_DIMS:
+        raise ValueError(f"flash_decode_paged: head_dim {d} not in {_HEAD_DIMS}")
+    if table.dtype != torch.int32 or not table.is_contiguous() \
+            or not lens.is_contiguous():
+        raise ValueError("flash_decode_paged: table and kv_lens must be "
+                         "contiguous int32")
+    if quant:
+        if q.dtype != torch.bfloat16 or pk.dtype != torch.int8 or pv.dtype != torch.int8:
+            raise ValueError("flash_decode_paged: an int8 pool takes a bf16 query")
+        if (v_scale is None or k_scale.shape != pk.shape[:2]
+                or v_scale.shape != pk.shape[:2]
+                or k_scale.dtype != torch.float32 or v_scale.dtype != torch.float32
+                or k_scale.stride() != v_scale.stride() or k_scale.stride(1) != 1):
+            raise ValueError("flash_decode_paged: scales must be f32 [NP, page] with "
+                             "equal strides and contiguous rows")
+    elif q.dtype not in (torch.bfloat16, torch.float32) or pk.dtype != q.dtype \
+            or pv.dtype != q.dtype:
+        raise ValueError(f"flash_decode_paged: q {q.dtype}, pools {pk.dtype} / "
+                         f"{pv.dtype}: want bf16 or f32 throughout")
+    if q.stride(3) != 1 or pk.stride(2) != 1 or pk.stride() != pv.stride():
+        raise ValueError("flash_decode_paged: head_dim must be contiguous and the "
+                         "pools must share strides")
+    size = pk.element_size()
+    if (any(s * size % 16 for s in pk.stride()[:2])
+            or pk.data_ptr() % 16 or pv.data_ptr() % 16):
+        raise ValueError("flash_decode_paged: every K/V row must be 16-byte aligned")
+
+
+class PageAllocator:
+    """Host-side free list over the physical page pool (copied from the
+    JAX package's single-shard allocator, so that page ids are handed
+    out in the same order: lowest id first, freed ids reused last in,
+    first out). Page 0 is the first handed out; the serving layer
+    reserves it as the trash page. Pure host bookkeeping: allocation
+    changes the page TABLE (data), never the kernel."""
+
+    def __init__(self, num_pages: int):
+        if num_pages < 1:
+            raise ValueError(f"page pool of {num_pages} pages")
+        self.num_pages = num_pages
+        # descending: pop() hands out the lowest id first
+        self._free = list(range(num_pages - 1, -1, -1))
+        self._in_use = set()
+
+    @property
+    def available(self) -> int:
+        return len(self._free)
+
+    @property
+    def outstanding(self) -> int:
+        return len(self._in_use)
+
+    def _check(self) -> None:
+        """Pool conservation: every page is on the free list XOR
+        outstanding (a violation means the bookkeeping handed one page to
+        two holders)."""
+        if self.available + len(self._in_use) != self.num_pages:
+            raise RuntimeError(
+                f"page pool corrupted: {self.available} free + "
+                f"{len(self._in_use)} in use != {self.num_pages}")
+
+    def alloc(self, n: int) -> List[int]:
+        """Take n pages off the free list (raises when the pool is
+        exhausted — the scheduler's admission check)."""
+        if n > self.available:
+            raise ValueError(f"page pool exhausted: want {n}, have {self.available}")
+        out = [self._free.pop() for _ in range(n)]
+        self._in_use.update(out)
+        self._check()
+        return out
+
+    def free(self, pages) -> None:
+        """Return pages to the free list. Rejects out-of-range ids and
+        double frees BEFORE touching the pool."""
+        pages = [int(p) for p in pages]
+        seen = set()
+        for p in pages:
+            if not 0 <= p < self.num_pages:
+                raise ValueError(f"free of out-of-range page {p} "
+                                 f"(pool has {self.num_pages})")
+            if p not in self._in_use or p in seen:
+                raise ValueError(f"double free of page {p}")
+            seen.add(p)
+        for p in pages:
+            self._in_use.remove(p)
+            self._free.append(p)
+        self._check()

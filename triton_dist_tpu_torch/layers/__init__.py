@@ -1,6 +1,6 @@
 """Layers of the port (tensor-parallel size 1)."""
 
 from triton_dist_tpu_torch.layers.common import (  # noqa: F401
-    apply_rope, precompute_rope, rms_norm, shard_cols_packed)
+    apply_rope, apply_rope_slots, precompute_rope, rms_norm, shard_cols_packed)
 from triton_dist_tpu_torch.layers.tp_attn import TP_Attn  # noqa: F401
 from triton_dist_tpu_torch.layers.tp_mlp import TP_MLP  # noqa: F401

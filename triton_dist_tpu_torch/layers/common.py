@@ -1,7 +1,8 @@
 """Shared layer math: RMSNorm, RoPE, weight packing.
 
 Counterpart of triton_dist_tpu/layers/common.py (`rms_norm`,
-`precompute_rope`, `apply_rope`, `shard_cols_packed`).
+`precompute_rope`, `apply_rope`, `apply_rope_slots`,
+`shard_cols_packed`).
 """
 
 from __future__ import annotations
@@ -34,6 +35,18 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor,
     [max_seq, D/2]; positions [S]. Returns x's dtype."""
     c = cos[positions][:, None, :]
     s = sin[positions][:, None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    return torch.cat([x1 * c - x2 * s, x2 * c + x1 * s], dim=-1).to(x.dtype)
+
+
+def apply_rope_slots(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor,
+                     pos: torch.Tensor):
+    """Per-slot RoPE: x [B, S, H, D]; pos [B] — row b rotates at
+    positions pos[b] .. pos[b]+S-1 (the continuous-batching tick, where
+    every row is a different request). Returns x's dtype."""
+    p = pos[:, None] + torch.arange(x.shape[1], device=pos.device)   # [B, S]
+    c = cos[p][:, :, None, :]
+    s = sin[p][:, :, None, :]
     x1, x2 = x.float().chunk(2, dim=-1)
     return torch.cat([x1 * c - x2 * s, x2 * c + x1 * s], dim=-1).to(x.dtype)
 

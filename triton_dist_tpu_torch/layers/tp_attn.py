@@ -1,11 +1,15 @@
 """Attention block (GQA, Qwen3 QK-norm) with the KV cache.
 
 Counterpart of triton_dist_tpu/layers/tp_attn.py (`TP_Attn.init`,
-`_qkv_proj`, `_attend_cached`, `_o_proj`, `fwd_cached`) at tensor-
-parallel size 1, for the modes "flash" (the CUDA kernels) and "xla"
-(the plain PyTorch versions, the JAX package's oracle mode). The packed
-weight layout is kept: w_qkv is [D, (Hq + 2*Hkv) * hd] = [q | k | v].
-The KV cache tensors are updated in place.
+`_qkv_proj`, `_attend_cached`, `_o_proj`, `fwd_cached`, and the
+continuous-batching forms `_attend_cached_slots`/`fwd_cached_slots`
+and `_attend_paged_slots`/`fwd_cached_slots_paged`) at tensor-parallel
+size 1, for the modes "flash" (the CUDA kernels) and "xla" (the plain
+PyTorch versions, the JAX package's oracle mode). The packed weight
+layout is kept: w_qkv is [D, (Hq + 2*Hkv) * hd] = [q | k | v]. The KV
+cache tensors and page pools are updated in place; the per-row writes
+of the slot forms are plain torch indexing, as the JAX `.at[].set`
+was plain jnp.
 """
 
 from __future__ import annotations
@@ -18,9 +22,11 @@ import torch
 from triton_dist_tpu_torch.kernels.flash_attn import (flash_decode,
                                                       flash_decode_ref,
                                                       kv_update, kv_update_ref)
+from triton_dist_tpu_torch.kernels.paged_kv import (flash_decode_paged,
+                                                   flash_decode_paged_ref)
 from triton_dist_tpu_torch.kernels.quant import Weight, qmm, quantize_kv_int8
-from triton_dist_tpu_torch.layers.common import (apply_rope, rms_norm,
-                                                 shard_cols_packed)
+from triton_dist_tpu_torch.layers.common import (apply_rope, apply_rope_slots,
+                                                 rms_norm, shard_cols_packed)
 
 MODES = ("flash", "xla")
 
@@ -120,4 +126,124 @@ class TP_Attn:
         impl = "ref" if mode == "xla" else "flash"
         o, kv = self._attend_cached(self._qkv_proj(x), cos, sin, batch, kv,
                                     kv_start, impl)
+        return self._o_proj(o), kv
+
+    def _slot_qkv(self, qkv, cos, sin, pos):
+        """One token per slot: split the packed rows, QK-norm, and RoPE
+        row b at its own position pos[b]. qkv: [B, qkv_cols]. Returns q
+        [B, 1, Hq, hd], k and v [B, Hkv, hd]."""
+        hq, hkv, hd = self.n_heads, self.n_kv_heads, self.head_dim
+        B = qkv.shape[0]
+        q = qkv[:, :hq * hd].reshape(B, 1, hq, hd)
+        k = qkv[:, hq * hd:(hq + hkv) * hd].reshape(B, 1, hkv, hd)
+        v = qkv[:, (hq + hkv) * hd:].reshape(B, hkv, hd)
+        if self.q_norm is not None:
+            q = rms_norm(q, self.q_norm)
+        if self.k_norm is not None:
+            k = rms_norm(k, self.k_norm)
+        q = apply_rope_slots(q, cos, sin, pos)
+        k = apply_rope_slots(k, cos, sin, pos)
+        return q, k[:, 0], v
+
+    def _attend_cached_slots(self, qkv, cos, sin, batch: int, kv, pos,
+                             impl: str = "flash"):
+        """Slot form of _attend_cached (continuous-batching decode, one
+        token per row): row b writes its K/V at column pos[b] of ITS
+        cache row (in place) and attends its own columns [0, pos[b]]
+        through per-row lengths (flash_decode kv_lens). pos: [B] int32 on
+        the cache's device. Returns (o [B, Hq*hd], kv)."""
+        hq, hd = self.n_heads, self.head_dim
+        scale = hd ** -0.5
+        q, k, v = self._slot_qkv(qkv, cos, sin, pos)
+        rows = torch.arange(batch, device=qkv.device)
+        col = pos.long()
+        lens = pos + 1
+        if len(kv) == 4:
+            ck, cv, ks, vs = kv
+            k8, k_s = quantize_kv_int8(k)
+            v8, v_s = quantize_kv_int8(v)
+            ck[rows, :, col] = k8
+            cv[rows, :, col] = v8
+            ks[rows, :, col] = k_s
+            vs[rows, :, col] = v_s
+            if impl == "flash":
+                o = flash_decode(q.to(torch.bfloat16), ck, cv, scale=scale,
+                                 k_scale=ks, v_scale=vs, kv_lens=lens)
+            else:
+                o = flash_decode_ref(q.float(), ck, cv, scale=scale, k_scale=ks,
+                                     v_scale=vs, kv_lens=lens)
+            return o.reshape(batch, hq * hd).to(qkv.dtype), kv
+        ck, cv = kv
+        ck[rows, :, col] = k.to(ck.dtype)
+        cv[rows, :, col] = v.to(cv.dtype)
+        attend = flash_decode if impl == "flash" else flash_decode_ref
+        o = attend(q.to(ck.dtype), ck, cv, scale=scale, kv_lens=lens)
+        return o.reshape(batch, hq * hd), kv
+
+    def _attend_paged_slots(self, qkv, cos, sin, batch: int, kv, table, pos,
+                            impl: str = "flash"):
+        """Paged form of _attend_cached_slots: row b's new K/V lands in
+        the physical page its table rows map for position pos[b] (row
+        pos[b] % page), and attention walks the pool through the table
+        (flash_decode_paged; under impl "ref" its plain version, which
+        gathers the pages and runs the contiguous plain attention, as the
+        JAX oracle does). kv: one layer's pools (pages_k, pages_v)
+        [NP, 1, page, hd], or with the int8 scale pools (.., scales_k,
+        scales_v) [NP, 1, page]; table: [B*Hkv, max_pages] int32, shared
+        by all layers. Retired rows map the trash page, so their writes
+        land there. Returns (o [B, Hq*hd], kv)."""
+        hq, hkv, hd = self.n_heads, self.n_kv_heads, self.head_dim
+        scale = hd ** -0.5
+        quant = len(kv) == 4
+        q, k, v = self._slot_qkv(qkv, cos, sin, pos)
+        ck, cv = kv[0][:, 0], kv[1][:, 0]                    # plane 0 views
+        page = ck.shape[1]
+        X = batch * hkv
+        pos_x = pos.long()[:, None].expand(batch, hkv).reshape(X)    # [X]
+        pidx = table[torch.arange(X, device=qkv.device), pos_x // page].long()
+        r = pos_x % page
+        sk = sv = None
+        if quant:
+            sk, sv = kv[2][:, 0], kv[3][:, 0]
+            k8, k_s = quantize_kv_int8(k.reshape(X, hd))
+            v8, v_s = quantize_kv_int8(v.reshape(X, hd))
+            ck[pidx, r] = k8
+            cv[pidx, r] = v8
+            sk[pidx, r] = k_s
+            sv[pidx, r] = v_s
+        else:
+            ck[pidx, r] = k.reshape(X, hd).to(ck.dtype)
+            cv[pidx, r] = v.reshape(X, hd).to(cv.dtype)
+        lens = pos + 1
+        if impl == "flash":
+            o = flash_decode_paged(q.to(torch.bfloat16 if quant else ck.dtype), ck, cv,
+                                   table, scale=scale, kv_lens=lens, k_scale=sk,
+                                   v_scale=sv)
+        else:
+            o = flash_decode_paged_ref(q.float() if quant else q.to(ck.dtype), ck, cv,
+                                       table, scale=scale, kv_lens=lens, k_scale=sk,
+                                       v_scale=sv)
+        return o.reshape(batch, hq * hd).to(qkv.dtype), kv
+
+    def fwd_cached_slots(self, x, cos, sin, batch: int, kv, pos,
+                         mode: str = "flash"):
+        """Slot-masked decode attention block (continuous batching): one
+        token per row, row b at its own position pos[b]. x: [B, D];
+        kv: the layer's cache tuple. Returns (y [B, D], kv)."""
+        check_mode(mode)
+        impl = "ref" if mode == "xla" else "flash"
+        o, kv = self._attend_cached_slots(self._qkv_proj(x), cos, sin, batch, kv,
+                                          pos, impl)
+        return self._o_proj(o), kv
+
+    def fwd_cached_slots_paged(self, x, cos, sin, batch: int, kv, table, pos,
+                               mode: str = "flash"):
+        """fwd_cached_slots over the paged pool: row b's cache is whatever
+        pages its table rows map, possibly pages shared read-only with
+        other slots' prefixes (decode only writes at pos[b], past any
+        shared prefix). Returns (y [B, D], kv)."""
+        check_mode(mode)
+        impl = "ref" if mode == "xla" else "flash"
+        o, kv = self._attend_paged_slots(self._qkv_proj(x), cos, sin, batch, kv,
+                                         table, pos, impl)
         return self._o_proj(o), kv

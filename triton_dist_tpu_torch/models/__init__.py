@@ -5,7 +5,9 @@ from triton_dist_tpu_torch.models.config import (ModelConfig,  # noqa: F401
                                                  qwen3_1p7b, tiny_qwen3)
 from triton_dist_tpu_torch.models.dense import DenseLLM  # noqa: F401
 from triton_dist_tpu_torch.models.engine import Engine  # noqa: F401
-from triton_dist_tpu_torch.models.kv_cache import KVCache  # noqa: F401
+from triton_dist_tpu_torch.models.kv_cache import KVCache, PagedSlotCache  # noqa: F401
+from triton_dist_tpu_torch.models.scheduler import (  # noqa: F401
+    ContinuousScheduler, Request)
 
 
 class AutoLLM:

@@ -1,6 +1,7 @@
 """Dense Qwen3-family LLM: counterpart of triton_dist_tpu/models/dense.py
 (`random_init`, `from_hf`, `quantize_int8`, `forward_tokens`,
-`make_cache`) at tensor-parallel size 1.
+`forward_tokens_slots`, `forward_tokens_slots_paged`, `make_cache`) at
+tensor-parallel size 1.
 
 The model is a dataclass of tensors on one device (the JAX pytree's
 leaves); `forward_tokens` fills the cache in place.
@@ -138,10 +139,11 @@ class DenseLLM:
                                    lm_head=quantize_int8(self.lm_head))
 
     def forward_tokens(self, ids: torch.Tensor, cache: KVCache,
-                       mode: str = "flash"):
+                       mode: str = "flash", last_pos=None):
         """One forward pass over ids [B, S] starting at cache.offset; fills
-        the cache in place and returns (last-position logits [B, V] f32,
-        cache). mode: "flash" (kernels) or "xla" (plain versions)."""
+        the cache in place and returns (logits [B, V] f32, cache): those
+        of position S-1, or of position last_pos of the S when given.
+        mode: "flash" (kernels) or "xla" (plain versions)."""
         B, S = ids.shape
         cfg = self.config
         x = self.embed[ids].reshape(B * S, cfg.hidden_size)
@@ -151,12 +153,50 @@ class DenseLLM:
             a, _ = layer.attn.fwd_cached(h, self.cos, self.sin, B,
                                          cache.layer(li), kv_start, mode)
             x = x + a
-            h = rms_norm(x, layer.ln_mlp, cfg.rms_norm_eps)
-            x = x + layer.mlp(h, mode)
+            x = x + layer.mlp(rms_norm(x, layer.ln_mlp, cfg.rms_norm_eps), mode)
         cache.advance(S)
         x = rms_norm(x, self.final_norm, cfg.rms_norm_eps)
-        last = x.reshape(B, S, -1)[:, -1]
+        last = x.reshape(B, S, -1)[:, S - 1 if last_pos is None else last_pos]
         return qmm(last, self.lm_head, out_dtype=torch.float32), cache
+
+    def forward_tokens_slots(self, ids: torch.Tensor, cache: KVCache, pos,
+                             mode: str = "flash"):
+        """Slot-masked decode forward (continuous batching): one token per
+        row, row b at its own position pos[b] ([B] int32 on the device).
+        ids: [B, 1]. Writes each row's K/V at its own column and attends
+        per-row lengths; cache.offset is not used. Returns (logits [B, V]
+        f32, cache)."""
+        return self._slots_forward(
+            ids, lambda attn, h, li: attn.fwd_cached_slots(
+                h, self.cos, self.sin, ids.shape[0], cache.layer(li), pos, mode),
+            mode), cache
+
+    def forward_tokens_slots_paged(self, ids: torch.Tensor, pcache, pos,
+                                   mode: str = "flash"):
+        """forward_tokens_slots over the paged pool (PagedSlotCache):
+        each row's KV lives in the pages its table rows map, possibly
+        shared read-only with other slots' cached prefixes. Returns
+        (logits [B, V] f32, pcache)."""
+        return self._slots_forward(
+            ids, lambda attn, h, li: attn.fwd_cached_slots_paged(
+                h, self.cos, self.sin, ids.shape[0], pcache.layer(li),
+                pcache.table, pos, mode),
+            mode), pcache
+
+    def _slots_forward(self, ids, attend, mode: str):
+        """The layer loop of the slot forwards; attend(attn, h, layer
+        index) runs the layer's slot attention block on the cache."""
+        B, S = ids.shape
+        if S != 1:
+            raise ValueError(f"slot decode feeds one token per slot, got S={S}")
+        cfg = self.config
+        x = self.embed[ids].reshape(B, cfg.hidden_size)
+        for li, layer in enumerate(self.layers):
+            a, _ = attend(layer.attn, rms_norm(x, layer.ln_attn, cfg.rms_norm_eps), li)
+            x = x + a
+            x = x + layer.mlp(rms_norm(x, layer.ln_mlp, cfg.rms_norm_eps), mode)
+        x = rms_norm(x, self.final_norm, cfg.rms_norm_eps)
+        return qmm(x, self.lm_head, out_dtype=torch.float32)
 
     def make_cache(self, batch: int, max_seq: int, dtype=None) -> KVCache:
         cfg = self.config

@@ -1,17 +1,26 @@
 """Inference engine: counterpart of triton_dist_tpu/models/engine.py
-(`Engine.__init__` gates, `prefill`, `decode`, `serve`, `_prefill_fn`,
-`_scan_decode_fn`) for greedy decode on one device.
+(`Engine.__init__` gates, `prefill`, `decode`, `serve`, the contiguous
+slot entry points `make_slot_cache`, `prefill_into_slot`, `slot_chunk`,
+and the paged ones `make_paged_slot_cache`, `admit_slot_paged`,
+`paged_slot_chunk`, `retire_slot_paged`) for greedy decode on one
+device.
 
-Backends: "flash" runs the CUDA kernels (flash-decode, kv_update,
-SwiGLU) for prefill and decode; "xla" runs their plain PyTorch
-versions (the JAX package's oracle backend). The JAX decode `lax.scan`
-is a Python loop over steps here; the cache is updated in place.
+Backends: "flash" runs the CUDA kernels (flash-decode, the paged
+flash-decode, kv_update, SwiGLU); "xla" runs their plain PyTorch
+versions (the JAX package's oracle backend). Each JAX `lax.scan` is a
+Python loop over steps here, and every buffer the JAX programs donated
+(caches, page pools, the page table) is updated in place. The slot
+programs return device tensors and never synchronise; host arrays
+(page-table rows, admission indices) go to the card as asynchronous
+copies from pinned memory.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
+from triton_dist_tpu_torch.models.kv_cache import KVCache, PagedSlotCache
 from triton_dist_tpu_torch.models.utils import sample_greedy
 from triton_dist_tpu_torch.runtime.device import resolve_device
 
@@ -52,6 +61,7 @@ class Engine:
         self.backend = backend
         self.kv_dtype = kv_dtype
         self.device = dev
+        self._paged_scratch = None      # admit_slot_paged's 1-row cache
 
     def prefill(self, input_ids):
         """Run the prefill pass on a fresh cache; returns (logits, cache)."""
@@ -76,15 +86,178 @@ class Engine:
         logits, cache = self.prefill(input_ids)
         return self.decode(logits, cache, gen_len)
 
-    def make_slot_cache(self, batch: int):
-        raise _not_ported("slot caches (continuous batching)")
+    def _h2d(self, a, dtype=torch.long) -> torch.Tensor:
+        """A host array as a tensor on the engine's device: an
+        asynchronous copy from pinned memory on the card (no stream
+        synchronisation), the array itself on the CPU."""
+        t = torch.as_tensor(np.asarray(a), dtype=dtype)
+        if self.device.type == "cpu":
+            return t
+        return t.pin_memory().to(self.device, non_blocking=True)
 
-    def make_paged_slot_cache(self, batch: int, **kw):
-        raise _not_ported("paged slot caches")
+    # ------------------------------------------------------------------
+    # contiguous slots (continuous batching; models/scheduler.py): each
+    # batch row of the cache is an independent request
+    # ------------------------------------------------------------------
+
+    def make_slot_cache(self, batch: int) -> KVCache:
+        """Fresh cache whose batch rows are independent decode slots."""
+        return self.model.make_cache(batch, self.max_seq, dtype=self.kv_dtype)
+
+    def prefill_into_slot(self, cache: KVCache, slot: int, ids):
+        """Prefill ONE request and write its KV into batch row `slot` of
+        the slot cache without touching the other rows. The JAX engine
+        prefilled a 1-row scratch cache and copied it over the row; here
+        the batch-1 forward runs on a view of the row itself, so there is
+        no copy (positions past the prompt keep stale KV, masked by the
+        row's length as the JAX scratch's were). Returns (next-token
+        logits [V], cache)."""
+        ids = np.asarray(ids, np.int32).reshape(-1)
+        if len(ids) > self.max_seq:
+            raise ValueError(f"prompt length {len(ids)} exceeds slot capacity "
+                             f"{self.max_seq}")
+        row = KVCache(k=[t[slot:slot + 1] for t in cache.k],
+                      v=[t[slot:slot + 1] for t in cache.v],
+                      ks=[t[slot:slot + 1] for t in cache.ks],
+                      vs=[t[slot:slot + 1] for t in cache.vs])
+        logits, _ = _prefill_fn(self.model, self._h2d(ids)[None], row,
+                                mode=self.backend)
+        return logits[0], cache
+
+    def slot_chunk(self, logits, cache: KVCache, pos, active, *, chunk: int):
+        """One chunk of slot-masked greedy decode: `chunk` steps where row
+        b takes the argmax of its own logits, appends KV at its own
+        pos[b] and advances only if active[b] (inactive rows write into
+        their own dead rows, overwritten on admit). logits [B, V] f32,
+        pos [B] int32 and active [B] bool stay on the device. Returns
+        (toks [B, chunk] int32, logits, cache, pos), all on the device."""
+        return _slot_scan_decode_fn(self.model.forward_tokens_slots, self.backend,
+                                    logits, cache, pos, active,
+                                    cap=cache.k[0].shape[2], gen_len=chunk)
+
+    # ------------------------------------------------------------------
+    # paged slots (shared-prefix serving; models/prefix_cache.py owns the
+    # policy and drives these through the scheduler)
+    # ------------------------------------------------------------------
+
+    def make_paged_slot_cache(self, batch: int, *, page: int = 16,
+                              num_pages=None) -> PagedSlotCache:
+        """Paged slot cache: per-layer page pools behind one shared page
+        table (an int8 pool when kv_dtype is int8). num_pages defaults to
+        the no-sharing worst case (every slot full) plus the trash
+        page."""
+        cfg = self.model.config
+        maxp = -(-self.max_seq // page)
+        if num_pages is None:
+            num_pages = batch * cfg.num_kv_heads * maxp + 1
+        return PagedSlotCache.create(
+            cfg.num_layers, batch, self.max_seq, cfg.num_kv_heads, cfg.head_dim,
+            page=page, num_pages=num_pages, device=self.device,
+            dtype=self.kv_dtype or cfg.torch_dtype)
+
+    def admit_slot_paged(self, pcache: PagedSlotCache, slot: int, ids, rows,
+                         kv_start: int, cow_src, cow_dst, cow_rows: int):
+        """Admit one request into paged slot `slot`, reusing a cached
+        prefix of `kv_start` tokens: only the n - kv_start uncached suffix
+        tokens are computed.
+
+        rows: [Hkv, max_pages] int32, the slot's whole table block
+        (shared prefix pages + fresh writable pages, trash-padded).
+        cow_src/cow_dst: [Hkv] page groups for the copy-on-write of a
+        partially matched boundary page, whose first cow_rows rows are
+        copied src -> dst before anything reads the slot's table.
+
+        In order (the JAX `_paged_admit_fn`): install the table block,
+        copy-on-write the boundary page (payload and scales), gather the
+        prefix pages into a contiguous 1-row scratch cache, run
+        forward_tokens over the suffix from offset kv_start, and scatter
+        the suffix rows back into the slot's pages. The JAX program
+        padded the suffix to a bucket so that its compiled programs
+        could be reused (and sent the pad rows to the trash page); the
+        port runs the exact suffix, so nothing is padded. Returns
+        (next-token logits [V], pcache)."""
+        ids = np.asarray(ids, np.int32).reshape(-1)
+        n, m = len(ids), int(kv_start)
+        if not 0 <= m < n:
+            raise ValueError(f"kv_start {m} out of range for prompt {n} (the last "
+                             "token is always recomputed)")
+        if n > pcache.capacity:
+            raise ValueError(f"prompt length {n} exceeds slot capacity "
+                             f"{pcache.capacity}")
+        rows = np.asarray(rows, np.int32)
+        Hkv = rows.shape[0]
+        page = pcache.page
+        pools = list(zip(pcache.pages_k + pcache.scales_k,
+                         pcache.pages_v + pcache.scales_v))
+        rows_d = self._h2d(rows, torch.int32)
+        pcache.table[slot * Hkv:(slot + 1) * Hkv] = rows_d
+        if cow_rows:
+            src, dst = self._h2d(cow_src), self._h2d(cow_dst)
+            for pk, pv in pools:
+                pk[dst, :, :cow_rows] = pk[src, :, :cow_rows]
+                pv[dst, :, :cow_rows] = pv[src, :, :cow_rows]
+        scratch = self._paged_scratch
+        if scratch is None or scratch.k[0].shape[2] != pcache.capacity:
+            scratch = self._paged_scratch = self.model.make_cache(
+                1, pcache.capacity, dtype=self.kv_dtype)
+        span = -(-m // page) * page               # the prefix's whole pages
+        pre = rows_d[:, :span // page].long()     # [Hkv, pages]
+        bufs = list(zip(scratch.k + scratch.ks, scratch.v + scratch.vs))
+        for (pk, pv), (sk, sv) in zip(pools, bufs if span else []):
+            sk[0, :, :span] = pk[pre, 0].reshape((Hkv, span) + sk.shape[3:])
+            sv[0, :, :span] = pv[pre, 0].reshape((Hkv, span) + sv.shape[3:])
+        scratch.offset = m
+        logits, _ = self.model.forward_tokens(self._h2d(ids[m:])[None], scratch,
+                                              mode=self.backend, last_pos=(n - 1) - m)
+        p = np.arange(m, n)
+        dest = self._h2d(rows[:, p // page])      # [Hkv, n - m]
+        ri = self._h2d(p % page)[None]
+        for (pk, pv), (sk, sv) in zip(pools, bufs):
+            pk[:, 0][dest, ri] = sk[0, :, m:n]
+            pv[:, 0][dest, ri] = sv[0, :, m:n]
+        return logits[0], pcache
+
+    def paged_slot_chunk(self, logits, pcache: PagedSlotCache, pos, active, *,
+                         chunk: int):
+        """slot_chunk over the paged pool: the same contract, with each
+        row's KV write and attention resolved through the page table (a
+        retired row's table maps the trash page, so its masked-out writes
+        can never touch a live or cached page)."""
+        return _slot_scan_decode_fn(self.model.forward_tokens_slots_paged,
+                                    self.backend, logits, pcache, pos, active,
+                                    cap=pcache.capacity, gen_len=chunk)
+
+    def retire_slot_paged(self, pcache: PagedSlotCache, slot: int) -> PagedSlotCache:
+        """Point the whole table block of a retired slot at the trash page
+        (the write sink): the slot scan keeps stepping masked rows, and
+        their writes must never land on a page the allocator may hand to
+        someone else. A fill on the device, no host copy."""
+        Hkv = self.model.config.num_kv_heads
+        pcache.table[slot * Hkv:(slot + 1) * Hkv] = pcache.trash
+        return pcache
 
 
 def _prefill_fn(model, ids, cache, *, mode):
     return model.forward_tokens(ids, cache, mode=mode)
+
+
+def _slot_scan_decode_fn(forward, backend, logits0, cache, pos, active, *,
+                         cap: int, gen_len: int):
+    """Slot-masked greedy decode chunk over a slot cache or the paged pool
+    (the JAX `_slot_scan_decode_fn` and `_paged_slot_scan_decode_fn`,
+    which differ only in the forward): inactive rows still step (feeding
+    token 0), and positions clamp at min(pos + active, cap - 1) so a slot
+    that finished mid-chunk keeps its surplus writes inside its own row
+    or reserved pages."""
+    act = active.to(torch.int32)
+    toks = []
+    logits = logits0
+    for _ in range(gen_len):
+        tok = torch.where(active, sample_greedy(logits), 0)
+        logits, cache = forward(tok[:, None], cache, pos, mode=backend)
+        pos = torch.clamp(pos + act, max=cap - 1)
+        toks.append(tok)
+    return torch.stack(toks, dim=1).to(torch.int32), logits, cache, pos
 
 
 def _scan_decode_fn(backend, model, logits0, cache, *, gen_len: int):

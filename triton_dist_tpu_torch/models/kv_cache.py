@@ -1,5 +1,6 @@
-"""Contiguous KV cache: counterpart of triton_dist_tpu/models/kv_cache.py
-`KVCache` (bf16 and int8).
+"""KV caches: counterparts of triton_dist_tpu/models/kv_cache.py
+`KVCache` (contiguous, bf16 and int8) and `PagedSlotCache` (the paged
+pool of continuous-batching serving) at tensor-parallel size 1.
 
 Per-layer lists of head-major [B, Hkv, T, hd] tensors (the flash
 kernel's read order), plus per-position f32 scales [B, Hkv, T] for an
@@ -53,3 +54,72 @@ class KVCache:
 
     def advance(self, n: int) -> None:
         self.offset += n
+
+
+@dataclasses.dataclass
+class PagedSlotCache:
+    """Multi-layer paged KV pool behind ONE page table shared by all
+    layers (a physical page id means the same row in every layer's
+    pool, so one [Hkv] page group per logical tile covers all layers and
+    mapping a cached prefix into a slot is a table edit, not a copy).
+
+    pages_k/v: L x [NP, G, page, d] with G = 1 (the JAX head-group axis
+    at tensor-parallel size 1); int8 pools add per-position f32 scale
+    pools scales_k/v: L x [NP, G, page], addressed by the same page ids.
+    table: [B*Hkv, max_pages] int32 on the device (row b*Hkv + h is
+    slot b's kv head h). Page `trash` (0) is the write sink: every
+    unmapped table entry points at it, so the rows of retired slots,
+    which keep stepping, can never write into a page someone else
+    holds. Updated in place."""
+
+    pages_k: list
+    pages_v: list
+    table: torch.Tensor
+    scales_k: list = dataclasses.field(default_factory=list)
+    scales_v: list = dataclasses.field(default_factory=list)
+    trash: int = 0
+
+    @staticmethod
+    def create(num_layers: int, batch: int, max_seq: int, n_kv_heads: int,
+               head_dim: int, *, page: int, num_pages: int, device,
+               dtype=torch.bfloat16) -> "PagedSlotCache":
+        maxp = -(-max_seq // page)
+
+        def zeros(shape, dt):
+            return [torch.zeros(shape, dtype=dt, device=device)
+                    for _ in range(num_layers)]
+
+        sk = sv = []
+        if dtype == torch.int8:
+            sk = zeros((num_pages, 1, page), torch.float32)
+            sv = zeros((num_pages, 1, page), torch.float32)
+        shape = (num_pages, 1, page, head_dim)
+        table = torch.zeros((batch * n_kv_heads, maxp), dtype=torch.int32,
+                            device=device)            # every entry the trash page
+        return PagedSlotCache(pages_k=zeros(shape, dtype), pages_v=zeros(shape, dtype),
+                              table=table, scales_k=sk, scales_v=sv)
+
+    @property
+    def quantized(self) -> bool:
+        return bool(self.scales_k)
+
+    @property
+    def page(self) -> int:
+        return self.pages_k[0].shape[2]
+
+    @property
+    def num_pages(self) -> int:
+        return self.pages_k[0].shape[0]
+
+    @property
+    def capacity(self) -> int:
+        """Logical positions addressable per slot (table width x page)."""
+        return self.table.shape[1] * self.page
+
+    def layer(self, idx: int):
+        """The layer's pool tuple for TP_Attn.fwd_cached_slots_paged:
+        (pages_k, pages_v), or with the scale pools when int8."""
+        if self.quantized:
+            return (self.pages_k[idx], self.pages_v[idx], self.scales_k[idx],
+                    self.scales_v[idx])
+        return self.pages_k[idx], self.pages_v[idx]

@@ -1,0 +1,718 @@
+"""Continuous-batching decode scheduler: slot-based multi-request serving
+over the contiguous slot cache or the paged KV pool with the radix
+prefix cache.
+
+Counterpart of triton_dist_tpu/models/scheduler.py (`ResumeState`,
+`Request`, `_TokenLog`, `DecodeSlots`, `PagedDecodeSlots`,
+`ContinuousScheduler` with its synchronous poll) for greedy decode.
+Up to `batch` requests occupy distinct decode slots; a freed slot is
+refilled from the queue between chunks of `chunk` decode steps, and the
+tick runs the same device code whatever the occupancy mix: admission
+changes data (rows of the logits, positions, the active mask, the page
+table), never the program.
+
+Mechanics (models/engine.py slot entry points):
+- a new request prefills into its slot's row (contiguous) or, on the
+  paged pool, maps its longest cached prefix read-only, copy-on-writes
+  the partly matched boundary page and prefills only the uncached
+  suffix;
+- a tick is `chunk` steps of Engine.slot_chunk / paged_slot_chunk: per
+  row argmax, KV write at the row's own position and per-row attention
+  lengths; the logits, positions and active mask stay on the device,
+  and the host reads the chunk's tokens back once (`_fetch`), the one
+  synchronisation per tick;
+- between chunks the host trims each slot's tokens to its remaining
+  budget, retires finished slots (paged: inserting prompt + generated
+  into the radix tree and pointing the slot's table at the trash page)
+  and admits queued requests into the freed rows.
+
+Preemption: a paged admission that cannot get pages even after LRU
+eviction preempts a victim slot (lowest emitted count, then the most
+recently admitted) instead of rejecting: the victim's prompt + generated
+tokens go into the radix tree through the retire path, and it re-queues
+behind the admission that displaced it with the rest of its budget; on
+re-admission the tree hands its pages back (the match caps at n-1, so
+only the last token recomputes). Greedy streams are the same token for
+token, preempted or not.
+
+Telemetry (runtime/telemetry.py): every counter lives in the
+scheduler's metrics registry, so stats() is one deep snapshot, with the
+live `ttft_ms`, `inter_token_ms`, `request_latency_ms` and `poll_ms`
+histograms (host wall time).
+
+Not ported yet, and refused at construction or at submit with
+NotImplementedError: speculative decoding (spec > 0), chunked prefill
+(prefill_budget), overlap scheduling, the host KV tier
+(host_pool_pages > 0), the watchdog (watchdog_s), chaos faults (fault),
+SLO classes (slo_classes, Request.slo), deadlines (Request.deadline_ms),
+parallel sampling (Request.n > 1) and grammars (Request.grammar). The
+engine refuses sampled decoding and backend="mega" itself.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import sys
+import threading
+import time
+from collections import deque
+from typing import Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from triton_dist_tpu_torch.models.prefix_cache import PoolExhausted, PrefixCache
+from triton_dist_tpu_torch.runtime.telemetry import Telemetry
+
+
+def _not_ported(what: str) -> NotImplementedError:
+    return NotImplementedError(f"{what}: not yet ported")
+
+
+@dataclasses.dataclass
+class ResumeState:
+    """Mid-stream snapshot carried by a preempted request, beyond the
+    (prompt + generated) tokens already folded into Request.ids. The KV
+    itself is not snapshotted: the radix tree holds the preempted pages
+    until eviction recycles them, and re-admission maps them back or
+    recomputes, with the same tokens either way."""
+    emitted: int = 0               # tokens already streamed before preemption
+
+
+@dataclasses.dataclass
+class Request:
+    """One generation request (the scheduler's admission unit). The
+    fields after `seed` belong to features not ported yet and must keep
+    their defaults; `resume` is set by preemption, never by callers."""
+    rid: object                    # caller's id (any hashable)
+    ids: np.ndarray                # prompt token ids [S]
+    gen_len: int
+    seed: int = 0
+    deadline_ms: Optional[float] = None
+    slo: Optional[str] = None
+    resume: Optional[ResumeState] = None
+    n: int = 1
+    grammar: object = None
+
+
+class _TokenLog:
+    """Incrementally grown int32 token log (amortized-doubling numpy
+    buffer) backing the per-slot token mirrors: appends are amortized
+    O(1) and `view()` is a zero-copy slice for the radix-tree insert."""
+
+    __slots__ = ("_buf", "_n")
+
+    def __init__(self, init=None, cap: int = 64):
+        self._buf = np.empty((max(int(cap), 8),), np.int32)
+        self._n = 0
+        if init is not None:
+            self.extend(init)
+
+    def __len__(self) -> int:
+        return self._n
+
+    def extend(self, toks) -> None:
+        toks = np.asarray(toks, np.int32).reshape(-1)
+        need = self._n + len(toks)
+        if need > len(self._buf):
+            buf = np.empty((max(need, 2 * len(self._buf)),), np.int32)
+            buf[:self._n] = self._buf[:self._n]
+            self._buf = buf
+        self._buf[self._n:need] = toks
+        self._n = need
+
+    def view(self) -> np.ndarray:
+        """Zero-copy window over the valid extent (read-only; appends only
+        ever write past it)."""
+        return self._buf[:self._n]
+
+
+class DecodeSlots:
+    """Per-slot decode state: the device-side carry of the slot scan
+    (last logits [B, V] f32, positions [B] int32, active mask [B] bool)
+    plus host-side bookkeeping (remaining budget, occupant). Admission
+    and retirement edit rows of the carry between chunks."""
+
+    def __init__(self, engine, batch: int, *, telemetry: Optional[Telemetry] = None):
+        self.engine = engine
+        self.batch = batch
+        self.tele = telemetry if telemetry is not None else Telemetry()
+        dev = engine.device
+        self.cache = self._make_cache()
+        self.logits = torch.zeros((batch, engine.model.config.vocab_size),
+                                  dtype=torch.float32, device=dev)
+        self.pos = torch.zeros((batch,), dtype=torch.int32, device=dev)
+        self.active = torch.zeros((batch,), dtype=torch.bool, device=dev)
+        # host mirrors (scheduling is host-side; the model never syncs)
+        self.remaining = np.zeros((batch,), np.int64)
+        self.rids: List[Optional[object]] = [None] * batch
+        # the occupant's Request and admission order: the preemption
+        # victim policy reads both
+        self.reqs: List[Optional[Request]] = [None] * batch
+        self.admit_tick = np.zeros((batch,), np.int64)
+        self._admit_seq = 0
+        # every prompt token pushed through a forward
+        self.prefill_forwarded = 0
+        # time blocked on the tick's token readback (_fetch)
+        self.device_wait_s = 0.0
+
+    def _make_cache(self):
+        """Cache-flavour hook (PagedDecodeSlots swaps in the paged pool)."""
+        return self.engine.make_slot_cache(self.batch)
+
+    @property
+    def capacity(self) -> int:
+        """Admittable prompt + gen budget per slot."""
+        return self.cache.k[0].shape[2]
+
+    @property
+    def free(self) -> List[int]:
+        return [b for b in range(self.batch) if self.rids[b] is None]
+
+    @property
+    def occupied(self) -> List[int]:
+        return [b for b in range(self.batch) if self.rids[b] is not None]
+
+    @property
+    def stats(self) -> dict:
+        return {}
+
+    def _arm_slot(self, slot: int, req: Request, row_logits, n: int) -> None:
+        """Arm a freshly prefilled slot's rows of the decode carry (device
+        writes of one row each, no synchronisation)."""
+        self.logits[slot] = row_logits
+        self.pos[slot] = n
+        self.active[slot] = True
+        self.remaining[slot] = req.gen_len
+        self.rids[slot] = req.rid
+        self.reqs[slot] = req
+        self._admit_seq += 1
+        self.admit_tick[slot] = self._admit_seq
+
+    def admit(self, slot: int, req: Request) -> None:
+        """Prefill req into `slot` and arm its row of the carry; live
+        slots decode on, unaware."""
+        assert self.rids[slot] is None, f"slot {slot} is occupied"
+        n = len(req.ids)
+        if n == 0:
+            raise ValueError(f"request {req.rid!r}: empty prompt")
+        if n + req.gen_len > self.capacity:
+            raise ValueError(f"request {req.rid!r}: prompt {n} + gen {req.gen_len} "
+                             f"exceeds slot capacity {self.capacity}")
+        row, self.cache = self.engine.prefill_into_slot(self.cache, slot, req.ids)
+        self.prefill_forwarded += n
+        self._arm_slot(slot, req, row, n)
+
+    def emitted(self, slot: int) -> int:
+        """Tokens this slot's request has streamed since its ORIGINAL
+        admission (a preempted request's earlier span included)."""
+        req = self.reqs[slot]
+        base = req.resume.emitted if req.resume is not None else 0
+        return base + self.emitted_since_admit(slot)
+
+    def emitted_since_admit(self, slot: int) -> int:
+        """Tokens streamed since the CURRENT admission: only a slot that
+        banked at least one token may be preempted."""
+        return self.reqs[slot].gen_len - int(self.remaining[slot])
+
+    def retire(self, slot: int) -> None:
+        """Free a slot: mask it out of the scan. Its cache row and carry
+        rows stay as dead data until the next admission overwrites them."""
+        self.active[slot] = False
+        self.remaining[slot] = 0
+        self.rids[slot] = None
+        self.reqs[slot] = None
+
+    def _fetch(self, toks: torch.Tensor) -> np.ndarray:
+        """The one blocking readback of a tick, timed into device_wait_s."""
+        t0 = time.perf_counter()
+        out = toks.cpu().numpy()
+        self.device_wait_s += time.perf_counter() - t0
+        self.tele.device_land()
+        return out
+
+    def _run_chunk(self, chunk: int) -> torch.Tensor:
+        """Engine-call hook: dispatch one chunk of the slot scan (the paged
+        subclass swaps in paged_slot_chunk). Returns the tick's tokens
+        [B, chunk], still on the device."""
+        toks, self.logits, self.cache, self.pos = self.engine.slot_chunk(
+            self.logits, self.cache, self.pos, self.active, chunk=chunk)
+        return toks
+
+    def _record(self, slot: int, toks) -> None:
+        """Hook: paged slots record kept tokens for the retire-time tree
+        insert; contiguous slots keep nothing."""
+
+    def step_chunk(self, chunk: int) -> Tuple[Dict[int, np.ndarray],
+                                              List[Tuple[int, object]]]:
+        """Run one `chunk`-step slot scan. Returns ({slot: kept tokens,
+        trimmed to the slot's remaining budget}, [(slot, rid) of requests
+        that just finished]). Finished slots are NOT retired here: the
+        caller streams their tail first, then retires."""
+        self.tele.mark_dispatch("chunk")
+        toks = self._fetch(self._run_chunk(chunk))
+        out: Dict[int, np.ndarray] = {}
+        finished: List[Tuple[int, object]] = []
+        for b in self.occupied:
+            keep = int(min(self.remaining[b], chunk))
+            if keep:
+                out[b] = toks[b, :keep]
+                self._record(b, out[b])
+                self.remaining[b] -= keep
+            if self.remaining[b] == 0:
+                finished.append((b, self.rids[b]))
+        return out, finished
+
+
+class PagedDecodeSlots(DecodeSlots):
+    """DecodeSlots over the PAGED pool with the shared-prefix radix cache
+    (models/prefix_cache.py): admission maps the longest cached prefix
+    read-only into the slot's table (refcount +1 each), copy-on-writes
+    the partly matched boundary page and prefills only the uncached
+    suffix; retirement inserts the finished sequence back into the tree,
+    donating the slot's pages. With prefix_cache=False the same programs
+    run with a never-matching tree (the cache-off reference).
+
+    margin: the slot scan keeps stepping a finished slot to its chunk
+    boundary; those surplus writes land in the slot's own reserved pages
+    (or the trash page), so every admission reserves prompt + gen +
+    margin - 1 positions. Pass the scheduler's chunk."""
+
+    def __init__(self, engine, batch: int, *, page: int = 16,
+                 num_pages: Optional[int] = None, prefix_cache: bool = True,
+                 margin: int = 4, telemetry: Optional[Telemetry] = None):
+        self.page = page
+        self.margin = margin
+        self._num_pages = num_pages
+        super().__init__(engine, batch, telemetry=telemetry)
+        self.prefix = PrefixCache(self.cache.num_pages,
+                                  engine.model.config.num_kv_heads, page,
+                                  enabled=prefix_cache, telemetry=self.tele)
+        if self.prefix.pool.trash != self.cache.trash:
+            raise RuntimeError("the allocator and the pool disagree on the trash page")
+        # per slot: mapped page groups (absolute page order) and the token
+        # stream (prompt + kept generated) whose KV those pages hold
+        self._groups: List[List[np.ndarray]] = [[] for _ in range(batch)]
+        self._tokens: List[_TokenLog] = [_TokenLog() for _ in range(batch)]
+
+    def _make_cache(self):
+        return self.engine.make_paged_slot_cache(self.batch, page=self.page,
+                                                 num_pages=self._num_pages)
+
+    @property
+    def capacity(self) -> int:
+        """Admittable prompt + gen budget (table capacity minus the
+        chunk-surplus margin)."""
+        return self.cache.capacity - self.margin + 1
+
+    @property
+    def stats(self) -> dict:
+        return self.prefix.stats()
+
+    def validate_admission(self, req: Request, tokens: np.ndarray) -> None:
+        """The upfront refusals of a paged admission: an empty prompt,
+        prompt + gen beyond the slot capacity, and a footprint beyond the
+        whole pool (which no amount of preemption could fit)."""
+        n = len(tokens)
+        if n == 0:
+            raise ValueError(f"request {req.rid!r}: empty prompt")
+        if n + req.gen_len > self.capacity:
+            raise ValueError(f"request {req.rid!r}: prompt {n} + gen {req.gen_len} "
+                             f"exceeds slot capacity {self.capacity}")
+        pool = self.prefix.pool
+        total = -(-(n + req.gen_len + self.margin - 1) // self.page)
+        usable = (pool.num_pages - 1) // pool.n_kv_heads
+        if total > usable:
+            raise ValueError(
+                f"request {req.rid!r}: worst-case footprint {total} page groups "
+                f"exceeds the whole pool ({usable} usable groups)")
+
+    def _reserve_pages(self, req: Request, tokens: np.ndarray):
+        """Validation + prefix lookup + page reservation. Returns
+        (slot_groups, m, rows, cow_src, cow_dst, r, boundary) with every
+        ref taken (release `boundary` once the device-side copy-on-write
+        ran); raises with everything released."""
+        n = len(tokens)
+        self.validate_admission(req, tokens)
+        pool = self.prefix.pool
+        total = -(-(n + req.gen_len + self.margin - 1) // self.page)
+        m, shared = self.prefix.lookup(tokens)
+        full, r = m // self.page, m % self.page
+        retained: List[np.ndarray] = []
+        fresh: List[np.ndarray] = []
+        try:
+            # pin everything the admission will read BEFORE eviction runs
+            for g in shared[:full]:
+                pool.retain(g)
+                retained.append(g)
+            boundary = shared[full] if r else None
+            if boundary is not None:
+                pool.retain(boundary)
+                retained.append(boundary)
+            need = total - full
+            if not self.prefix.ensure_pages(need * pool.n_kv_heads):
+                raise PoolExhausted(
+                    f"request {req.rid!r}: page pool exhausted ({need} fresh "
+                    f"groups needed, {pool.available} pages free, nothing "
+                    f"evictable)")
+            fresh = [pool.alloc_group() for _ in range(need)]
+        except ValueError:
+            for g in fresh + retained:
+                pool.release(g)
+            raise
+        slot_groups = list(shared[:full]) + fresh
+        Hkv, maxp = pool.n_kv_heads, self.cache.table.shape[1]
+        rows = np.full((Hkv, maxp), self.cache.trash, np.int32)
+        for j, g in enumerate(slot_groups):
+            rows[:, j] = g
+        trash_vec = np.full((Hkv,), self.cache.trash, np.int32)
+        cow_src = boundary if r else trash_vec
+        cow_dst = fresh[0] if r else trash_vec
+        return slot_groups, m, rows, cow_src, cow_dst, r, boundary
+
+    def admit(self, slot: int, req: Request) -> None:
+        """Consult the radix tree, map the cached prefix read-only,
+        allocate fresh writable pages for the rest (evicting LRU tree
+        leaves under pressure), and prefill the uncached suffix."""
+        assert self.rids[slot] is None, f"slot {slot} is occupied"
+        tokens = np.asarray(req.ids, np.int32).reshape(-1)
+        n = len(tokens)
+        slot_groups, m, rows, cow_src, cow_dst, r, boundary = \
+            self._reserve_pages(req, tokens)
+        row, self.cache = self.engine.admit_slot_paged(
+            self.cache, slot, tokens, rows, m, cow_src, cow_dst, r)
+        if boundary is not None:
+            # only the copy-on-write read it; the slot maps its own copy
+            self.prefix.pool.release(boundary)
+        self.prefill_forwarded += n - m
+        self._arm_slot(slot, req, row, n)
+        self._groups[slot] = slot_groups
+        self._tokens[slot] = _TokenLog(tokens)
+        self.prefix.record(n, m)
+        # insert the PROMPT pages now, not only at retire: the next
+        # admission, even in the same poll, can share them
+        self.prefix.insert(tokens, slot_groups[:-(-n // self.page)])
+
+    def preempt(self, slot: int) -> Request:
+        """Evict a LIVE slot under pool pressure and return the request to
+        re-queue: prompt + kept generated tokens become its prompt (their
+        KV goes into the radix tree through retire), gen_len drops to the
+        remaining budget, and ResumeState keeps the emitted count."""
+        req = self.reqs[slot]
+        assert req is not None, f"slot {slot} is empty"
+        toks = self._tokens[slot].view()   # retire() replaces the log
+        remaining = int(self.remaining[slot])
+        snap = ResumeState(emitted=self.emitted(slot))
+        self.retire(slot)
+        return dataclasses.replace(req, ids=toks, gen_len=remaining, resume=snap)
+
+    def retire(self, slot: int) -> None:
+        """Insert the finished sequence into the tree (its pages already
+        hold the KV), release the slot's page refs, and point its table
+        rows at the trash page so the masked rows, which keep stepping,
+        can never write into a page the allocator hands to someone
+        else."""
+        if len(self._tokens[slot]):
+            npg = -(-len(self._tokens[slot]) // self.page)
+            self.prefix.insert(self._tokens[slot].view(), self._groups[slot][:npg])
+        for g in self._groups[slot]:
+            self.prefix.pool.release(g)
+        self.cache = self.engine.retire_slot_paged(self.cache, slot)
+        self._groups[slot] = []
+        self._tokens[slot] = _TokenLog()
+        super().retire(slot)
+
+    def _run_chunk(self, chunk: int) -> torch.Tensor:
+        toks, self.logits, self.cache, self.pos = self.engine.paged_slot_chunk(
+            self.logits, self.cache, self.pos, self.active, chunk=chunk)
+        return toks
+
+    def _record(self, slot: int, toks) -> None:
+        self._tokens[slot].extend(toks)
+
+
+class ContinuousScheduler:
+    """Admit-from-queue / step_chunk / retire loop over DecodeSlots
+    (iteration-level scheduling). Callers may submit from any thread;
+    one polling thread calls poll() (or run()) and owns every device
+    dispatch."""
+
+    def __init__(self, engine, *, batch: int, chunk: int = 4, paged: bool = False,
+                 prefix_cache: bool = True, page: int = 16,
+                 num_pages: Optional[int] = None, spec: int = 0,
+                 max_queue: Optional[int] = None, watchdog_s: Optional[float] = None,
+                 fault=None, prefill_budget: Optional[int] = None,
+                 host_pool_pages: int = 0, overlap: bool = False, trace: bool = False,
+                 slo_classes: Optional[dict] = None):
+        """paged=True serves over the paged pool with the shared-prefix
+        radix cache (prefix_cache=False: the same pool, never shared);
+        num_pages sizes the pool (default: every slot full, no sharing
+        needed). max_queue bounds the waiting line (submit() returns
+        False on overflow). trace=True records the poll-loop timeline
+        (dump_trace). The other knobs belong to features not ported yet
+        and raise NotImplementedError unless left at their defaults."""
+        for what, on in (("spec > 0 (speculative decoding)", spec),
+                         ("watchdog_s (the hang watchdog)", watchdog_s is not None),
+                         ("fault (chaos injection)", fault is not None),
+                         ("prefill_budget (chunked prefill)", prefill_budget is not None),
+                         ("host_pool_pages > 0 (the host KV tier)", host_pool_pages),
+                         ("overlap=True (overlap scheduling)", overlap),
+                         ("slo_classes (SLO classes)", slo_classes is not None)):
+            if on:
+                raise _not_ported(what)
+        self.tele = Telemetry(trace=trace)
+        if paged:
+            self.slots = PagedDecodeSlots(engine, batch, page=page,
+                                          num_pages=num_pages,
+                                          prefix_cache=prefix_cache, margin=chunk,
+                                          telemetry=self.tele)
+        else:
+            self.slots = DecodeSlots(engine, batch, telemetry=self.tele)
+        self.chunk = chunk
+        self.max_queue = max_queue
+        # the most prefill tokens one poll pushed through a forward while
+        # live streams waited on it (the longest prompt suffix admitted)
+        self.max_prefill_tokens_per_poll = 0
+        self._queue: deque = deque()
+        # guards _queue against cross-thread submit()/cancel() racing the
+        # polling thread's poll()
+        self._lock = threading.RLock()
+        # rid -> reason for requests the slots refused
+        self.rejected: Dict[object, str] = {}
+        reg = self.tele.registry
+        self._c_preemptions = reg.counter("preemptions", "KV-pressure slot preemptions")
+        self._c_busy_rejections = reg.counter("busy_rejections",
+                                              "submits refused at max_queue")
+        self._g_host_ms = reg.gauge("host_ms_per_poll", "dispatch-to-dispatch host "
+                                                        "time minus device wait (EMA)")
+        self._c_tokens = reg.counter("tokens_emitted",
+                                     "tokens delivered to client streams")
+        self._host_ms_ema: Optional[float] = None
+        self._last_mark: Optional[Tuple[float, float]] = None
+        # dispatch-to-dispatch wall time while slots were occupied: the
+        # time base of serving_tok_per_s_aggregate
+        self._busy_s = 0.0
+
+    @property
+    def preemptions(self) -> int:
+        return self._c_preemptions.value
+
+    @property
+    def busy_rejections(self) -> int:
+        return self._c_busy_rejections.value
+
+    def dump_trace(self, path: str) -> None:
+        """Write the telemetry export (poll timeline, request traces,
+        metrics) as perfetto-loadable JSON."""
+        self.tele.dump(path)
+
+    def submit(self, req: Request) -> bool:
+        """Enqueue a request. Returns False, without queueing, when the
+        waiting line is at max_queue. Thread-safe."""
+        for what, on in (("Request.deadline_ms (deadlines)", req.deadline_ms is not None),
+                         ("Request.slo (SLO classes)", req.slo is not None),
+                         ("Request.n > 1 (parallel sampling)", req.n != 1),
+                         ("Request.grammar (grammar-constrained decoding)",
+                          req.grammar is not None)):
+            if on:
+                raise _not_ported(what)
+        with self._lock:
+            if self.max_queue is not None and len(self._queue) >= self.max_queue:
+                self._c_busy_rejections.inc()
+                return False
+            self.tele.queued(req.rid)
+            self._queue.append(req)
+        return True
+
+    def cancel(self, rid) -> bool:
+        """Drop a request mid-flight: a queued one is removed; an
+        in-flight one retires now (a paged retire still inserts its valid
+        tokens into the prefix tree). An in-flight cancel mutates the
+        decode carry, so it runs on the polling thread. Returns False for
+        an unknown or finished rid."""
+        with self._lock:
+            for i, r in enumerate(self._queue):
+                if r.rid == rid:
+                    del self._queue[i]
+                    self.tele.retire(rid, "cancelled")
+                    return True
+        for b in self.slots.occupied:
+            if self.slots.rids[b] == rid:
+                self.slots.retire(b)
+                self.tele.retire(rid, "cancelled")
+                return True
+        return False
+
+    def stats(self) -> dict:
+        """Serving counters as one deep, single-point-in-time snapshot of
+        the metrics registry (the live latency histograms as {count, sum,
+        mean, p50, p95, p99} dicts), the prefix cache's hit and skip
+        counters on the paged path, and derived rates."""
+        reg = self.tele.registry
+        with self._lock, reg.lock:
+            reg.gauge("queue_depth").set(len(self._queue))
+            reg.gauge("prefill_tokens_forwarded").set(self.slots.prefill_forwarded)
+            reg.gauge("max_prefill_tokens_per_poll").set(
+                self.max_prefill_tokens_per_poll)
+            reg.gauge("device_wait_s").set(self.slots.device_wait_s)
+            agg = self._c_tokens.value / self._busy_s if self._busy_s > 0 else 0.0
+            reg.gauge("serving_tok_per_s_aggregate",
+                      "tokens/s while serving").set(round(agg, 3))
+            slots_stats = self.slots.stats
+            out = reg.snapshot()
+            out.update(slots_stats)
+            out.update({
+                "tokens_emitted": self._c_tokens.value,
+                "serving_tok_per_s_aggregate": round(agg, 3),
+                "queue_depth": len(self._queue),
+                "preemptions": self._c_preemptions.value,
+                "busy_rejections": self._c_busy_rejections.value,
+                "prefill_tokens_forwarded": self.slots.prefill_forwarded,
+                "max_prefill_tokens_per_poll": self.max_prefill_tokens_per_poll,
+                "host_ms_per_poll": (0.0 if self._host_ms_ema is None
+                                     else round(self._host_ms_ema, 3)),
+                "device_wait_s": round(self.slots.device_wait_s, 4),
+            })
+        return out
+
+    def _mark_dispatch(self) -> None:
+        """Stamp a tick dispatch: host_ms_per_poll is the time since the
+        previous stamp minus the device wait accrued in between."""
+        now = time.monotonic()
+        wait = self.slots.device_wait_s
+        if self._last_mark is not None:
+            t0, w0 = self._last_mark
+            host_ms = max(0.0, ((now - t0) - (wait - w0)) * 1e3)
+            self._host_ms_ema = host_ms if self._host_ms_ema is None \
+                else 0.8 * self._host_ms_ema + 0.2 * host_ms
+            self._g_host_ms.set(self._host_ms_ema)
+            self._busy_s += now - t0
+        self._last_mark = (now, wait)
+
+    @property
+    def idle(self) -> bool:
+        return not self._queue and not self.slots.occupied
+
+    def _reject(self, rid, reason: str) -> None:
+        print(f"[scheduler] rejected request {rid!r}: {reason}", file=sys.stderr)
+        self.rejected[rid] = reason
+        while len(self.rejected) > 1024:
+            self.rejected.pop(next(iter(self.rejected)))   # oldest first
+        self.tele.retire(rid, "rejected")
+
+    def _eligible_victims(self) -> List[int]:
+        """Slots that may be preempted: they emitted at least one token
+        since their current admission, so displacement banks progress."""
+        return [b for b in self.slots.occupied if self.slots.emitted_since_admit(b) > 0]
+
+    def _pick_victim(self, candidates: List[int]) -> int:
+        """Fewest generated tokens first (least recompute thrown away),
+        ties to the most recently admitted."""
+        slots = self.slots
+        return min(candidates,
+                   key=lambda b: (slots.emitted(b), -int(slots.admit_tick[b])))
+
+    def _preempt_for(self, rid, preempted_now: set, reason: str, *, drop) -> bool:
+        """The preempt-or-wait ladder of one PoolExhausted admission.
+        False = stop admitting this poll; True = retry (a victim was
+        freed, or no slot is occupied and the request was rejected
+        through `drop(reason)`)."""
+        if not self.slots.occupied:
+            drop(reason)
+            return True
+        if rid in preempted_now:
+            return False
+        victims = self._eligible_victims()
+        if not victims:
+            # residents without banked progress: wait a poll
+            return False
+        victim = self.slots.preempt(self._pick_victim(victims))
+        self._c_preemptions.inc()
+        self.tele.req_event(victim.rid, "preempt")
+        self.tele.instant("preempt", str(victim.rid))
+        preempted_now.add(victim.rid)
+        # behind the request it was evicted for, so the two do not
+        # ping-pong the slot
+        self._queue.insert(min(1, len(self._queue)), victim)
+        return True
+
+    def _admit(self, done: List[object]) -> None:
+        """Refill free slots from the waiting line. A PoolExhausted
+        admission preempts an eligible victim and retries; hard rejection
+        remains only for requests that can never fit. A request preempted
+        within this poll that fails re-admission waits for the next
+        chunk instead of thrashing the slots it just lost."""
+        preempted_now: set = set()
+        while self._queue:
+            free = self.slots.free
+            if not free:
+                return
+            req = self._queue[0]
+            try:
+                self.slots.admit(free[0], req)
+                self._queue.popleft()
+                self.tele.req_event(req.rid, "resume" if req.resume is not None
+                                    else "admitted", free[0])
+            except PoolExhausted as e:
+                def _drop(reason, req=req):
+                    self._queue.popleft()
+                    self._reject(req.rid, reason)
+                    done.append(req.rid)
+
+                if not self._preempt_for(req.rid, preempted_now, str(e), drop=_drop):
+                    return
+            except ValueError as e:
+                self._queue.popleft()
+                self._reject(req.rid, str(e))
+                done.append(req.rid)
+
+    def poll(self) -> Tuple[Dict[object, np.ndarray], List[object]]:
+        """One scheduling iteration: refill free slots from the queue
+        (preempting under pool pressure), run one decode chunk, retire
+        what finished. Returns ({rid: new tokens}, [rids done this poll:
+        finished or rejected, the latter with a reason in
+        self.rejected]). A preempted request is in neither: it re-queues
+        and its rid keeps streaming on resume."""
+        with self.tele.poll_span():
+            return self._poll_sync()
+
+    def _poll_sync(self) -> Tuple[Dict[object, np.ndarray], List[object]]:
+        done: List[object] = []
+        pf_before = self.slots.prefill_forwarded
+        with self._lock, self.tele.phase("bookkeep"):
+            self._admit(done)
+        self.max_prefill_tokens_per_poll = max(
+            self.max_prefill_tokens_per_poll, self.slots.prefill_forwarded - pf_before)
+        if not self.slots.occupied:
+            # idle poll: drop the stamp so the gap is not charged as host
+            # time at the next burst's first dispatch
+            self._last_mark = None
+            return {}, done
+        self._mark_dispatch()
+        with self.tele.phase("step"):
+            by_slot, finished = self.slots.step_chunk(self.chunk)
+        rid_of = self.slots.rids
+        out = {rid_of[b]: t for b, t in by_slot.items()}
+        for rid, toks in out.items():
+            self.tele.emit(rid, len(toks))
+            self._c_tokens.inc(len(toks))
+        with self.tele.phase("retire"):
+            for b, rid in finished:
+                self.slots.retire(b)
+                self.tele.retire(rid)
+                done.append(rid)
+        return out, done
+
+    def run(self, requests) -> Dict[object, np.ndarray]:
+        """Drive a batch of requests to completion (the test and bench
+        loop; a server calls poll() itself). Returns {rid: tokens}."""
+        for r in requests:
+            if not self.submit(r):
+                raise RuntimeError(f"queue full (max_queue={self.max_queue}); run() "
+                                   "has no retry loop")
+        acc: Dict[object, list] = {r.rid: [] for r in requests}
+        while not self.idle:
+            out, _ = self.poll()
+            for rid, toks in out.items():
+                acc[rid].extend(toks.tolist())
+        return {rid: np.asarray(t, np.int64) for rid, t in acc.items()}
