@@ -36,7 +36,21 @@ NVIDIA card: the quickest proof that the port still starts on the GPU.
    ("xla") contiguous engine. A tick probe then runs one bare tick under
    torch.cuda.set_sync_debug_mode("error") (a tick that synchronises
    with the host fails) and one under torch.profiler (the idle share).
-6. Prints one JSON line of per-kernel results, then, last, the device
+6. Megakernel phases (backend="mega", one persistent CUDA kernel per
+   decode layer): rows 5a (mega_decode, B=128, pos=200, T=264) and 6a/6b
+   (mega_paged_decode, 64 slots at lengths in [1, 224], page 16, bf16 and
+   int8 pools, two retired slots on the trash page), each held against
+   its plain version with the cache past each length, unmapped pages and
+   the trash page poisoned with 100x values, and timed beside the port's
+   per-op flash layer (layers/tp_attn.py + tp_mlp.py) on the same inputs;
+   the engine phase on "mega" (bf16: prefill on flash, 32 decode steps of
+   28 megakernel launches each, teacher-forced against the plain backend,
+   profiled); the paged serving phases on "mega" (bf16 and int8 KV, the
+   same 128 requests), with their tick probes. Launch checks: exactly 28
+   megakernel launches per decode step and per tick step, no
+   flash_decode_paged or swiglu launch inside a mega tick, flash_decode
+   and kv_update launched only by the admissions.
+7. Prints one JSON line of per-kernel results, then, last, the device
    line {"ok": true, "device": {...}}.
 
 Exits non-zero, printing no result, if there is no CUDA device, if the
@@ -58,6 +72,7 @@ import torch
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM, NVIDIA data sheet
 BF16_FLOPS_PER_S = 989e12      # dense bf16 tensor-core peak, same source
 B, S, GEN, T_KERNEL, KV_DECODE = 128, 128, 32, 264, 200
+N_LAYERS = 28                  # Qwen3-1.7B: one megakernel launch per layer per step
 TF_STEPS = 8                   # teacher-forced decode steps checked per phase
 PAGE = 16
 # serving: slots, chunk, slot capacity (prompt <= 144 + gen <= 64 plus the
@@ -303,14 +318,208 @@ def kernel_phase(k, gen):
     return rows
 
 
-def profile_decode(model, cache, toks, label, step_s):
+def mega_kernel_phase(gen):
+    """Rows 5a, 6a, 6b: each megakernel layer against its plain version at
+    Qwen3-1.7B's width (D=2048, F=6144, Hq=16, Hkv=8, hd=128), timed
+    beside the port's per-op flash layer on the same inputs."""
+    from triton_dist_tpu_torch.kernels.quant import quantize_kv_int8
+    from triton_dist_tpu_torch.layers import TP_Attn, TP_MLP, precompute_rope, rms_norm
+    from triton_dist_tpu_torch.mega import (MegaDecodeLayer, MegaPagedDecodeLayer,
+                                            mega_decode_layer_ref,
+                                            mega_paged_decode_layer_ref)
+    dev = torch.device("cuda")
+    D, F, Hq, Hkv, hd = 2048, 6144, 16, 8, 128
+    rows = []
+
+    def rn(*shape, sc=1.0):
+        return torch.randn(shape, generator=gen, device=dev) * sc
+
+    w = dict(w_ln1=1 + 0.1 * rn(1, D), q_norm=1 + 0.1 * rn(1, hd),
+             k_norm=1 + 0.1 * rn(1, hd), w_ln2=1 + 0.1 * rn(1, D),
+             w_qkv=rn(D, (Hq + 2 * Hkv) * hd, sc=D ** -0.5).bfloat16(),
+             w_o=rn(Hq * hd, D, sc=(Hq * hd) ** -0.5).bfloat16(),
+             w_gu=rn(D, 2 * F, sc=D ** -0.5).bfloat16(),
+             w_d=rn(F, D, sc=F ** -0.5).bfloat16())
+    n_params = D * (Hq + 2 * Hkv) * hd + Hq * hd * D + D * 2 * F + F * D
+    cos, sin = precompute_rope(hd, 4096, device=dev)
+    # the port's per-op flash layer over the same weights (the yardstick)
+    attn = TP_Attn(w_qkv=w["w_qkv"], w_o=w["w_o"], q_norm=w["q_norm"].reshape(-1),
+                   k_norm=w["k_norm"].reshape(-1), n_heads=Hq, n_kv_heads=Hkv, head_dim=hd)
+    mlp = TP_MLP(w_gate_up=w["w_gu"], w_down=w["w_d"])
+
+    def per_op(x, attend):
+        xb = x.bfloat16()
+        a, _ = attend(rms_norm(xb, w["w_ln1"].reshape(-1)))
+        x2 = xb + a
+        return x2 + mlp(rms_norm(x2, w["w_ln2"].reshape(-1)), "flash")
+
+    def row(name, case, source, replaces, y, y_ref, live, pool_errs, kernel_fn, plain_fn,
+            per_op_fn, nbytes, flops, launch_key):
+        # the residual stream is O(1-10): f32 sums in another order over
+        # K = 2048-6144 and the bf16 roundings of xn, q, P, attn, on and h
+        # flipping by one ulp where the two land on a rounding boundary
+        err = max_err(y[live], y_ref[live])
+        tol = 1e-2 * (1 + y_ref[live].abs().max().item())
+        check(err <= tol, f"{name} {case}: y max_abs_err {err} > tol {tol}")
+        for what, e, t in pool_errs:
+            check(e <= t, f"{name} {case}: {what} {e} > {t}")
+        b_ms, b_by = bound(nbytes, flops)
+        r = dict(name=name, case=case, route="cuda", source=source, replaces=replaces,
+                 launches=None, max_abs_err=err, tol=tol, ms=cuda_ms(kernel_fn),
+                 plain_ms=cuda_ms(plain_fn, reps=5), bound_ms=b_ms, bound_by=b_by,
+                 library_ms=None, per_op_layer_ms=cuda_ms(per_op_fn),
+                 pool_checks={what: e for what, e, _ in pool_errs})
+        rows.append((r, launch_key))
+        print(f"kernel {name} [{case}]: max_abs_err {err:.3g} (tol {tol:.3g}) ms "
+              f"{r['ms']:.4f} plain_ms {r['plain_ms']:.4f} per-op flash layer ms "
+              f"{r['per_op_layer_ms']:.4f} bound_ms {b_ms:.4f} ({b_by}); pools "
+              f"{r['pool_checks']}", flush=True)
+
+    # 5a: contiguous, every row at pos; the cache past pos holds 100x values
+    pos = KV_DECODE
+    x = rn(B, D)
+    wd = dict(w, cos_row=cos[pos:pos + 1], sin_row=sin[pos:pos + 1])
+    ck = rn(B, Hkv, T_KERNEL, hd).bfloat16()
+    cv = rn(B, Hkv, T_KERNEL, hd).bfloat16()
+    ck[:, :, pos + 1:] *= 100
+    cv[:, :, pos + 1:] *= 100
+    layer = MegaDecodeLayer(d_model=D, n_heads=Hq, n_kv_heads=Hkv, head_dim=hd, ffn=F,
+                            T=T_KERNEL)
+    k1, v1, k2, v2 = ck.clone(), cv.clone(), ck.clone(), cv.clone()
+    y, _, _ = layer(x, pos, wd, k1, v1)
+    y_ref, _, _ = mega_decode_layer_ref(x, pos, wd, k2, v2, n_heads=Hq, n_kv_heads=Hkv,
+                                        head_dim=hd)
+    torch.cuda.synchronize()
+    other = torch.arange(T_KERNEL, device=dev) != pos
+    pool_errs = [
+        # the new row: one bf16 ulp of the largest value, where the f32
+        # row's rounding lands on the other side of a boundary
+        ("new K/V rows max|d|", max(max_err(k1[:, :, pos], k2[:, :, pos]),
+                                    max_err(v1[:, :, pos], v2[:, :, pos])),
+         2 ** -7 * max(k2[:, :, pos].float().abs().max().item(),
+                       v2[:, :, pos].float().abs().max().item())),
+        ("other cache rows changed", float(((k1 != ck) | (v1 != cv))[:, :, other].sum()),
+         0.0)]
+    n_keys = B * Hkv * (pos + 1)
+    kb, vb = k1.clone(), v1.clone()
+    row("mega_decode", f"B={B} pos={pos} T={T_KERNEL} bf16",
+        "triton_dist_tpu_torch/kernels/csrc/mega_decode.cu",
+        "triton_dist_tpu/mega/decode_layer.py:462", y, y_ref, slice(None), pool_errs,
+        lambda: layer(x, pos, wd, kb, vb),
+        lambda: mega_decode_layer_ref(x, pos, wd, kb, vb, n_heads=Hq, n_kv_heads=Hkv,
+                                      head_dim=hd),
+        lambda: per_op(x, lambda h: attn.fwd_cached(h, cos, sin, B, (kb, vb), pos,
+                                                    "flash")),
+        2 * n_params + 2 * B * D * 4 + 2 * n_keys * hd * 2,
+        2 * B * n_params + 4 * hd * Hq * B * (pos + 1), ("bf16", "mega decode"))
+    del ck, cv, k1, v1, k2, v2, kb, vb
+    torch.cuda.empty_cache()
+
+    # 6a/6b: 64 slots at lengths in [1, 224]; slot b's new token sits at
+    # lens[b] - 1. Two retired slots map only the trash page (their rows
+    # are not compared: their writes race there). Entries past a stream's
+    # pages point at random pages; every row no live stream reads or
+    # writes (the trash page, unmapped pages, rows past each length)
+    # holds 100x values.
+    Bp, cap = SERVE_B, SERVE_MAX_SEQ
+    maxp = cap // PAGE
+    X = Bp * Hkv
+    NP = 1 + X * maxp
+    lens = torch.randint(1, cap + 1, (Bp,), generator=gen, device=dev, dtype=torch.int32)
+    lens[:3] = torch.tensor([cap, 8 * PAGE, 1], dtype=torch.int32)
+    posd = (lens - 1).to(torch.int32)
+    table = (1 + torch.randperm(NP - 1, generator=gen, device=dev)[:X * maxp]
+             ).reshape(X, maxp).to(torch.int32)
+    lens_x = lens.repeat_interleave(Hkv)
+    n_pages = (lens_x + PAGE - 1) // PAGE
+    past = torch.arange(maxp, device=dev)[None, :] >= n_pages[:, None]
+    table[past] = torch.randint(0, NP, (int(past.sum()),), generator=gen, device=dev,
+                                dtype=torch.int32)
+    retired = torch.zeros(Bp, dtype=torch.bool, device=dev)
+    retired[-2:] = True
+    table[retired.repeat_interleave(Hkv)] = 0
+    live = ~retired
+    tpos = torch.arange(maxp * PAGE, device=dev)
+    used = torch.zeros(NP * PAGE, dtype=torch.bool, device=dev)
+    reads = (tpos[None, :] < lens_x[:, None]) & live.repeat_interleave(Hkv)[:, None]
+    used[(table.long()[:, tpos // PAGE] * PAGE + tpos % PAGE)[reads]] = True
+    used = used.reshape(NP, PAGE)
+    pk = rn(NP, 1, PAGE, hd)
+    pv = rn(NP, 1, PAGE, hd)
+    pk[:, 0][~used] *= 100
+    pv[:, 0][~used] *= 100
+    xp = rn(Bp, D)
+    wp = dict(w, cos_row=cos[posd.long()], sin_row=sin[posd.long()])
+    player = MegaPagedDecodeLayer(d_model=D, n_heads=Hq, n_kv_heads=Hkv, head_dim=hd,
+                                  ffn=F, page=PAGE, maxp=maxp)
+    n_keys = int(lens[live].sum()) * Hkv
+    written = torch.zeros((NP, PAGE), dtype=torch.bool, device=dev)
+    wpage = table.long()[torch.arange(X, device=dev), (lens_x - 1) // PAGE]
+    written[wpage[live.repeat_interleave(Hkv)],
+            ((lens_x - 1) % PAGE)[live.repeat_interleave(Hkv)]] = True
+    keep = ~written
+    keep[0] = False                      # the trash page: retired slots race there
+    for kvt in ("bf16", "int8"):
+        if kvt == "bf16":
+            pools = (pk.bfloat16(), pv.bfloat16())
+            kv_row = hd * 2
+        else:
+            qk, sk = quantize_kv_int8(pk)
+            qv, sv = quantize_kv_int8(pv)
+            pools = (qk, qv, sk, sv)
+            kv_row = hd + 4
+        a = [t.clone() for t in pools]
+        b_ = [t.clone() for t in pools]
+        out = player(xp, posd, wp, a[0], a[1], table, *a[2:])
+        ref = mega_paged_decode_layer_ref(xp, posd, wp, b_[0], b_[1], table, *b_[2:],
+                                          n_heads=Hq, n_kv_heads=Hkv, head_dim=hd)
+        torch.cuda.synchronize()
+        pool_errs = [("unwritten pool rows changed",
+                      float(sum(int((o[:, 0][keep] != t[:, 0][keep]).sum())
+                                for o, t in zip(out[1:], pools))), 0.0)]
+        if kvt == "bf16":
+            top = max(r_[:, 0][written].float().abs().max().item() for r_ in ref[1:3])
+            pool_errs.append(("new rows max|d|", max(max_err(o[:, 0][written],
+                                                             r_[:, 0][written])
+                                                     for o, r_ in zip(out[1:3], ref[1:3])),
+                              2 ** -7 * top))
+        else:
+            # an int8 level where the f32 row lands within a rounding
+            # boundary of the plain version's; the scales to f32 rounding
+            pool_errs.append(("new rows max|d int8|", max(max_err(o[:, 0][written],
+                                                                  r_[:, 0][written])
+                                                          for o, r_ in zip(out[1:3],
+                                                                           ref[1:3])),
+                              1.0))
+            pool_errs.append(("new scales max rel|d|", max(
+                ((o[:, 0][written] - r_[:, 0][written]).abs()
+                 / r_[:, 0][written]).max().item() for o, r_ in zip(out[3:], ref[3:])),
+                1e-2))
+        c = [t.clone() for t in pools]
+        attend_pools = (c[0], c[1]) + tuple(c[2:])
+        row("mega_paged_decode", f"{Bp} slots lens in [1, {cap}] page={PAGE} {kvt}",
+            "triton_dist_tpu_torch/kernels/csrc/mega_paged_decode.cu",
+            "triton_dist_tpu/mega/decode_layer.py:919", out[0], ref[0], live, pool_errs,
+            lambda: player(xp, posd, wp, c[0], c[1], table, *c[2:]),
+            lambda: mega_paged_decode_layer_ref(xp, posd, wp, c[0], c[1], table, *c[2:],
+                                                n_heads=Hq, n_kv_heads=Hkv, head_dim=hd),
+            lambda: per_op(xp, lambda h: attn.fwd_cached_slots_paged(
+                h, cos, sin, Bp, attend_pools, table, posd, "flash")),
+            2 * n_params + 2 * Bp * D * 4 + 2 * n_keys * kv_row + int(
+                n_pages[live.repeat_interleave(Hkv)].sum()) * 4,
+            2 * Bp * n_params + 4 * hd * Hq * int(lens[live].sum()),
+            (kvt, "mega paged"))
+    return rows
+
+
+def profile_decode(eng, cache, toks, label, step_s):
     """Device time of two decode steps by kernel (torch.profiler), beside the
     step's wall time from the timed run: what share of a step the card
     is busy, and with what."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for t in range(toks.shape[1]):
-            model.forward_tokens(toks[:, t].long()[:, None], cache, mode="flash")
+            eng.decode_step(toks[:, t], cache)
         torch.cuda.synchronize()
     # device-side events only (kernels, copies, fills); the operator rows
     # on the host carry their kernels' device time too
@@ -326,11 +535,11 @@ def profile_decode(model, cache, toks, label, step_s):
                       for e in top), flush=True)
 
 
-def engine_phase(m, k, model, kv_dtype, label, ids, card):
-    """Drive Engine(backend="flash") prefill + decode through the entry
-    points, with the launch counts read around each; then hold the
-    logits against the plain backend, teacher-forced."""
-    eng = m.Engine(model, max_seq=S + GEN + 8, backend="flash", kv_dtype=kv_dtype)
+def engine_phase(m, k, model, kv_dtype, label, ids, card, backend="flash"):
+    """Drive Engine(backend) prefill + decode through the entry points,
+    with the launch counts read around each; then hold the logits against
+    the plain backend, teacher-forced."""
+    eng = m.Engine(model, max_seq=S + GEN + 8, backend=backend, kv_dtype=kv_dtype)
     # warm-up (cuBLAS handles and heuristics, allocator), not counted
     eng.decode(*eng.prefill(ids), 2)
     torch.cuda.synchronize()
@@ -348,10 +557,17 @@ def engine_phase(m, k, model, kv_dtype, label, ids, card):
     decode_s = time.perf_counter() - t0
     c_decode = k.launch_counts()
     peak = torch.cuda.max_memory_allocated()
-    for name in ("flash_decode", "kv_update", "swiglu"):
-        check(c_prefill[name] > 0 and c_decode[name] > 0,
+    per_op = ("flash_decode", "kv_update", "swiglu")
+    for name in per_op:
+        check(c_prefill[name] > 0 and (backend == "mega" or c_decode[name] > 0),
               f"{label}: kernel {name} did not run on the main path "
               f"(prefill {c_prefill[name]}, decode {c_decode[name]})")
+    if backend == "mega":
+        # decode is the megakernel alone: one launch per layer per step
+        check(c_decode["mega_decode"] == N_LAYERS * GEN
+              and all(c_decode[n] == 0 for n in per_op + ("flash_decode_paged",)),
+              f"{label}: decode launches {c_decode}, want mega_decode == "
+              f"{N_LAYERS * GEN} and no per-op kernel")
     check(tuple(toks.shape) == (B, GEN), f"{label}: tokens {tuple(toks.shape)}")
     check(bool(torch.isfinite(logits).all()), f"{label}: non-finite logits")
     print(f"engine {label} on {card}: prefill {prefill_s * 1e3:.1f} ms (B={B}, S={S}), "
@@ -390,10 +606,9 @@ def engine_phase(m, k, model, kv_dtype, label, ids, card):
         forced += int(sure.sum())
         if t == TF_STEPS:
             break
-        tok = toks[:, t].long()[:, None]
-        lf, cf = model.forward_tokens(tok, cf, mode="flash")
-        lr, cr = model.forward_tokens(tok, cr, mode="xla")
-    profile_decode(model, cf, toks[:, TF_STEPS:TF_STEPS + 2], label, decode_s / GEN)
+        lf = eng.decode_step(toks[:, t], cf)
+        lr = ref_eng.decode_step(toks[:, t], cr)
+    profile_decode(eng, cf, toks[:, TF_STEPS:TF_STEPS + 2], label, decode_s / GEN)
     print(f"engine {label}: teacher-forced vs plain backend, prefill and "
           f"{TF_STEPS} steps: max|d logits| per step "
           f"{[round(e, 4) for e in errs]} (tol {[round(x, 4) for x in tols]}), "
@@ -415,11 +630,11 @@ def serving_requests(m, vocab: int):
             for i, w in enumerate(which)]
 
 
-def serving_phase(m, k, model, kv_dtype, label, paged, reqs, card):
+def serving_phase(m, k, model, kv_dtype, label, paged, reqs, card, backend="flash"):
     """Drive ContinuousScheduler through its entry points with the launch
     counts read around the run, then hold the tokens of TF_REQS seeded
     requests, teacher-forced, against the plain contiguous engine."""
-    eng = m.Engine(model, max_seq=SERVE_MAX_SEQ, backend="flash", kv_dtype=kv_dtype)
+    eng = m.Engine(model, max_seq=SERVE_MAX_SEQ, backend=backend, kv_dtype=kv_dtype)
 
     def scheduler():
         return m.ContinuousScheduler(eng, batch=SERVE_B, chunk=SERVE_CHUNK,
@@ -428,6 +643,9 @@ def serving_phase(m, k, model, kv_dtype, label, paged, reqs, card):
     # warm-up (cuBLAS handles and heuristics, allocator), not counted
     scheduler().run(reqs[:2])
     sched = scheduler()
+    ticks = []
+    step_chunk = sched.slots.step_chunk
+    sched.slots.step_chunk = lambda chunk: ticks.append(chunk) or step_chunk(chunk)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     k.reset_launch_counts()
@@ -437,12 +655,27 @@ def serving_phase(m, k, model, kv_dtype, label, paged, reqs, card):
     wall = time.perf_counter() - t0
     counts = k.launch_counts()
     peak = torch.cuda.max_memory_allocated()
+    # drop the tick counter: it and the slots referred to each other
+    del sched.slots.step_chunk, step_chunk
     st = sched.stats()
-    path = (("flash_decode_paged",) if paged else ()) + ("flash_decode", "kv_update",
-                                                         "swiglu")
-    for name in path:
-        check(counts[name] > 0, f"{label}: kernel {name} did not run on the serving "
-                                f"path ({counts})")
+    if backend == "mega":
+        # ticks: 28 megakernel launches per step and nothing else of the
+        # per-op decode; admissions: one batch-1 flash forward each
+        admits = N_REQ + st["preemptions"]
+        steps = sum(ticks)
+        check(counts["mega_paged_decode"] == N_LAYERS * steps
+              and counts["flash_decode_paged"] == 0
+              and counts["flash_decode"] == N_LAYERS * admits
+              and counts["kv_update"] == 2 * N_LAYERS * admits
+              and counts["swiglu"] == N_LAYERS * admits,
+              f"{label}: launches {counts} for {steps} tick steps and {admits} "
+              "admissions")
+    else:
+        path = (("flash_decode_paged",) if paged else ()) + ("flash_decode",
+                                                             "kv_update", "swiglu")
+        for name in path:
+            check(counts[name] > 0, f"{label}: kernel {name} did not run on the "
+                                    f"serving path ({counts})")
     check(not sched.rejected, f"{label}: rejected {sched.rejected}")
     check(all(len(out[r.rid]) == r.gen_len for r in reqs),
           f"{label}: a request did not get its budget")
@@ -455,9 +688,9 @@ def serving_phase(m, k, model, kv_dtype, label, paged, reqs, card):
                    itl_p50_ms=itl["p50"], itl_p99_ms=itl["p99"],
                    prefill_skip_frac=st.get("prefill_skip_frac"), hits=st.get("hits"),
                    preemptions=st["preemptions"], peak_gib=peak / 2**30,
-                   launches=counts)
+                   tick_steps=sum(ticks), launches=counts)
     print(f"serving {label} on {card}: {json.dumps(summary)}", flush=True)
-    tick_probe(m, eng, paged, reqs, label)
+    tick_probe(m, k, eng, paged, reqs, label)
 
     # teacher-forced: the plain engine over prompt + emitted tokens; each
     # emitted token must be its argmax wherever its top-2 margin exceeds
@@ -487,7 +720,7 @@ def serving_phase(m, k, model, kv_dtype, label, paged, reqs, card):
     return counts
 
 
-def tick_probe(m, eng, paged, reqs, label):
+def tick_probe(m, k, eng, paged, reqs, label):
     """One wave of SERVE_B requests admitted by one poll (timed), then two
     bare decode ticks of SERVE_CHUNK steps on the resulting slots: the
     first under torch.cuda.set_sync_debug_mode("error"), so a tick that
@@ -511,6 +744,7 @@ def tick_probe(m, eng, paged, reqs, label):
         _, slots.logits, slots.cache, slots.pos = tick(
             slots.logits, slots.cache, slots.pos, slots.active, chunk=SERVE_CHUNK)
 
+    k.reset_launch_counts()
     t0 = time.perf_counter()
     torch.cuda.set_sync_debug_mode("error")
     try:
@@ -519,6 +753,12 @@ def tick_probe(m, eng, paged, reqs, label):
         torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
     tick_s = time.perf_counter() - t0
+    counts = k.launch_counts()
+    if eng.backend == "mega":
+        check(counts["mega_paged_decode"] == N_LAYERS * SERVE_CHUNK
+              and sum(counts.values()) == counts["mega_paged_decode"],
+              f"tick {label}: launches {counts}, want only mega_paged_decode == "
+              f"{N_LAYERS * SERVE_CHUNK}")
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         run_tick()
         torch.cuda.synchronize()
@@ -531,7 +771,8 @@ def tick_probe(m, eng, paged, reqs, label):
           f"{first_s * 1e3:.1f} ms; a bare tick of {SERVE_CHUNK} steps with no "
           f"host sync (sync debug mode 'error'): {step_ms:.3f} ms/step wall, device "
           f"busy {busy_ms:.3f} ms/step ({1 - busy_ms / step_ms:.1%} idle), "
-          f"device launches per step {sum(e.count for e in ev) // SERVE_CHUNK}; top: "
+          f"device launches per step {sum(e.count for e in ev) // SERVE_CHUNK}, "
+          f"kernel launches {counts}; top: "
           + "; ".join(f"{e.key[:50]} {e.self_device_time_total / 1e3 / SERVE_CHUNK:.3f} ms"
                       for e in top), flush=True)
     del sched, slots
@@ -563,25 +804,49 @@ def main() -> int:
     print(f"build: {time.perf_counter() - t0:.1f} s (cpp_extension.load of "
           f"{', '.join(_build.KERNELS)} and the binding)", flush=True)
 
+    t_start = time.perf_counter()
+
+    def stamp(what):
+        print(f"[{time.perf_counter() - t_start:.1f} s] {what} done", flush=True)
+
     gen = torch.Generator(device="cuda").manual_seed(0)
     rows = kernel_phase(k, gen)
+    rows += mega_kernel_phase(gen)
+    stamp("kernel phases")
 
     cfg = m.qwen3_1p7b()
     ids = torch.randint(0, cfg.vocab_size, (B, S), generator=gen, device="cuda")
     model = m.AutoLLM.from_config(cfg, device="cuda", seed=0)
     counts = {"bf16": engine_phase(m, k, model, None, "bf16", ids, card)}
+    stamp("engine bf16")
+    counts["bf16"]["mega decode"] = engine_phase(m, k, model, None, "mega bf16", ids,
+                                                 card, backend="mega")["decode"]
+    stamp("engine mega bf16")
     model = model.quantize_int8()
     counts["int8"] = engine_phase(m, k, model, torch.int8, "int8", ids, card)
+    stamp("engine int8")
 
     reqs = serving_requests(m, cfg.vocab_size)
     model = m.AutoLLM.from_config(cfg, device="cuda", seed=0)
     counts["bf16"]["paged"] = serving_phase(m, k, model, None, "paged bf16", True, reqs,
                                             card)
+    stamp("serving paged bf16")
     counts["bf16"]["contiguous"] = serving_phase(m, k, model, None, "contiguous bf16",
                                                  False, reqs, card)
+    stamp("serving contiguous bf16")
+    # the megakernel takes bf16 weights; its int8 configuration is the
+    # int8 KV pool alone
+    counts["bf16"]["mega paged"] = serving_phase(m, k, model, None, "mega paged bf16",
+                                                 True, reqs, card, backend="mega")
+    stamp("serving mega paged bf16")
+    counts["int8"]["mega paged"] = serving_phase(m, k, model, torch.int8,
+                                                 "mega paged int8-KV", True, reqs, card,
+                                                 backend="mega")
+    stamp("serving mega paged int8-KV")
     model = model.quantize_int8()
     counts["int8"]["paged"] = serving_phase(m, k, model, torch.int8, "paged int8", True,
                                             reqs, card)
+    stamp("serving paged int8")
 
     out = []
     for r, (kvt, phase) in rows:

@@ -6,6 +6,9 @@
 // C10_CUDA_KERNEL_LAUNCH_CHECK() expands to.
 #include <torch/extension.h>
 #include <c10/cuda/CUDAException.h>
+#include <pybind11/stl.h>
+
+#include <vector>
 
 #include "launchers.h"
 
@@ -53,11 +56,87 @@ void swiglu(int dtype, int64_t x, int64_t out, int64_t M, int I, int64_t ld, int
                              stream(st)));
 }
 
+// The MegaLayerArgs of one launch from three flat lists, in the order
+// of mega/decode_layer.py's _launch: ptrs {x, y, w_ln1, w_qkv, q_norm,
+// k_norm, w_o, w_ln2, w_gu, w_d, cos, sin, k, v, ks, vs, table, pos_dev,
+// xn, qkv, attn, ores, on, h, barrier}; ints {cs_stride, pos, T, maxp,
+// page, kv_sb, kv_sh, kv_st, pg_st, row_st, spg_st, B, D, F, Hq, Hkv, hd,
+// qk_norm, kv_dtype, fault}; the phase codes.
+tdt::MegaLayerArgs mega_args(const std::vector<int64_t>& p, const std::vector<int64_t>& n,
+                             double eps, double scale, const std::vector<int64_t>& phases) {
+  TORCH_CHECK(p.size() == 25 && n.size() == 20 && phases.size() <= 8,
+              "mega layer: argument lists of the wrong length");
+  tdt::MegaLayerArgs a{};
+  a.x = ptr<const float>(p[0]);
+  a.y = ptr<float>(p[1]);
+  a.w_ln1 = ptr<const float>(p[2]);
+  a.w_qkv = ptr<const void>(p[3]);
+  a.q_norm = ptr<const float>(p[4]);
+  a.k_norm = ptr<const float>(p[5]);
+  a.w_o = ptr<const void>(p[6]);
+  a.w_ln2 = ptr<const float>(p[7]);
+  a.w_gu = ptr<const void>(p[8]);
+  a.w_d = ptr<const void>(p[9]);
+  a.cos = ptr<const float>(p[10]);
+  a.sin = ptr<const float>(p[11]);
+  a.k = ptr<void>(p[12]);
+  a.v = ptr<void>(p[13]);
+  a.ks = ptr<float>(p[14]);
+  a.vs = ptr<float>(p[15]);
+  a.table = ptr<const int>(p[16]);
+  a.pos_dev = ptr<const int>(p[17]);
+  a.xn = ptr<void>(p[18]);
+  a.qkv = ptr<float>(p[19]);
+  a.attn = ptr<void>(p[20]);
+  a.ores = ptr<float>(p[21]);
+  a.on = ptr<void>(p[22]);
+  a.h = ptr<void>(p[23]);
+  a.barrier = ptr<unsigned int>(p[24]);
+  a.cs_stride = n[0];
+  a.pos = static_cast<int>(n[1]);
+  a.T = static_cast<int>(n[2]);
+  a.maxp = static_cast<int>(n[3]);
+  a.page = static_cast<int>(n[4]);
+  a.kv_sb = n[5];
+  a.kv_sh = n[6];
+  a.kv_st = n[7];
+  a.pg_st = n[8];
+  a.row_st = n[9];
+  a.spg_st = n[10];
+  a.B = static_cast<int>(n[11]);
+  a.D = static_cast<int>(n[12]);
+  a.F = static_cast<int>(n[13]);
+  a.Hq = static_cast<int>(n[14]);
+  a.Hkv = static_cast<int>(n[15]);
+  a.hd = static_cast<int>(n[16]);
+  a.qk_norm = static_cast<int>(n[17]);
+  a.kv_dtype = static_cast<int>(n[18]);
+  a.fault = static_cast<int>(n[19]);
+  a.eps = static_cast<float>(eps);
+  a.scale = static_cast<float>(scale);
+  a.n_phases = static_cast<int>(phases.size());
+  for (size_t i = 0; i < phases.size(); ++i) a.phases[i] = static_cast<int>(phases[i]);
+  return a;
+}
+
+void mega_decode(const std::vector<int64_t>& p, const std::vector<int64_t>& n, double eps,
+                 double scale, const std::vector<int64_t>& phases, int64_t st) {
+  C10_CUDA_CHECK(tdt::mega_decode(mega_args(p, n, eps, scale, phases), stream(st)));
+}
+
+void mega_paged_decode(const std::vector<int64_t>& p, const std::vector<int64_t>& n,
+                       double eps, double scale, const std::vector<int64_t>& phases,
+                       int64_t st) {
+  C10_CUDA_CHECK(tdt::mega_paged_decode(mega_args(p, n, eps, scale, phases), stream(st)));
+}
+
 }  // namespace
 
 PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("flash_decode", &flash_decode);
   m.def("flash_decode_paged", &flash_decode_paged);
   m.def("kv_update", &kv_update);
+  m.def("mega_decode", &mega_decode);
+  m.def("mega_paged_decode", &mega_paged_decode);
   m.def("swiglu", &swiglu);
 }

@@ -45,4 +45,54 @@ cudaError_t kv_update(void* cache, const void* src, int pos, int B, int H, int T
 cudaError_t swiglu(int dtype, const void* x, void* out, long long M, int I, long long ld,
                    cudaStream_t stream);
 
+// One decode layer per launch (csrc/mega_layer.cuh; mega_decode.cu over
+// the contiguous cache, mega_paged_decode.cu over the page pool). All
+// pointers are device pointers; weights bf16 row-major, norms f32, rope
+// rows f32 (row b at cos + b * cs_stride; cs_stride 0 shares one row).
+// Strides in elements. The scratch (xn, qkv, attn, ores, on, h and the
+// two-word grid barrier, zeroed once) belongs to the caller and is
+// reused by every launch on the stream. phases: the layer's tasks in
+// the order the host validated (tdt_mega::Phase codes).
+struct MegaLayerArgs {
+  const float* x;
+  float* y;
+  const float* w_ln1;
+  const void* w_qkv;
+  const float* q_norm;
+  const float* k_norm;
+  const void* w_o;
+  const float* w_ln2;
+  const void* w_gu;
+  const void* w_d;
+  const float* cos;
+  const float* sin;
+  void* k;              // cache or pool payload (bf16 or int8)
+  void* v;
+  float* ks;            // int8 pools: scale pages [NP, 1, page]
+  float* vs;
+  const int* table;     // paged: [B*Hkv, maxp] int32
+  const int* pos_dev;   // paged: [B] int32, slot b's new token sits at pos_dev[b]
+  void* xn;             // scratch: bf16 [B, D]
+  float* qkv;           // f32 [B, (Hq + 2*Hkv) * hd]
+  void* attn;           // bf16 [B, Hq * hd]
+  float* ores;          // f32 [B, D]
+  void* on;             // bf16 [B, D]
+  void* h;              // bf16 [B, F]
+  unsigned int* barrier;
+  long long cs_stride;
+  int pos, T;           // contiguous: the shared position and the capacity
+  int maxp, page;       // paged
+  long long kv_sb, kv_sh, kv_st;     // contiguous cache [B, Hkv, T, hd]
+  long long pg_st, row_st, spg_st;   // pools [NP, 1, page, hd], scales [NP, 1, page]
+  int B, D, F, Hq, Hkv, hd, qk_norm, kv_dtype;
+  int fault;            // 0; a planted fault for tools/fault_margin.py: 1 drops the
+                        // newest key from the walk, 2 leaves out the o_proj residual
+  float eps, scale;
+  int n_phases;
+  int phases[8];
+};
+
+cudaError_t mega_decode(const MegaLayerArgs& a, cudaStream_t stream);
+cudaError_t mega_paged_decode(const MegaLayerArgs& a, cudaStream_t stream);
+
 }  // namespace tdt

@@ -7,12 +7,26 @@ device.
 
 Backends: "flash" runs the CUDA kernels (flash-decode, the paged
 flash-decode, kv_update, SwiGLU); "xla" runs their plain PyTorch
-versions (the JAX package's oracle backend). Each JAX `lax.scan` is a
+versions (the JAX package's oracle backend); "mega" prefills and admits
+on "flash" and decodes each layer as ONE megakernel launch
+(mega/decode_layer.py): `decode` over the contiguous cache
+(`_mega_scan_decode_fn`) and `paged_slot_chunk` over the paged pool
+(`_paged_slot_mega_scan_fn`), greedy only. Each JAX `lax.scan` is a
 Python loop over steps here, and every buffer the JAX programs donated
 (caches, page pools, the page table) is updated in place. The slot
 programs return device tensors and never synchronise; host arrays
 (page-table rows, admission indices) go to the card as asynchronous
 copies from pinned memory.
+
+On "mega" the per-layer weight dicts (norms in f32, absent QK-norms as
+ones, the bf16 panels as they are) are built once per Engine, where the
+JAX engine rebuilt them in every decode call. The JAX engine rounded
+max_seq up to the megakernel's block_t, a Pallas tile constraint; the
+CUDA kernel walks any length, so max_seq stays as given. The residual
+stream between mega layers is f32 (the per-op path keeps the model
+dtype); the embedding lookup, the RoPE rows, the final RMSNorm, the
+lm_head product (a plain product, as JAX left it to jnp.dot) and the argmax
+stay outside the kernels, as in the JAX engine.
 """
 
 from __future__ import annotations
@@ -20,13 +34,16 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from triton_dist_tpu_torch.kernels.quant import QuantW, qmm
+from triton_dist_tpu_torch.layers.common import rms_norm
+from triton_dist_tpu_torch.mega import MegaDecodeLayer, MegaPagedDecodeLayer
 from triton_dist_tpu_torch.models.kv_cache import KVCache, PagedSlotCache
 from triton_dist_tpu_torch.models.utils import sample_greedy
 from triton_dist_tpu_torch.runtime.device import resolve_device
 
-BACKENDS = ("flash", "xla")
+BACKENDS = ("flash", "xla", "mega")
 # backends of the JAX engine that the port does not run yet
-_JAX_BACKENDS = ("dist", "ar", "gemm_ar", "ep", "ep_flash", "mega")
+_JAX_BACKENDS = ("dist", "ar", "gemm_ar", "ep", "ep_flash")
 
 
 def _not_ported(what: str) -> NotImplementedError:
@@ -49,6 +66,8 @@ class Engine:
         if backend not in BACKENDS:
             raise ValueError(f"unknown backend {backend!r}; this engine serves "
                              f"{BACKENDS}")
+        if backend == "mega":
+            _check_mega(model, kv_dtype, sampling)
         if sampling != "greedy":
             raise _not_ported(f"sampling={sampling!r}")
         if getattr(model.config, "is_moe", False):
@@ -61,24 +80,46 @@ class Engine:
         self.backend = backend
         self.kv_dtype = kv_dtype
         self.device = dev
+        # admissions and prefill: mega fuses decode only
+        self.prefill_backend = "flash" if backend == "mega" else backend
         self._paged_scratch = None      # admit_slot_paged's 1-row cache
+        # backend "mega": the layer weight dicts and the two layer objects
+        # (their scratch is allocated once), built at first use
+        self._mega = None
+        self._mega_layer = self._mega_paged_layer = None
 
     def prefill(self, input_ids):
         """Run the prefill pass on a fresh cache; returns (logits, cache)."""
         ids = torch.as_tensor(input_ids, device=self.device).long()
         cache = self.model.make_cache(ids.shape[0], self.max_seq,
                                       dtype=self.kv_dtype)
-        return _prefill_fn(self.model, ids, cache, mode=self.backend)
+        return _prefill_fn(self.model, ids, cache, mode=self.prefill_backend)
 
     def decode(self, logits, cache, gen_len: int):
         """Greedy decode from prefill state, gen_len steps, updating the
         cache in place. Returns tokens [B, gen_len] int32."""
+        if self.backend == "mega" and self.kv_dtype is not None:
+            raise ValueError(
+                "backend='mega' dequantizes int8 KV only on the PAGED pool; the "
+                "contiguous decode reads the cache directly — serve int8 through "
+                "ContinuousScheduler(paged=True), or use kv_dtype=None here")
         if cache.offset + gen_len > self.max_seq:
             raise ValueError(f"{gen_len} steps from position {cache.offset} "
                              f"overrun max_seq={self.max_seq}")
-        toks, _, _ = _scan_decode_fn(self.backend, self.model, logits, cache,
-                                     gen_len=gen_len)
+        if self.backend == "mega":
+            toks, _, _ = _mega_scan_decode_fn(self, logits, cache, gen_len=gen_len)
+        else:
+            toks, _, _ = _scan_decode_fn(self.backend, self.model, logits, cache,
+                                         gen_len=gen_len)
         return toks
+
+    def decode_step(self, tok, cache):
+        """One step of the engine's decode path fed tokens tok [B] (teacher
+        forcing): the megakernel layers on "mega", forward_tokens on the
+        others. Updates the cache in place; returns logits [B, V] f32."""
+        if self.backend == "mega":
+            return _mega_step(self, tok, cache)
+        return self.model.forward_tokens(tok.long()[:, None], cache, mode=self.backend)[0]
 
     def serve(self, input_ids, gen_len: int):
         """Generate: prefill then decode. input_ids [B, S]; returns
@@ -121,7 +162,7 @@ class Engine:
                       ks=[t[slot:slot + 1] for t in cache.ks],
                       vs=[t[slot:slot + 1] for t in cache.vs])
         logits, _ = _prefill_fn(self.model, self._h2d(ids)[None], row,
-                                mode=self.backend)
+                                mode=self.prefill_backend)
         return logits[0], cache
 
     def slot_chunk(self, logits, cache: KVCache, pos, active, *, chunk: int):
@@ -131,6 +172,11 @@ class Engine:
         their own dead rows, overwritten on admit). logits [B, V] f32,
         pos [B] int32 and active [B] bool stay on the device. Returns
         (toks [B, chunk] int32, logits, cache, pos), all on the device."""
+        if self.backend == "mega":
+            raise ValueError(
+                "backend='mega' fuses the PAGED decode tick only (paged_slot_chunk); "
+                "contiguous slot serving runs the per-op backends — use "
+                "ContinuousScheduler(paged=True) or backend='flash'")
         return _slot_scan_decode_fn(self.model.forward_tokens_slots, self.backend,
                                     logits, cache, pos, active,
                                     cap=cache.k[0].shape[2], gen_len=chunk)
@@ -208,7 +254,8 @@ class Engine:
             sv[0, :, :span] = pv[pre, 0].reshape((Hkv, span) + sv.shape[3:])
         scratch.offset = m
         logits, _ = self.model.forward_tokens(self._h2d(ids[m:])[None], scratch,
-                                              mode=self.backend, last_pos=(n - 1) - m)
+                                              mode=self.prefill_backend,
+                                              last_pos=(n - 1) - m)
         p = np.arange(m, n)
         dest = self._h2d(rows[:, p // page])      # [Hkv, n - m]
         ri = self._h2d(p % page)[None]
@@ -222,7 +269,11 @@ class Engine:
         """slot_chunk over the paged pool: the same contract, with each
         row's KV write and attention resolved through the page table (a
         retired row's table maps the trash page, so its masked-out writes
-        can never touch a live or cached page)."""
+        can never touch a live or cached page). On backend "mega" each
+        step runs one MegaPagedDecodeLayer launch per layer."""
+        if self.backend == "mega":
+            return _paged_slot_mega_scan_fn(self, logits, pcache, pos, active,
+                                            gen_len=chunk)
         return _slot_scan_decode_fn(self.model.forward_tokens_slots_paged,
                                     self.backend, logits, pcache, pos, active,
                                     cap=pcache.capacity, gen_len=chunk)
@@ -235,6 +286,128 @@ class Engine:
         Hkv = self.model.config.num_kv_heads
         pcache.table[slot * Hkv:(slot + 1) * Hkv] = pcache.trash
         return pcache
+
+
+def _check_mega(model, kv_dtype, sampling: str) -> None:
+    """The construction refusals of backend "mega" (the JAX engine's)."""
+    if sampling != "greedy":
+        raise ValueError(
+            "backend='mega' serves GREEDY streams only (the fused tick and the "
+            "decode loop carry the argmax token)")
+    if model.config.is_moe:
+        raise ValueError(
+            "backend='mega' fuses dense (attention + MLP) decode layers only "
+            "(missing capability: megakernel routed-expert FFN)")
+    if model.layers and isinstance(model.layers[0].attn.w_qkv, QuantW):
+        raise ValueError(
+            "backend='mega' takes raw bf16 weight panels and has no weight "
+            "dequant path; int8-weight models run on the other backends (int8 "
+            "paged KV is fine: the fused tick dequantizes the pool in-kernel)")
+    if kv_dtype is not None and kv_dtype != torch.int8:
+        raise ValueError(
+            f"backend='mega' supports kv_dtype=None (pool dtype) or torch.int8 "
+            f"(in-kernel scale-plane dequant), not {kv_dtype}")
+
+
+def _mega_setup(eng: Engine):
+    """The per-layer weight dicts of the megakernel, built once per
+    Engine: norms in f32 ([1, n]), absent QK-norms as ones, the packed
+    bf16 panels as they are (a model of another dtype is cast once)."""
+    if eng._mega is None:
+        model = eng.model
+        hd = model.config.head_dim
+        ones = torch.ones((1, hd), dtype=torch.float32, device=eng.device)
+        bf = torch.bfloat16
+
+        def norm(w):
+            return ones if w is None else w.reshape(1, -1).float().contiguous()
+
+        eng._mega = [dict(
+            w_ln1=norm(ly.ln_attn), w_qkv=ly.attn.w_qkv.to(bf).contiguous(),
+            q_norm=norm(ly.attn.q_norm), k_norm=norm(ly.attn.k_norm),
+            w_o=ly.attn.w_o.to(bf).contiguous(), w_ln2=norm(ly.ln_mlp),
+            w_gu=ly.mlp.w_gate_up.to(bf).contiguous(),
+            w_d=ly.mlp.w_down.to(bf).contiguous()) for ly in model.layers]
+    return eng._mega
+
+
+def _mega_geometry(model) -> dict:
+    cfg = model.config
+    return dict(d_model=cfg.hidden_size, n_heads=cfg.num_heads,
+                n_kv_heads=cfg.num_kv_heads, head_dim=cfg.head_dim,
+                ffn=cfg.intermediate_size, eps=cfg.rms_norm_eps,
+                qk_norm=model.layers[0].attn.q_norm is not None)
+
+
+def _mega_logits(model, x):
+    """Final RMSNorm of the f32 residual stream and the lm_head product
+    (f32 logits), outside the kernels."""
+    cfg = model.config
+    xf = rms_norm(x, model.final_norm.float(), cfg.rms_norm_eps)
+    head = model.lm_head
+    return qmm(xf.to(head.dtype), head, out_dtype=torch.float32)
+
+
+def _mega_scan_decode_fn(eng: Engine, logits0, cache: KVCache, *, gen_len: int):
+    """Megakernel decode loop (the JAX `_mega_scan_decode_fn`): per step
+    the argmax of the previous logits, the f32 embedding row, the RoPE
+    rows of the shared position, one MegaDecodeLayer launch per layer
+    over the cache in its own [B, Hkv, T, hd] layout (in place; the
+    cache stays valid and its offset advances), then the head."""
+    logits, toks = logits0, []
+    for _ in range(gen_len):
+        tok = sample_greedy(logits)
+        logits = _mega_step(eng, tok, cache)
+        toks.append(tok)
+    return torch.stack(toks, dim=1).to(torch.int32), logits, cache
+
+
+def _mega_step(eng: Engine, tok, cache: KVCache):
+    """One step of _mega_scan_decode_fn fed tokens tok [B]."""
+    model = eng.model
+    weights = _mega_setup(eng)
+    T = cache.k[0].shape[2]
+    layer = eng._mega_layer
+    if layer is None or layer.T != T:
+        layer = eng._mega_layer = MegaDecodeLayer(T=T, **_mega_geometry(model))
+    x = model.embed[tok].float()
+    pos = cache.offset
+    rope = dict(cos_row=model.cos[pos:pos + 1], sin_row=model.sin[pos:pos + 1])
+    for li, w in enumerate(weights):
+        x, _, _ = layer(x, pos, dict(w, **rope), cache.k[li], cache.v[li])
+    cache.advance(1)
+    return _mega_logits(model, x)
+
+
+def _paged_slot_mega_scan_fn(eng: Engine, logits0, pcache: PagedSlotCache, pos, active,
+                             *, gen_len: int):
+    """The fused paged greedy tick (the JAX `_paged_slot_mega_scan_fn`):
+    paged_slot_chunk's contract and masking (inactive rows feed token 0,
+    positions clamp at min(pos + active, cap - 1)) with one
+    MegaPagedDecodeLayer launch per layer per step; the RoPE rows are
+    gathered at each slot's own position."""
+    model = eng.model
+    weights = _mega_setup(eng)
+    maxp = pcache.table.shape[1]
+    layer = eng._mega_paged_layer
+    if layer is None or (layer.page, layer.maxp) != (pcache.page, maxp):
+        layer = eng._mega_paged_layer = MegaPagedDecodeLayer(
+            page=pcache.page, maxp=maxp, **_mega_geometry(model))
+    act = active.to(torch.int32)
+    cap = pcache.capacity
+    logits, toks = logits0, []
+    for _ in range(gen_len):
+        tok = torch.where(active, sample_greedy(logits), 0)
+        x = model.embed[tok].float()
+        p = pos.long()
+        rope = dict(cos_row=model.cos[p], sin_row=model.sin[p])
+        for li, w in enumerate(weights):
+            x = layer(x, pos, dict(w, **rope), *pcache.layer(li)[:2], pcache.table,
+                      *pcache.layer(li)[2:])[0]
+        logits = _mega_logits(model, x)
+        pos = torch.clamp(pos + act, max=cap - 1)
+        toks.append(tok)
+    return torch.stack(toks, dim=1).to(torch.int32), logits, pcache, pos
 
 
 def _prefill_fn(model, ids, cache, *, mode):

@@ -46,7 +46,13 @@ NotImplementedError: speculative decoding (spec > 0), chunked prefill
 (host_pool_pages > 0), the watchdog (watchdog_s), chaos faults (fault),
 SLO classes (slo_classes, Request.slo), deadlines (Request.deadline_ms),
 parallel sampling (Request.n > 1) and grammars (Request.grammar). The
-engine refuses sampled decoding and backend="mega" itself.
+engine refuses sampled decoding itself.
+
+backend="mega": the paged ticks run the fused megakernel program
+(Engine.paged_slot_chunk routes them; admissions stay per-op on
+"flash"), and the contiguous scheduler refuses a mega engine, as the JAX
+scheduler does. The `mega_enabled` gauge says which program the ticks
+run.
 """
 
 from __future__ import annotations
@@ -460,6 +466,11 @@ class ContinuousScheduler:
                          ("slo_classes (SLO classes)", slo_classes is not None)):
             if on:
                 raise _not_ported(what)
+        if engine.backend == "mega" and not paged:
+            raise ValueError(
+                "backend='mega' fuses the PAGED decode tick only "
+                "(engine.paged_slot_chunk); construct ContinuousScheduler(paged=True), "
+                "or serve contiguous slots on a per-op backend such as 'flash'")
         self.tele = Telemetry(trace=trace)
         if paged:
             self.slots = PagedDecodeSlots(engine, batch, page=page,
@@ -485,6 +496,10 @@ class ContinuousScheduler:
                                               "submits refused at max_queue")
         self._g_host_ms = reg.gauge("host_ms_per_poll", "dispatch-to-dispatch host "
                                                         "time minus device wait (EMA)")
+        # 1 when the paged decode ticks run the fused megakernel program
+        reg.gauge("mega_enabled", "1 = decode ticks run the fused megakernel "
+                                  "program").set(
+            1.0 if engine.backend == "mega" else 0.0)
         self._c_tokens = reg.counter("tokens_emitted",
                                      "tokens delivered to client streams")
         self._host_ms_ema: Optional[float] = None

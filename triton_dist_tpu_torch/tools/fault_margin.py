@@ -20,6 +20,16 @@ unchanged):
     scale=1         the softmax scale is left out
     v_scale=1       (int8) P is not multiplied by the V scales
 
+    python3 -m triton_dist_tpu_torch.tools.fault_margin --mega
+
+holds the megakernel decode path (Engine(backend="mega"), bf16) to the
+same reference instead: prefill on flash, then each decode step through
+the 28 megakernel launches, clean and with a fault the kernel plants
+itself (mega/decode_layer.py FAULT):
+
+    mega drop newest key    the attention walk stops one key short
+    mega no residual        o_proj leaves out the attention residual
+
 Prints one line per configuration and case with the largest relative gap
 over the steps and whether a limit of LIMIT times the largest logit
 catches it; needs one card.
@@ -61,7 +71,7 @@ def _forced_logits(model, eng, ids, toks, mode):
     return out
 
 
-def run_config(m, tp_attn, model, kv_dtype, label, B=B, S=S):
+def run_config(m, tp_attn, model, kv_dtype, label, B=B, S=S, mega=False):
     max_seq = S + STEPS + 8
     dev = model.device
     gen = torch.Generator(device=dev).manual_seed(1)
@@ -76,23 +86,41 @@ def run_config(m, tp_attn, model, kv_dtype, label, B=B, S=S):
         ref.append(logits)
     toks = torch.cat(toks, dim=1)
     del cache
-    eng = m.Engine(model, max_seq=max_seq, backend="flash", kv_dtype=kv_dtype,
-                   device=dev)
-    real = tp_attn.flash_decode
-    cases = {"clean": real, **_faults(real, kv_dtype is not None)}
     results = {}
-    for name, fn in cases.items():
-        tp_attn.flash_decode = fn
-        try:
-            got = _forced_logits(model, eng, ids, toks, "flash")
-        finally:
-            tp_attn.flash_decode = real
+
+    def report(name, got):
         rel = [((g - r).abs().max() / r.abs().max()).item() for g, r in zip(got, ref)]
         results[name] = rel
         worst = max(rel)
         print(f"fault_margin {label} {name}: max|d logits| / max|logit| per step "
               f"{[round(x, 5) for x in rel]}; worst {worst:.5f} -> "
               f"{'caught' if worst > LIMIT else 'NOT caught'} at {LIMIT}", flush=True)
+
+    if mega:
+        from triton_dist_tpu_torch.mega import decode_layer
+        eng = m.Engine(model, max_seq=max_seq, backend="mega", device=dev)
+        for name, fault in (("mega clean", 0), ("mega drop newest key", 1),
+                            ("mega no residual", 2)):
+            decode_layer.FAULT = fault
+            try:
+                logits, cache = eng.prefill(ids)
+                got = [logits] + [eng.decode_step(toks[:, t], cache)
+                                  for t in range(toks.shape[1])]
+            finally:
+                decode_layer.FAULT = 0
+            report(name, got)
+        return results
+    eng = m.Engine(model, max_seq=max_seq, backend="flash", kv_dtype=kv_dtype,
+                   device=dev)
+    real = tp_attn.flash_decode
+    cases = {"clean": real, **_faults(real, kv_dtype is not None)}
+    for name, fn in cases.items():
+        tp_attn.flash_decode = fn
+        try:
+            got = _forced_logits(model, eng, ids, toks, "flash")
+        finally:
+            tp_attn.flash_decode = real
+        report(name, got)
     return results
 
 
@@ -103,6 +131,11 @@ def main() -> int:
     import triton_dist_tpu_torch.models as m
     from triton_dist_tpu_torch.layers import tp_attn
     model = m.AutoLLM.from_config(m.qwen3_1p7b(), device="cuda", seed=0)
+    if "--mega" in sys.argv[1:]:
+        out = {"limit": LIMIT, "mega bf16": run_config(m, tp_attn, model, None,
+                                                       "mega bf16", mega=True)}
+        print(json.dumps(out), flush=True)
+        return 0
     out = {"limit": LIMIT, "bf16": run_config(m, tp_attn, model, None, "bf16")}
     model = model.quantize_int8()
     out["int8"] = run_config(m, tp_attn, model, torch.int8, "int8")
