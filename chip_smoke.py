@@ -50,7 +50,30 @@ NVIDIA card: the quickest proof that the port still starts on the GPU.
    megakernel launches per decode step and per tick step, no
    flash_decode_paged or swiglu launch inside a mega tick, flash_decode
    and kv_update launched only by the admissions.
-7. Prints one JSON line of per-kernel results, then, last, the device
+7. MoE phases (Qwen3-30B-A3B, TP-MoE at tensor-parallel size 1, bf16,
+   after every dense model is freed). Kernel rows 7a-7d (grouped_gemm at
+   the decode and prefill capacities of the main path) and a ragged case,
+   each x padded past C with 100x rows; flash_decode and
+   flash_decode_paged at the model's 8 query heads per kv head. The layer
+   phase: one full-width TP_MoE (E=128, top-8, D=2048, I=768) at M=128
+   and M=16384, capacity 2.0, fwd_local against the plain composition of
+   the port's own pieces (grouped_gemm_ref) and, at M=128, the dense
+   oracle fwd_xla. The engine phase: the whole model (48 layers, random
+   weights) through Engine(backend="flash"), B=128 x S=128 prefill and 32
+   decode steps at capacity 2.0, with exactly 96 grouped_gemm, 48
+   flash_decode and 96 kv_update launches per forward and no swiglu, and
+   the capacity drops of 8 slot-chunk decode steps (the port's own
+   routing load); then, on the same model switched to capacity
+   "dropless", a teacher-forced check against the plain backend at B=4,
+   S=64 with the plain backend's expert selection pinned to the flash
+   path's (tools/fault_margin.py RouteTape), and no drop in a slot chunk.
+   The serving phase: the 128 requests through
+   ContinuousScheduler(paged=True) at capacity 2.0 (exact launch counts,
+   the MoE counters, the tick probe), then a dropless arm (8 requests, 4
+   slots, no drop) whose served tokens are held to the contiguous flash
+   engine teacher-forced along them, and that engine to the plain one
+   with the routing pinned.
+8. Prints one JSON line of per-kernel results, then, last, the device
    line {"ok": true, "device": {...}}.
 
 Exits non-zero, printing no result, if there is no CUDA device, if the
@@ -59,6 +82,7 @@ package is not beside this script, or if any phase fails.
 
 from __future__ import annotations
 
+import gc
 import json
 import os
 import statistics
@@ -80,6 +104,15 @@ PAGE = 16
 # length, requests teacher-forced against the plain engine
 SERVE_B, SERVE_CHUNK, SERVE_MAX_SEQ = 64, 16, 224
 N_REQ, N_SYS, SYS_LEN, TF_REQS = 128, 4, 96, 8
+# MoE: the teacher-forced arm's batch and prompt, the dropless serving
+# arm's requests and slots, the logit limit of flash against the plain
+# backend with the routing pinned, and the margin limit of served tokens
+# against the contiguous flash engine
+# (triton_dist_tpu_torch/tools/fault_margin.py --moe)
+MOE_TF_B, MOE_TF_S = 4, 64
+MOE_DL_REQS, MOE_DL_SLOTS = 8, 4
+MOE_LIMIT = 3e-2
+MOE_SERVE_LIMIT = 2e-2
 
 
 class CheckFailed(Exception):
@@ -512,6 +545,319 @@ def mega_kernel_phase(gen):
     return rows
 
 
+def moe_kernel_phase(k, gen):
+    """Rows 7a-7d and a ragged case of grouped_gemm at Qwen3-30B-A3B's
+    expert shapes (E=128, D=2048, I=768) and the capacities of the main
+    path (decode B=128 at capacity 2.0: C=24; prefill 128 x 128: C=2056),
+    then flash_decode and flash_decode_paged at its 32 query and 4 kv
+    heads (8 query heads per kv head)."""
+    dev = torch.device("cuda")
+    rows = []
+
+    def randn(*shape, sc=1.0):
+        return torch.randn(shape, generator=gen, device=dev, dtype=torch.bfloat16) * sc
+
+    gg_src = "triton_dist_tpu_torch/kernels/csrc/grouped_gemm.cu"
+    gg_rep = "triton_dist_tpu/kernels/group_gemm.py:74"
+    for case, E, C, D, F, key in (
+            ("7a decode gate_up", 128, 24, 2048, 1536, ("moe", "decode")),
+            ("7b decode down", 128, 24, 768, 2048, ("moe", "decode")),
+            ("7c prefill gate_up", 128, 2056, 2048, 1536, ("moe", "prefill")),
+            ("7d prefill down", 128, 2056, 768, 2048, ("moe", "prefill")),
+            ("ragged", 3, 200, 512, 320, ("moe", "paged"))):
+        # x is a view of [E, C + 8, D] whose rows past C hold 100x values:
+        # a kernel that reads past an expert's C rows fails the check
+        xs = randn(E, C + 8, D)
+        xs[:, C:] *= 100
+        x = xs[:, :C]
+        w = randn(E, D, F, sc=D ** -0.5)
+        out = k.grouped_gemm(x, w)
+        ref = k.grouped_gemm_ref(x, w)
+        torch.cuda.synchronize()
+        err = max_err(out, ref)
+        # both accumulate in f32 and round once to bf16: one bf16 ulp of
+        # the largest output where the two sums straddle a rounding
+        # boundary (a skipped 32-deep K panel moves outputs by about 10%)
+        tol = 2 ** -7 * ref.float().abs().max().item()
+        check(err <= tol, f"grouped_gemm {case}: max_abs_err {err} > tol {tol}")
+        b_ms, b_by = bound(2 * (E * C * D + E * D * F + E * C * F), 2 * E * C * D * F)
+        r = dict(name="grouped_gemm", case=f"{case} E={E} C={C} D={D} F={F} bf16",
+                 route="cuda", source=gg_src, replaces=gg_rep, launches=None,
+                 max_abs_err=err, tol=tol, ms=cuda_ms(lambda: k.grouped_gemm(x, w)),
+                 plain_ms=cuda_ms(lambda: k.grouped_gemm_ref(x, w), reps=5),
+                 bound_ms=b_ms, bound_by=b_by,
+                 library_ms=cuda_ms(lambda: torch.bmm(x, w)))
+        rows.append((r, key))
+        print(f"kernel grouped_gemm [{r['case']}]: max_abs_err {err:.3g} (tol {tol:.3g}) "
+              f"ms {r['ms']:.4f} plain_ms {r['plain_ms']:.4f} library_ms (torch.bmm) "
+              f"{r['library_ms']:.4f} bound_ms {b_ms:.4f} ({b_by})", flush=True)
+        del xs, x, w, out, ref
+    torch.cuda.empty_cache()
+
+    # flash kernels at 8 query heads per kv head: prefill S=128 over 128
+    # keys and decode over 200, the cache tail poisoned as in the dense rows
+    Hq, Hkv, d = 32, 4, 128
+    fd_src = "triton_dist_tpu_torch/kernels/csrc/flash_decode.cu"
+    fd_rep = "triton_dist_tpu/kernels/flash_attn.py:406"
+    for phase, Sq, kv_len in (("prefill", S, S), ("decode", 1, KV_DECODE)):
+        q = randn(B, Sq, Hq, d)
+        kc = randn(B, Hkv, T_KERNEL, d)
+        vc = randn(B, Hkv, T_KERNEL, d)
+        kc[:, :, kv_len:] *= 100
+        vc[:, :, kv_len:] *= 100
+        keys = sum(kv_len - Sq + s + 1 for s in range(Sq)) * B * Hq
+        out = k.flash_decode(q, kc, vc, kv_len)
+        ref = k.flash_decode_ref(q, kc, vc, kv_len)
+        torch.cuda.synchronize()
+        err = max_err(out, ref)
+        tol = 1e-2 * (1 + ref.float().abs().max().item())
+        check(err <= tol, f"flash_decode rep 8 {phase}: max_abs_err {err} > tol {tol}")
+        b_ms, b_by = bound(2 * q.numel() * 2 + 2 * 2 * B * Hkv * kv_len * d, 4 * d * keys)
+        qT, kT, vT = q.transpose(1, 2), kc[:, :, :kv_len], vc[:, :, :kv_len]
+        r = dict(name="flash_decode",
+                 case=f"{phase} S={Sq} kv_len={kv_len} T={T_KERNEL} Hq={Hq} Hkv={Hkv} bf16",
+                 route="cuda", source=fd_src, replaces=fd_rep, launches=None,
+                 max_abs_err=err, tol=tol, ms=cuda_ms(lambda: k.flash_decode(q, kc, vc, kv_len)),
+                 plain_ms=cuda_ms(lambda: k.flash_decode_ref(q, kc, vc, kv_len), reps=5),
+                 bound_ms=b_ms, bound_by=b_by,
+                 library_ms=cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+                     qT, kT, vT, is_causal=Sq > 1, enable_gqa=True)))
+        rows.append((r, ("moe", phase)))
+        print(f"kernel flash_decode [{r['case']}]: max_abs_err {err:.3g} (tol {tol:.3g}) "
+              f"ms {r['ms']:.4f} plain_ms {r['plain_ms']:.4f} library_ms "
+              f"{r['library_ms']:.4f} bound_ms {b_ms:.4f} ({b_by})", flush=True)
+        del q, kc, vc, out, ref
+
+    # flash_decode_paged: 64 slots (the serving tick) at lengths in [1, 224];
+    # every pool row no stream reads holds 100x values
+    Bp, cap = SERVE_B, SERVE_MAX_SEQ
+    maxp = cap // PAGE
+    X = Bp * Hkv
+    NP = 1 + X * maxp
+    lens = torch.randint(1, cap + 1, (Bp,), generator=gen, device=dev, dtype=torch.int32)
+    lens[:3] = torch.tensor([cap, 8 * PAGE, 1], dtype=torch.int32)
+    table = (1 + torch.randperm(NP - 1, generator=gen, device=dev)[:X * maxp]
+             ).reshape(X, maxp).to(torch.int32)
+    lens_x = lens.repeat_interleave(Hkv)
+    n_pages = (lens_x + PAGE - 1) // PAGE
+    tpos = torch.arange(maxp * PAGE, device=dev)
+    used = torch.zeros(NP * PAGE, dtype=torch.bool, device=dev)
+    used[(table.long()[:, tpos // PAGE] * PAGE + tpos % PAGE)[
+        tpos[None, :] < lens_x[:, None]]] = True
+    pk = randn(NP, PAGE, d)
+    pv = randn(NP, PAGE, d)
+    pk[~used.reshape(NP, PAGE)] *= 100
+    pv[~used.reshape(NP, PAGE)] *= 100
+    q1 = randn(Bp, 1, Hq, d)
+    out = k.flash_decode_paged(q1, pk, pv, table, kv_lens=lens)
+    ref = k.flash_decode_paged_ref(q1, pk, pv, table, kv_lens=lens)
+    torch.cuda.synchronize()
+    err = max_err(out, ref)
+    tol = 1e-2 * (1 + ref.float().abs().max().item())
+    check(err <= tol, f"flash_decode_paged rep 8: max_abs_err {err} > tol {tol}")
+    n_keys = int(lens.sum())
+    b_ms, b_by = bound(2 * q1.numel() * 2 + 2 * Hkv * n_keys * d * 2
+                       + int(n_pages.sum()) * 4 + Bp * 4, 4 * d * Hq * n_keys)
+    r = dict(name="flash_decode_paged",
+             case=f"slots={Bp} kv_lens in [1, {cap}] page={PAGE} Hq={Hq} Hkv={Hkv} bf16",
+             route="cuda", source="triton_dist_tpu_torch/kernels/csrc/flash_decode_paged.cu",
+             replaces="triton_dist_tpu/kernels/paged_kv.py:411", launches=None,
+             max_abs_err=err, tol=tol,
+             ms=cuda_ms(lambda: k.flash_decode_paged(q1, pk, pv, table, kv_lens=lens)),
+             plain_ms=cuda_ms(lambda: k.flash_decode_paged_ref(q1, pk, pv, table,
+                                                                kv_lens=lens), reps=5),
+             bound_ms=b_ms, bound_by=b_by, library_ms=None)
+    rows.append((r, ("moe", "paged")))
+    print(f"kernel flash_decode_paged [{r['case']}]: max_abs_err {err:.3g} (tol {tol:.3g}) "
+          f"ms {r['ms']:.4f} plain_ms {r['plain_ms']:.4f} bound_ms {b_ms:.4f} ({b_by})",
+          flush=True)
+    del pk, pv, out, ref
+    torch.cuda.empty_cache()
+    return rows
+
+
+def moe_layer_phase(k, gen):
+    """One full-width TP_MoE layer of Qwen3-30B-A3B (E=128, top-8,
+    D=2048, I=768, bf16, capacity 2.0) at M=128 and M=16384 tokens:
+    fwd_local (the grouped_gemm kernel) against the plain composition of
+    the port's own pieces on the same input (hence the same routing), and
+    at M=128 against the dense oracle fwd_xla."""
+    from triton_dist_tpu_torch.kernels.ep_a2a import (group_tokens_by_expert, route,
+                                                     scatter_weighted)
+    from triton_dist_tpu_torch.layers import TP_MoE
+    dev = torch.device("cuda")
+    E, topk, D, I = 128, 8, 2048, 768
+
+    def randn(*shape, sc=1.0):
+        return torch.randn(shape, generator=gen, device=dev, dtype=torch.bfloat16) * sc
+
+    layer = TP_MoE.init(randn(D, E, sc=0.02), randn(E, D, I, sc=D ** -0.5),
+                        randn(E, D, I, sc=D ** -0.5), randn(E, I, D, sc=I ** -0.5),
+                        top_k=topk, capacity_factor=2.0)
+
+    def plain(x, kept=False):
+        """The layer's plain composition; with kept, also which tokens
+        kept all their entries."""
+        M = x.shape[0]
+        cap = layer._cap(M)
+        topk_w, topk_idx = route(x @ layer.w_router, topk)
+        x_e, inv, tok = group_tokens_by_expert(x, topk_idx, E, cap)
+        y_e = layer._expert_mlp_sharded(x_e, gemm=k.grouped_gemm_ref)[0]
+        y = scatter_weighted(y_e, inv, tok, topk_w, M).to(x.dtype)
+        return (y, (inv < E * cap).reshape(M, topk).all(1)) if kept else y
+
+    for M in (B, B * S):
+        x = randn(M, D)
+        k.reset_launch_counts()
+        y, st = layer.fwd_local(x, return_stats=True)
+        torch.cuda.synchronize()
+        launches = k.launch_counts()["grouped_gemm"]
+        check(launches == 2, f"moe layer M={M}: {launches} grouped_gemm launches, want 2")
+        y_ref, kept = plain(x, kept=True)
+        torch.cuda.synchronize()
+        # the same routing and grouping; the products differ by a bf16 ulp
+        # where f32 sums straddle a rounding boundary, then pass the SwiGLU
+        # and the down product: 1e-2 of the largest output
+        err = max_err(y, y_ref)
+        tol = 1e-2 * y_ref.float().abs().max().item()
+        check(err <= tol, f"moe layer M={M}: fwd_local vs plain max|d| {err} > {tol}")
+        line = (f"moe layer M={M} cap={layer._cap(M)}: fwd_local vs plain composition "
+                f"max|d| {err:.4g} (tol {tol:.4g}); drops {int(st['dropped'])} of "
+                f"{M * topk} entries; ms fwd_local {cuda_ms(lambda: layer.fwd_local(x)):.4f} "
+                f"plain {cuda_ms(lambda: plain(x), reps=5):.4f}")
+        if M == B:
+            y_x = layer.fwd_xla(x)
+            torch.cuda.synchronize()
+            # the oracle never drops: held on the tokens that kept all
+            # their entries (every token when nothing dropped); 2e-2, as
+            # its expert products run as bf16 einsums summed otherwise
+            check(int(kept.sum()) > 0, f"moe layer M={M}: every token lost an entry")
+            err_x = max_err(y[kept], y_x[kept])
+            tol_x = 2e-2 * y_x[kept].float().abs().max().item()
+            check(err_x <= tol_x,
+                  f"moe layer M={M}: fwd_local vs fwd_xla max|d| {err_x} > {tol_x}")
+            line += (f"; vs dense oracle fwd_xla on {int(kept.sum())} tokens max|d| "
+                     f"{err_x:.4g} (tol {tol_x:.4g}), ms "
+                     f"{cuda_ms(lambda: layer.fwd_xla(x), reps=5):.4f}")
+        print(line, flush=True)
+        del x, y, y_ref
+    del layer
+    torch.cuda.empty_cache()
+
+
+def chunk_load(eng, logits, cache, pos, steps):
+    """The routing load of `steps` slot-chunk decode steps from (logits,
+    cache) with every row at position pos: the port's own [E+1] vector
+    (per-expert routed entries, then the capacity drops), on the host."""
+    B = logits.shape[0]
+    pos = torch.full((B,), pos, dtype=torch.int32, device=logits.device)
+    active = torch.ones(B, dtype=torch.bool, device=logits.device)
+    return eng.slot_chunk(logits, cache, pos, active, chunk=steps)[4].cpu().numpy()
+
+
+def set_capacity(model, cf) -> None:
+    for ly in model.layers:
+        ly.moe.capacity_factor = cf
+
+
+def moe_engine_phase(m, k, model, ids, card):
+    """Qwen3-30B-A3B through Engine(backend="flash") at capacity 2.0:
+    prefill B x S and GEN decode steps, timed, with exact launch counts,
+    and the capacity drops of TF_STEPS decode steps from a fresh prefill
+    (the slot chunk's routing load); then the dropless teacher-forced
+    check against the plain backend with the routing pinned."""
+    from triton_dist_tpu_torch.tools.fault_margin import RouteTape
+    L, topk = model.config.num_layers, model.config.num_experts_per_tok
+    eng = m.Engine(model, max_seq=S + GEN + 8, backend="flash")
+    eng.decode(*eng.prefill(ids), 2)                    # warm-up, not counted
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    k.reset_launch_counts()
+    t0 = time.perf_counter()
+    logits, cache = eng.prefill(ids)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    c_prefill = k.launch_counts()
+    k.reset_launch_counts()
+    t0 = time.perf_counter()
+    toks = eng.decode(logits, cache, GEN)
+    torch.cuda.synchronize()
+    decode_s = time.perf_counter() - t0
+    c_decode = k.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    for label, c, fw in (("prefill", c_prefill, 1), ("decode", c_decode, GEN)):
+        want = dict(grouped_gemm=2 * L * fw, flash_decode=L * fw, kv_update=2 * L * fw,
+                    swiglu=0, flash_decode_paged=0, mega_decode=0, mega_paged_decode=0)
+        check(c == want, f"moe engine {label}: launches {c}, want {want}")
+    check(tuple(toks.shape) == (B, GEN), f"moe engine: tokens {tuple(toks.shape)}")
+    check(bool(torch.isfinite(logits).all()), "moe engine: non-finite logits")
+    profile_decode(eng, cache, toks[:, :2], "moe bf16", decode_s / GEN)
+    del cache, logits
+    load = chunk_load(eng, *eng.prefill(ids), S, TF_STEPS)
+    check(int(load[:-1].sum()) == B * topk * L * TF_STEPS,
+          f"moe engine: routed entries {int(load[:-1].sum())} over {TF_STEPS} steps")
+    print(f"engine moe bf16 on {card}: prefill {prefill_s * 1e3:.1f} ms (B={B}, S={S}), "
+          f"decode {GEN} steps {decode_s * 1e3:.1f} ms ({decode_s * 1e3 / GEN:.2f} ms/step) = "
+          f"{B * GEN / decode_s:.1f} tok/s, peak memory {peak / 2**30:.2f} GiB; capacity "
+          f"drops {int(load[-1])} of {int(load[:-1].sum())} routed entries over "
+          f"{TF_STEPS} decode steps; launches prefill {c_prefill} decode {c_decode} "
+          f"(per step {sum(c_decode.values()) // GEN})", flush=True)
+
+    # teacher-forced, dropless: flash against the plain backend on the same
+    # model, each step's plain forward replaying the flash forward's expert
+    # selection (RouteTape). Left free, the two route 30% of (token, layer)
+    # choices differently (near ties at rank 8/9 flip on bf16 noise) and
+    # their logits part by 4.5-7.2%, more than a zeroed expert moves them.
+    # Pinned, the clean gap is 1.3-1.8% of the largest logit on the H100,
+    # and MOE_LIMIT 3e-2 sits below the planted grouped_gemm faults: one
+    # expert zeroed 3.9-4.8%, a skipped K panel 12-15%
+    # (tools/fault_margin.py --moe). Greedy tokens must agree wherever the
+    # plain top-2 margin exceeds twice the limit.
+    set_capacity(model, "dropless")
+    try:
+        ids_tf = ids[:MOE_TF_B, :MOE_TF_S]
+        ref_eng = m.Engine(model, max_seq=MOE_TF_S + TF_STEPS + 8, backend="xla")
+        eng_tf = m.Engine(model, max_seq=MOE_TF_S + TF_STEPS + 8, backend="flash")
+        errs, forced, tape = [], 0, RouteTape()
+        with tape.record():
+            lf, cf = eng_tf.prefill(ids_tf)
+        with tape.replay():
+            lr, cr = ref_eng.prefill(ids_tf)
+        for t in range(TF_STEPS + 1):
+            check(tape.done(), f"moe dropless: step {t} replayed {tape.used} of "
+                               f"{len(tape.calls)} routing calls")
+            tol = MOE_LIMIT * lr.abs().max().item()
+            err = (lf - lr).abs().max().item()
+            errs.append(round(err / lr.abs().max().item(), 5))
+            check(err <= tol, f"moe dropless: step {t} logits max|d| {err} > tol {tol}")
+            top2 = lr.topk(2, dim=-1).values
+            sure = (top2[:, 0] - top2[:, 1]) > 2 * tol
+            check(bool((torch.argmax(lf, -1) == torch.argmax(lr, -1))[sure].all()),
+                  f"moe dropless: step {t} greedy token differs where the margin "
+                  "exceeds the tolerance")
+            forced += int(sure.sum())
+            if t < TF_STEPS:
+                tok = torch.argmax(lr, -1)
+                with tape.record():
+                    lf = eng_tf.decode_step(tok, cf)
+                with tape.replay():
+                    lr = ref_eng.decode_step(tok, cr)
+        check(forced > 0, "moe dropless: no token passed the margin rule")
+        # the dropless capacity on the tick path: four slot-chunk steps on
+        # from the teacher-forced cache, with the chunk's own drop count
+        load = chunk_load(eng_tf, lf, cf, MOE_TF_S + TF_STEPS, 4)
+        check(int(load[-1]) == 0 and int(load[:-1].sum()) == MOE_TF_B * topk * L * 4,
+              f"moe dropless: {int(load[-1])} entries dropped of {int(load[:-1].sum())}")
+        print(f"engine moe dropless: teacher-forced vs plain backend, routing pinned, "
+              f"B={MOE_TF_B} S={MOE_TF_S} and {TF_STEPS} steps: max|d logits| / "
+              f"max|logit| per step {errs} (limit {MOE_LIMIT}), {forced} greedy tokens "
+              f"checked; a 4-step slot chunk dropped {int(load[-1])} of "
+              f"{int(load[:-1].sum())} routed entries", flush=True)
+    finally:
+        set_capacity(model, 2.0)
+    return dict(prefill=c_prefill, decode=c_decode)
+
+
 def profile_decode(eng, cache, toks, label, step_s):
     """Device time of two decode steps by kernel (torch.profiler), beside the
     step's wall time from the timed run: what share of a step the card
@@ -630,14 +976,18 @@ def serving_requests(m, vocab: int):
             for i, w in enumerate(which)]
 
 
-def serving_phase(m, k, model, kv_dtype, label, paged, reqs, card, backend="flash"):
+def serving_phase(m, k, model, kv_dtype, label, paged, reqs, card, backend="flash",
+                  batch=SERVE_B, tf_reqs=TF_REQS, probe=True):
     """Drive ContinuousScheduler through its entry points with the launch
-    counts read around the run, then hold the tokens of TF_REQS seeded
-    requests, teacher-forced, against the plain contiguous engine."""
+    counts read around the run, then hold the tokens of tf_reqs seeded
+    requests (0: none), teacher-forced, against the plain contiguous
+    engine."""
     eng = m.Engine(model, max_seq=SERVE_MAX_SEQ, backend=backend, kv_dtype=kv_dtype)
+    L = model.config.num_layers
+    moe = model.config.is_moe
 
     def scheduler():
-        return m.ContinuousScheduler(eng, batch=SERVE_B, chunk=SERVE_CHUNK,
+        return m.ContinuousScheduler(eng, batch=batch, chunk=SERVE_CHUNK,
                                      paged=paged, page=PAGE)
 
     # warm-up (cuBLAS handles and heuristics, allocator), not counted
@@ -658,11 +1008,19 @@ def serving_phase(m, k, model, kv_dtype, label, paged, reqs, card, backend="flas
     # drop the tick counter: it and the slots referred to each other
     del sched.slots.step_chunk, step_chunk
     st = sched.stats()
-    if backend == "mega":
+    admits = len(reqs) + st["preemptions"]
+    steps = sum(ticks)
+    if moe:
+        # admissions: one batch-1 flash forward each; ticks: the paged
+        # attention per layer and step; two grouped GEMMs per layer in both
+        want = dict(grouped_gemm=2 * L * (admits + steps), flash_decode=L * admits,
+                    kv_update=2 * L * admits, flash_decode_paged=L * steps, swiglu=0,
+                    mega_decode=0, mega_paged_decode=0)
+        check(paged and counts == want, f"{label}: launches {counts} for {steps} tick steps and "
+                              f"{admits} admissions, want {want}")
+    elif backend == "mega":
         # ticks: 28 megakernel launches per step and nothing else of the
         # per-op decode; admissions: one batch-1 flash forward each
-        admits = N_REQ + st["preemptions"]
-        steps = sum(ticks)
         check(counts["mega_paged_decode"] == N_LAYERS * steps
               and counts["flash_decode_paged"] == 0
               and counts["flash_decode"] == N_LAYERS * admits
@@ -689,35 +1047,96 @@ def serving_phase(m, k, model, kv_dtype, label, paged, reqs, card, backend="flas
                    prefill_skip_frac=st.get("prefill_skip_frac"), hits=st.get("hits"),
                    preemptions=st["preemptions"], peak_gib=peak / 2**30,
                    tick_steps=sum(ticks), launches=counts)
+    if moe:
+        summary.update(moe_capacity_drops=st["moe_capacity_drops"],
+                       expert_load_imbalance=st["expert_load_imbalance"],
+                       expert_tokens=sum(st[f"expert_tokens{{expert={e}}}"]
+                                         for e in range(model.config.num_experts)))
+        check(summary["expert_tokens"] == model.config.num_experts_per_tok * L * batch
+              * steps, f"{label}: expert_tokens {summary['expert_tokens']} for {steps} "
+                       f"tick steps of {batch} slots")
     print(f"serving {label} on {card}: {json.dumps(summary)}", flush=True)
-    tick_probe(m, k, eng, paged, reqs, label)
+    if probe:
+        tick_probe(m, k, eng, paged, reqs, label)
+    if moe and model.layers[0].moe.capacity_factor == "dropless":
+        check(st["moe_capacity_drops"] == 0, f"{label}: capacity drops while dropless")
 
-    # teacher-forced: the plain engine over prompt + emitted tokens; each
-    # emitted token must be its argmax wherever its top-2 margin exceeds
-    # twice 5e-2 of the largest logit (the engine phase's rule)
-    ref = m.Engine(model, max_seq=SERVE_MAX_SEQ, backend="xla", kv_dtype=kv_dtype)
-    picks = np.random.RandomState(2).choice(len(reqs), TF_REQS, replace=False)
-    forced = 0
-    for i in picks:
-        r = reqs[i]
-        toks = out[r.rid]
-        logits, cache = ref.prefill(r.ids[None])
-        for t in range(r.gen_len):
-            tol = 5e-2 * logits.abs().max().item()
-            top2 = logits[0].topk(2).values
-            if (top2[0] - top2[1]).item() > 2 * tol:
-                check(int(logits[0].argmax()) == int(toks[t]),
-                      f"{label}: request {r.rid} token {t} differs from the plain "
-                      "engine where the margin exceeds the tolerance")
-                forced += 1
-            logits, cache = model.forward_tokens(
-                torch.tensor([[int(toks[t])]], device="cuda"), cache, mode="xla")
-    check(forced > 0, f"{label}: no token passed the margin rule")
+    if moe:
+        ref, forced, worst = moe_served_check(m, model, reqs, out, tf_reqs, label)
+    else:
+        # teacher-forced: the plain engine over prompt + emitted tokens;
+        # each emitted token must be its argmax wherever its top-2 margin
+        # exceeds twice 5e-2 of the largest logit (the engine phase's rule)
+        ref = m.Engine(model, max_seq=SERVE_MAX_SEQ, backend="xla", kv_dtype=kv_dtype)
+        forced = 0
+        for i in np.random.RandomState(2).choice(len(reqs), tf_reqs, replace=False):
+            r = reqs[i]
+            toks = out[r.rid]
+            logits, cache = ref.prefill(r.ids[None])
+            for t in range(r.gen_len):
+                tol = 5e-2 * logits.abs().max().item()
+                top2 = logits[0].topk(2).values
+                if (top2[0] - top2[1]).item() > 2 * tol:
+                    check(int(logits[0].argmax()) == int(toks[t]),
+                          f"{label}: request {r.rid} token {t} differs from the plain "
+                          "engine where the margin exceeds the tolerance")
+                    forced += 1
+                tok = torch.tensor([[int(toks[t])]], device=model.device)
+                logits, cache = model.forward_tokens(tok, cache, mode="xla")
+    check(forced > 0 or not tf_reqs, f"{label}: no token passed the margin rule")
     print(f"serving {label}: teacher-forced vs plain contiguous engine, "
-          f"{TF_REQS} requests, {forced} tokens checked", flush=True)
+          f"{tf_reqs} requests, {forced} tokens checked"
+          + ("" if not (moe and tf_reqs) else f" against the contiguous flash engine (limit "
+                                f"{MOE_SERVE_LIMIT}), whose logits on the served tokens "
+                                f"are within {worst:.5f} of the largest plain logit with "
+                                f"the routing pinned (limit {MOE_LIMIT})"),
+          flush=True)
     del sched, eng, ref
     torch.cuda.empty_cache()
     return counts
+
+
+def moe_served_check(m, model, reqs, out, n, label):
+    """The first n requests of a MoE serving run, teacher-forced: the
+    contiguous flash engine along prompt + served tokens, and the plain
+    engine replaying its expert selection (RouteTape). Each served token
+    must be the flash engine's argmax wherever that engine's top-2 margin
+    exceeds twice MOE_SERVE_LIMIT of its largest logit. The served tick
+    runs the same kernels, batched and through the page table, and still
+    routes some tokens differently: on the H100 the clean served tokens
+    that differ from that argmax do so at margins up to 2.9%, those of a
+    planted grouped_gemm fault up to 6.7-6.9% (tools/fault_margin.py
+    --moe). The flash logits must stay within MOE_LIMIT of the plain
+    engine's. Returns (the plain engine, tokens checked, the largest
+    relative logit gap)."""
+    from triton_dist_tpu_torch.tools.fault_margin import RouteTape
+    fl = m.Engine(model, max_seq=SERVE_MAX_SEQ, backend="flash")
+    ref = m.Engine(model, max_seq=SERVE_MAX_SEQ, backend="xla")
+    forced, worst = 0, 0.0
+    for r in reqs[:n]:
+        toks, tape = out[r.rid], RouteTape()
+        with tape.record():
+            lf, cf = fl.prefill(r.ids[None])
+        with tape.replay():
+            lr, cr = ref.prefill(r.ids[None])
+        for t in range(r.gen_len):
+            gap = (lf - lr).abs().max().item() / lr.abs().max().item()
+            check(tape.done() and gap <= MOE_LIMIT,
+                  f"{label}: request {r.rid} step {t} flash logits max|d| / max|logit| "
+                  f"{gap} > {MOE_LIMIT} (routing pinned)")
+            worst = max(worst, gap)
+            top2 = lf[0].topk(2).values
+            if (top2[0] - top2[1]).item() > 2 * MOE_SERVE_LIMIT * lf.abs().max().item():
+                check(int(lf[0].argmax()) == int(toks[t]),
+                      f"{label}: request {r.rid} token {t} differs from the contiguous "
+                      "flash engine where the margin exceeds the tolerance")
+                forced += 1
+            tok = torch.tensor([[int(toks[t])]], device=model.device)
+            with tape.record():
+                lf, cf = model.forward_tokens(tok, cf, mode="flash")
+            with tape.replay():
+                lr, cr = model.forward_tokens(tok, cr, mode="xla")
+    return ref, forced, worst
 
 
 def tick_probe(m, k, eng, paged, reqs, label):
@@ -741,8 +1160,8 @@ def tick_probe(m, k, eng, paged, reqs, label):
     tick = eng.paged_slot_chunk if paged else eng.slot_chunk
 
     def run_tick():
-        _, slots.logits, slots.cache, slots.pos = tick(
-            slots.logits, slots.cache, slots.pos, slots.active, chunk=SERVE_CHUNK)
+        slots.logits, slots.cache, slots.pos = tick(
+            slots.logits, slots.cache, slots.pos, slots.active, chunk=SERVE_CHUNK)[1:4]
 
     k.reset_launch_counts()
     t0 = time.perf_counter()
@@ -759,6 +1178,14 @@ def tick_probe(m, k, eng, paged, reqs, label):
               and sum(counts.values()) == counts["mega_paged_decode"],
               f"tick {label}: launches {counts}, want only mega_paged_decode == "
               f"{N_LAYERS * SERVE_CHUNK}")
+    if eng.moe_family:
+        L = eng.model.config.num_layers
+        attn = "flash_decode_paged" if paged else "flash_decode"
+        check(counts["grouped_gemm"] == 2 * L * SERVE_CHUNK
+              and counts[attn] == L * SERVE_CHUNK
+              and sum(counts.values()) == 3 * L * SERVE_CHUNK,
+              f"tick {label}: launches {counts}, want grouped_gemm == "
+              f"{2 * L * SERVE_CHUNK} and {attn} == {L * SERVE_CHUNK} only")
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         run_tick()
         torch.cuda.synchronize()
@@ -847,6 +1274,33 @@ def main() -> int:
     counts["int8"]["paged"] = serving_phase(m, k, model, torch.int8, "paged int8", True,
                                             reqs, card)
     stamp("serving paged int8")
+
+    # MoE: Qwen3-30B-A3B, about 61 GB of bf16 weights, built once every
+    # dense model is gone
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"memory before the MoE phases: {torch.cuda.memory_allocated() / 2**30:.2f} GiB "
+          "allocated", flush=True)
+    rows += moe_kernel_phase(k, gen)
+    moe_layer_phase(k, gen)
+    stamp("moe kernel and layer phases")
+    cfg = m.qwen3_30b_a3b()
+    t0 = time.perf_counter()
+    model = m.AutoLLM.from_config(cfg, device="cuda", seed=0, capacity_factor=2.0)
+    torch.cuda.synchronize()
+    print(f"moe model: {time.perf_counter() - t0:.1f} s to draw, "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated", flush=True)
+    counts["moe"] = moe_engine_phase(m, k, model, ids, card)
+    stamp("engine moe bf16")
+    counts["moe"]["paged"] = serving_phase(m, k, model, None, "moe paged bf16", True, reqs,
+                                           card, tf_reqs=0)
+    stamp("serving moe paged bf16")
+    set_capacity(model, "dropless")
+    serving_phase(m, k, model, None, "moe paged bf16 dropless", True, reqs[:MOE_DL_REQS],
+                  card, batch=MOE_DL_SLOTS, tf_reqs=MOE_DL_REQS, probe=False)
+    set_capacity(model, 2.0)
+    stamp("serving moe paged bf16 dropless")
 
     out = []
     for r, (kvt, phase) in rows:

@@ -236,7 +236,8 @@ def _gate_cases():
     table = torch.zeros(1, 2, dtype=torch.int32)
     lens = torch.ones(1, dtype=torch.int32)
     return {
-        "moe": lambda: AutoLLM.from_config(ModelConfig(num_experts=4), device="cpu"),
+        "moe": lambda: AutoLLM.from_config(ModelConfig(num_experts=4), device="cpu",
+                                           moe_impl="ep"),
         "mode_dist": lambda: model().forward_tokens(
             torch.zeros(1, 1, dtype=torch.long), model().make_cache(1, 8), mode="dist"),
         "spec": lambda: sched(spec=2),

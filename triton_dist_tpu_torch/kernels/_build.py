@@ -20,8 +20,8 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_ext"
-KERNELS = ("flash_decode", "flash_decode_paged", "kv_update", "mega_decode",
-           "mega_paged_decode", "swiglu")
+KERNELS = ("flash_decode", "flash_decode_paged", "grouped_gemm", "kv_update",
+           "mega_decode", "mega_paged_decode", "swiglu")
 CUDA_FLAGS = ["-gencode=arch=compute_90a,code=sm_90a", "-O3", "-lineinfo"]
 # dtype codes of csrc/launchers.h (tdt::Dtype)
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}

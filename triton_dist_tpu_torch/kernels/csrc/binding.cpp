@@ -44,6 +44,12 @@ void flash_decode_paged(int q_dtype, int kv_dtype, int64_t q, int64_t k, int64_t
       static_cast<float>(scale), s, stream(st)));
 }
 
+void grouped_gemm(int64_t x, int64_t x_es, int64_t w, int64_t out, int E, int C, int D,
+                  int F, int64_t st) {
+  C10_CUDA_CHECK(tdt::grouped_gemm(ptr<const void>(x), x_es, ptr<const void>(w),
+                                   ptr<void>(out), E, C, D, F, stream(st)));
+}
+
 void kv_update(int64_t cache, int64_t src, int pos, int B, int H, int T, int S,
                int row_bytes, int64_t src_sb, int64_t src_sh, int64_t src_ss,
                int64_t st) {
@@ -135,6 +141,7 @@ void mega_paged_decode(const std::vector<int64_t>& p, const std::vector<int64_t>
 PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("flash_decode", &flash_decode);
   m.def("flash_decode_paged", &flash_decode_paged);
+  m.def("grouped_gemm", &grouped_gemm);
   m.def("kv_update", &kv_update);
   m.def("mega_decode", &mega_decode);
   m.def("mega_paged_decode", &mega_paged_decode);

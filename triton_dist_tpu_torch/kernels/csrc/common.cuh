@@ -1,5 +1,6 @@
 // Helpers shared by the package's CUDA kernels: dtype codes, conversions
-// to and from float, 16-byte vector loads and warp reductions.
+// to and from float, 16-byte vector loads, warp reductions and the
+// cp.async copies of the product tiles (mega_layer.cuh, grouped_gemm.cu).
 //
 // The launchers these kernels are reached through are declared in
 // launchers.h and bound to Python by binding.cpp (kernels/_build.py).
@@ -67,4 +68,19 @@ __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
   return v;
+}
+
+// 16-byte asynchronous copy global -> shared; src_bytes 0 fills zeros
+// (gmem must still be a valid address)
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, int src_bytes) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem),
+               "r"(src_bytes));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+// waits until at most N committed groups are still in flight
+template <int N> __device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }

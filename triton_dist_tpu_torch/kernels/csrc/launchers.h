@@ -45,6 +45,12 @@ cudaError_t kv_update(void* cache, const void* src, int pos, int B, int H, int T
 cudaError_t swiglu(int dtype, const void* x, void* out, long long M, int I, long long ld,
                    cudaStream_t stream);
 
+// csrc/grouped_gemm.cu. x: [E, C, D] bf16, rows contiguous, expert stride
+// x_es (elements); w: [E, D, F] and out: [E, C, F] bf16 contiguous. D a
+// multiple of 32, F of 8.
+cudaError_t grouped_gemm(const void* x, long long x_es, const void* w, void* out, int E,
+                         int C, int D, int F, cudaStream_t stream);
+
 // One decode layer per launch (csrc/mega_layer.cuh; mega_decode.cu over
 // the contiguous cache, mega_paged_decode.cu over the page pool). All
 // pointers are device pointers; weights bf16 row-major, norms f32, rope

@@ -113,18 +113,6 @@ template <typename KT> struct PagedCache {
 
 // ---------------------------------------------------------------- helpers
 
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, int src_bytes) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem),
-               "r"(src_bytes));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-template <int N> __device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
 // Every CTA of the grid arrives before any leaves. bar[0] counts arrivals,
 // bar[1] is the generation the last arrival bumps. Memory written before
 // the barrier is visible after it (fences around the atomics).

@@ -4,3 +4,4 @@ from triton_dist_tpu_torch.layers.common import (  # noqa: F401
     apply_rope, apply_rope_slots, precompute_rope, rms_norm, shard_cols_packed)
 from triton_dist_tpu_torch.layers.tp_attn import TP_Attn  # noqa: F401
 from triton_dist_tpu_torch.layers.tp_mlp import TP_MLP  # noqa: F401
+from triton_dist_tpu_torch.layers.tp_moe import TP_MoE  # noqa: F401

@@ -84,6 +84,28 @@ def tiny_qwen3(n: int = 8, **overrides) -> ModelConfig:
     return ModelConfig(**base)
 
 
+def tiny_qwen3_moe(n: int = 8, **overrides) -> ModelConfig:
+    """A tiny Qwen3-MoE-shaped config (the MoE test model); n sets the
+    head and expert counts as in the JAX package."""
+    base = dict(hidden_size=64, intermediate_size=0, num_layers=2,
+                num_heads=2 * n, num_kv_heads=n, head_dim=32,
+                vocab_size=256, max_position_embeddings=128,
+                num_experts=2 * n, num_experts_per_tok=2,
+                moe_intermediate_size=32, dtype="float32")
+    base.update(overrides)
+    return ModelConfig(**base)
+
+
+def qwen3_30b_a3b() -> ModelConfig:
+    """Qwen3-30B-A3B shapes (the public Qwen/Qwen3-30B-A3B config.json):
+    48 layers, 128 experts, top-8, expert width 768, untied head."""
+    return ModelConfig(hidden_size=2048, intermediate_size=6144,
+                       num_layers=48, num_heads=32, num_kv_heads=4,
+                       head_dim=128, vocab_size=151936,
+                       num_experts=128, num_experts_per_tok=8,
+                       moe_intermediate_size=768)
+
+
 def qwen3_1p7b() -> ModelConfig:
     """Qwen3-1.7B shapes."""
     return ModelConfig(hidden_size=2048, intermediate_size=6144,

@@ -1,14 +1,18 @@
-"""Build the port's DenseLLM from the JAX model's parameters as numpy.
+"""Build the port's DenseLLM or Qwen3MoE from the JAX model's parameters
+as numpy.
 
 `from_jax_arrays(cfg, arrays, device)` takes a flat dict of numpy
-arrays named after the JAX DenseLLM's attributes:
+arrays named after the JAX model's attributes:
     embed, final_norm, lm_head,
     layers.{i}.attn.w_qkv / w_o / q_norm / k_norm,
-    layers.{i}.mlp.w_gate_up / w_down, layers.{i}.ln_attn / ln_mlp,
+    layers.{i}.mlp.w_gate_up / w_down (dense) or
+    layers.{i}.moe.w_router / w_gate_up / w_down (MoE),
+    layers.{i}.ln_attn / ln_mlp,
 where a weight quantized to int8 (QuantW) comes as `{name}.q` and
-`{name}.s`. The packed layouts ([q | k | v], [gate | up]) are the JAX
-package's at tensor-parallel size 1, so they are copied as they are.
-This module sees numpy arrays only, never a jax object.
+`{name}.s`. The packed layouts ([q | k | v], [gate | up], per expert
+[gate | up]) are the JAX package's at tensor-parallel size 1, so they
+are copied as they are. This module sees numpy arrays only, never a jax
+object.
 """
 
 from __future__ import annotations
@@ -17,9 +21,10 @@ import numpy as np
 import torch
 
 from triton_dist_tpu_torch.kernels.quant import QuantW
-from triton_dist_tpu_torch.layers import TP_Attn, TP_MLP, precompute_rope
+from triton_dist_tpu_torch.layers import TP_Attn, TP_MLP, TP_MoE, precompute_rope
 from triton_dist_tpu_torch.models.config import ModelConfig
 from triton_dist_tpu_torch.models.dense import DenseLayer, DenseLLM
+from triton_dist_tpu_torch.models.qwen_moe import MoELayer, Qwen3MoE
 from triton_dist_tpu_torch.runtime.device import resolve_device
 
 
@@ -35,8 +40,10 @@ def to_torch(a: np.ndarray, device=None) -> torch.Tensor:
     return t.to(device)
 
 
-def from_jax_arrays(cfg: ModelConfig, arrays: dict, device=None) -> DenseLLM:
-    """The port's DenseLLM holding the given parameters on `device`."""
+def from_jax_arrays(cfg: ModelConfig, arrays: dict, device=None,
+                    capacity_factor=2.0) -> DenseLLM:
+    """The port's DenseLLM, or Qwen3MoE for a MoE config (with
+    capacity_factor), holding the given parameters on `device`."""
     dev = resolve_device(device)
 
     def get(name):
@@ -55,10 +62,17 @@ def from_jax_arrays(cfg: ModelConfig, arrays: dict, device=None) -> DenseLLM:
                        q_norm=opt(p + "attn.q_norm"), k_norm=opt(p + "attn.k_norm"),
                        n_heads=cfg.num_heads, n_kv_heads=cfg.num_kv_heads,
                        head_dim=cfg.head_dim)
-        mlp = TP_MLP(w_gate_up=get(p + "mlp.w_gate_up"), w_down=get(p + "mlp.w_down"))
-        layers.append(DenseLayer(attn=attn, mlp=mlp, ln_attn=get(p + "ln_attn"),
-                                 ln_mlp=get(p + "ln_mlp")))
+        norms = dict(ln_attn=get(p + "ln_attn"), ln_mlp=get(p + "ln_mlp"))
+        if cfg.is_moe:
+            moe = TP_MoE(w_router=get(p + "moe.w_router"),
+                         w_gate_up=get(p + "moe.w_gate_up"), w_down=get(p + "moe.w_down"),
+                         top_k=cfg.num_experts_per_tok, capacity_factor=capacity_factor)
+            layers.append(MoELayer(attn=attn, moe=moe, **norms))
+        else:
+            mlp = TP_MLP(w_gate_up=get(p + "mlp.w_gate_up"), w_down=get(p + "mlp.w_down"))
+            layers.append(DenseLayer(attn=attn, mlp=mlp, **norms))
     cos, sin = precompute_rope(cfg.head_dim, cfg.max_position_embeddings,
                                cfg.rope_theta, device=dev)
-    return DenseLLM(embed=get("embed"), layers=layers, final_norm=get("final_norm"),
-                    lm_head=get("lm_head"), cos=cos, sin=sin, config=cfg)
+    cls = Qwen3MoE if cfg.is_moe else DenseLLM
+    return cls(embed=get("embed"), layers=layers, final_norm=get("final_norm"),
+               lm_head=get("lm_head"), cos=cos, sin=sin, config=cfg)

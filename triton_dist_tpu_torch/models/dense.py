@@ -153,7 +153,8 @@ class DenseLLM:
             a, _ = layer.attn.fwd_cached(h, self.cos, self.sin, B,
                                          cache.layer(li), kv_start, mode)
             x = x + a
-            x = x + layer.mlp(rms_norm(x, layer.ln_mlp, cfg.rms_norm_eps), mode)
+            x = x + self._ffn(layer, rms_norm(x, layer.ln_mlp, cfg.rms_norm_eps), mode,
+                              None)[0]
         cache.advance(S)
         x = rms_norm(x, self.final_norm, cfg.rms_norm_eps)
         last = x.reshape(B, S, -1)[:, S - 1 if last_pos is None else last_pos]
@@ -166,10 +167,7 @@ class DenseLLM:
         ids: [B, 1]. Writes each row's K/V at its own column and attends
         per-row lengths; cache.offset is not used. Returns (logits [B, V]
         f32, cache)."""
-        return self._slots_forward(
-            ids, lambda attn, h, li: attn.fwd_cached_slots(
-                h, self.cos, self.sin, ids.shape[0], cache.layer(li), pos, mode),
-            mode), cache
+        return self._slots_forward(ids, self._slot_attend(cache, pos, mode), mode)[0], cache
 
     def forward_tokens_slots_paged(self, ids: torch.Tensor, pcache, pos,
                                    mode: str = "flash"):
@@ -177,15 +175,30 @@ class DenseLLM:
         each row's KV lives in the pages its table rows map, possibly
         shared read-only with other slots' cached prefixes. Returns
         (logits [B, V] f32, pcache)."""
-        return self._slots_forward(
-            ids, lambda attn, h, li: attn.fwd_cached_slots_paged(
-                h, self.cos, self.sin, ids.shape[0], pcache.layer(li),
-                pcache.table, pos, mode),
-            mode), pcache
+        return self._slots_forward(ids, self._paged_attend(pcache, pos, mode),
+                                   mode)[0], pcache
 
-    def _slots_forward(self, ids, attend, mode: str):
+    def _slot_attend(self, cache: KVCache, pos, mode: str):
+        """The slot attention block of forward_tokens_slots, as
+        attend(attn, h, layer index)."""
+        return lambda attn, h, li: attn.fwd_cached_slots(
+            h, self.cos, self.sin, h.shape[0], cache.layer(li), pos, mode)
+
+    def _paged_attend(self, pcache, pos, mode: str):
+        """The paged slot attention block of forward_tokens_slots_paged."""
+        return lambda attn, h, li: attn.fwd_cached_slots_paged(
+            h, self.cos, self.sin, h.shape[0], pcache.layer(li), pcache.table, pos, mode)
+
+    def _ffn(self, layer, h, mode: str, load):
+        """The layer's FFN on the normed rows h: (output, load). `load` is
+        the routing-load accumulator of MoE models (models/qwen_moe.py),
+        passed through here."""
+        return layer.mlp(h, mode), load
+
+    def _slots_forward(self, ids, attend, mode: str, load=None):
         """The layer loop of the slot forwards; attend(attn, h, layer
-        index) runs the layer's slot attention block on the cache."""
+        index) runs the layer's slot attention block on the cache.
+        Returns (logits [B, V] f32, load)."""
         B, S = ids.shape
         if S != 1:
             raise ValueError(f"slot decode feeds one token per slot, got S={S}")
@@ -194,9 +207,11 @@ class DenseLLM:
         for li, layer in enumerate(self.layers):
             a, _ = attend(layer.attn, rms_norm(x, layer.ln_attn, cfg.rms_norm_eps), li)
             x = x + a
-            x = x + layer.mlp(rms_norm(x, layer.ln_mlp, cfg.rms_norm_eps), mode)
+            y, load = self._ffn(layer, rms_norm(x, layer.ln_mlp, cfg.rms_norm_eps), mode,
+                                load)
+            x = x + y
         x = rms_norm(x, self.final_norm, cfg.rms_norm_eps)
-        return qmm(x, self.lm_head, out_dtype=torch.float32)
+        return qmm(x, self.lm_head, out_dtype=torch.float32), load
 
     def make_cache(self, batch: int, max_seq: int, dtype=None) -> KVCache:
         cfg = self.config

@@ -6,8 +6,9 @@ and the paged ones `make_paged_slot_cache`, `admit_slot_paged`,
 device.
 
 Backends: "flash" runs the CUDA kernels (flash-decode, the paged
-flash-decode, kv_update, SwiGLU); "xla" runs their plain PyTorch
-versions (the JAX package's oracle backend); "mega" prefills and admits
+flash-decode, kv_update, SwiGLU, and for a Qwen3MoE model the grouped
+GEMM of its expert FFNs); "xla" runs their plain PyTorch versions (the
+JAX package's oracle backend); "mega" (dense models) prefills and admits
 on "flash" and decodes each layer as ONE megakernel launch
 (mega/decode_layer.py): `decode` over the contiguous cache
 (`_mega_scan_decode_fn`) and `paged_slot_chunk` over the paged pool
@@ -27,6 +28,13 @@ stream between mega layers is f32 (the per-op path keeps the model
 dtype); the embedding lookup, the RoPE rows, the final RMSNorm, the
 lm_head product (a plain product, as JAX left it to jnp.dot) and the argmax
 stay outside the kernels, as in the JAX engine.
+
+MoE models (Qwen3MoE, `moe_family`): every slot chunk also sums the
+routing-load vector [expert_tokens[0..E-1], capacity_dropped] (int32
+[E+1]) over its layers and steps on the device and returns it as a fifth
+output; the scheduler reads it back with the tick's tokens. (The JAX
+engine queues it FIFO for its overlapped ticks; overlap is not ported,
+so every chunk is read back before the next one is dispatched.)
 """
 
 from __future__ import annotations
@@ -70,8 +78,6 @@ class Engine:
             _check_mega(model, kv_dtype, sampling)
         if sampling != "greedy":
             raise _not_ported(f"sampling={sampling!r}")
-        if getattr(model.config, "is_moe", False):
-            raise _not_ported("MoE models")
         if kv_dtype not in (None, torch.int8, model.config.torch_dtype):
             raise ValueError(f"kv_dtype {kv_dtype}: want None (the model "
                              "dtype) or torch.int8")
@@ -87,6 +93,8 @@ class Engine:
         # (their scratch is allocated once), built at first use
         self._mega = None
         self._mega_layer = self._mega_paged_layer = None
+        # MoE: the slot chunks also return their routing-load vector
+        self.moe_family = bool(model.config.is_moe)
 
     def prefill(self, input_ids):
         """Run the prefill pass on a fresh cache; returns (logits, cache)."""
@@ -141,6 +149,10 @@ class Engine:
     # batch row of the cache is an independent request
     # ------------------------------------------------------------------
 
+    def _load0(self):
+        """A fresh routing-load accumulator for a MoE slot chunk, else None."""
+        return self.model._zero_load() if self.moe_family else None
+
     def make_slot_cache(self, batch: int) -> KVCache:
         """Fresh cache whose batch rows are independent decode slots."""
         return self.model.make_cache(batch, self.max_seq, dtype=self.kv_dtype)
@@ -171,15 +183,16 @@ class Engine:
         pos[b] and advances only if active[b] (inactive rows write into
         their own dead rows, overwritten on admit). logits [B, V] f32,
         pos [B] int32 and active [B] bool stay on the device. Returns
-        (toks [B, chunk] int32, logits, cache, pos), all on the device."""
+        (toks [B, chunk] int32, logits, cache, pos), all on the device, and
+        for a MoE model the chunk's routing-load vector fifth."""
         if self.backend == "mega":
             raise ValueError(
                 "backend='mega' fuses the PAGED decode tick only (paged_slot_chunk); "
                 "contiguous slot serving runs the per-op backends — use "
                 "ContinuousScheduler(paged=True) or backend='flash'")
-        return _slot_scan_decode_fn(self.model.forward_tokens_slots, self.backend,
-                                    logits, cache, pos, active,
-                                    cap=cache.k[0].shape[2], gen_len=chunk)
+        return _slot_scan_decode_fn(
+            self.model.forward_tokens_slots, self.backend, logits, cache, pos, active,
+            cap=cache.k[0].shape[2], gen_len=chunk, load=self._load0())
 
     # ------------------------------------------------------------------
     # paged slots (shared-prefix serving; models/prefix_cache.py owns the
@@ -274,9 +287,9 @@ class Engine:
         if self.backend == "mega":
             return _paged_slot_mega_scan_fn(self, logits, pcache, pos, active,
                                             gen_len=chunk)
-        return _slot_scan_decode_fn(self.model.forward_tokens_slots_paged,
-                                    self.backend, logits, pcache, pos, active,
-                                    cap=pcache.capacity, gen_len=chunk)
+        return _slot_scan_decode_fn(
+            self.model.forward_tokens_slots_paged, self.backend, logits, pcache, pos,
+            active, cap=pcache.capacity, gen_len=chunk, load=self._load0())
 
     def retire_slot_paged(self, pcache: PagedSlotCache, slot: int) -> PagedSlotCache:
         """Point the whole table block of a retired slot at the trash page
@@ -297,7 +310,8 @@ def _check_mega(model, kv_dtype, sampling: str) -> None:
     if model.config.is_moe:
         raise ValueError(
             "backend='mega' fuses dense (attention + MLP) decode layers only "
-            "(missing capability: megakernel routed-expert FFN)")
+            "(missing capability: megakernel routed-expert FFN) - MoE models serve "
+            "their grouped-GEMM tick on backend='flash'")
     if model.layers and isinstance(model.layers[0].attn.w_qkv, QuantW):
         raise ValueError(
             "backend='mega' takes raw bf16 weight panels and has no weight "
@@ -415,22 +429,29 @@ def _prefill_fn(model, ids, cache, *, mode):
 
 
 def _slot_scan_decode_fn(forward, backend, logits0, cache, pos, active, *,
-                         cap: int, gen_len: int):
+                         cap: int, gen_len: int, load=None):
     """Slot-masked greedy decode chunk over a slot cache or the paged pool
     (the JAX `_slot_scan_decode_fn` and `_paged_slot_scan_decode_fn`,
     which differ only in the forward): inactive rows still step (feeding
     token 0), and positions clamp at min(pos + active, cap - 1) so a slot
     that finished mid-chunk keeps its surplus writes inside its own row
-    or reserved pages."""
+    or reserved pages. A MoE model passes its zeroed routing-load vector
+    as `load`: each step adds its load, and the sum comes back last."""
     act = active.to(torch.int32)
     toks = []
     logits = logits0
     for _ in range(gen_len):
         tok = torch.where(active, sample_greedy(logits), 0)
-        logits, cache = forward(tok[:, None], cache, pos, mode=backend)
+        if load is None:
+            logits, cache = forward(tok[:, None], cache, pos, mode=backend)
+        else:
+            logits, cache, st = forward(tok[:, None], cache, pos, mode=backend,
+                                        return_moe_stats=True)
+            load = load + st
         pos = torch.clamp(pos + act, max=cap - 1)
         toks.append(tok)
-    return torch.stack(toks, dim=1).to(torch.int32), logits, cache, pos
+    out = (torch.stack(toks, dim=1).to(torch.int32), logits, cache, pos)
+    return out if load is None else out + (load,)
 
 
 def _scan_decode_fn(backend, model, logits0, cache, *, gen_len: int):

@@ -48,6 +48,12 @@ SLO classes (slo_classes, Request.slo), deadlines (Request.deadline_ms),
 parallel sampling (Request.n > 1) and grammars (Request.grammar). The
 engine refuses sampled decoding itself.
 
+MoE models: the tick's routing-load vector (the slot chunk's fifth
+output) comes back in the tick's one readback, flattened with its tokens, and feeds
+the `expert_tokens{expert=e}` counters, the `moe_capacity_drops` counter
+and the `expert_load_imbalance` gauge (max / mean of the cumulative
+per-expert load). Admissions are not counted, as in the JAX package.
+
 backend="mega": the paged ticks run the fused megakernel program
 (Engine.paged_slot_chunk routes them; admissions stay per-op on
 "flash"), and the contiguous scheduler refuses a mega engine, as the JAX
@@ -161,6 +167,19 @@ class DecodeSlots:
         self.prefill_forwarded = 0
         # time blocked on the tick's token readback (_fetch)
         self.device_wait_s = 0.0
+        self._moe_family = bool(getattr(engine, "moe_family", False))
+        if self._moe_family:
+            reg = self.tele.registry
+            E = engine.model.config.num_experts
+            self._moe_tokens_cum = np.zeros((E,), np.int64)
+            self._c_expert = [reg.counter("expert_tokens",
+                                          "routed entries per expert (compute load)",
+                                          labels={"expert": str(e)}) for e in range(E)]
+            self._c_moe_drops = reg.counter(
+                "moe_capacity_drops", "routed entries lost to expert capacity (0 under "
+                                      "capacity_factor='dropless')")
+            self._g_moe_imb = reg.gauge("expert_load_imbalance",
+                                        "max/mean of cumulative per-expert routed load")
 
     def _make_cache(self):
         """Cache-flavour hook (PagedDecodeSlots swaps in the paged pool)."""
@@ -229,21 +248,46 @@ class DecodeSlots:
         self.rids[slot] = None
         self.reqs[slot] = None
 
-    def _fetch(self, toks: torch.Tensor) -> np.ndarray:
-        """The one blocking readback of a tick, timed into device_wait_s."""
+    def _fetch(self, toks: torch.Tensor, load=None) -> np.ndarray:
+        """The one blocking readback of a tick, timed into device_wait_s. A
+        MoE tick's routing-load vector rides in the same copy (both int32,
+        flattened into one tensor)."""
         t0 = time.perf_counter()
-        out = toks.cpu().numpy()
+        if load is None:
+            out = toks.cpu().numpy()
+        else:
+            flat = torch.cat([toks.reshape(-1), load]).cpu().numpy()
+            out, load = flat[:toks.numel()].reshape(tuple(toks.shape)), flat[toks.numel():]
         self.device_wait_s += time.perf_counter() - t0
         self.tele.device_land()
+        if load is not None:
+            self._note_moe_load(load)
         return out
 
-    def _run_chunk(self, chunk: int) -> torch.Tensor:
+    def _note_moe_load(self, load: np.ndarray) -> None:
+        """Fold one landed tick's routing-load vector into the MoE metrics."""
+        load = load.astype(np.int64)
+        counts, dropped = load[:-1], int(load[-1])
+        for e in np.nonzero(counts)[0]:
+            self._c_expert[int(e)].inc(int(counts[e]))
+        if dropped:
+            self._c_moe_drops.inc(dropped)
+        self._moe_tokens_cum += counts
+        mean = self._moe_tokens_cum.mean()
+        self._g_moe_imb.set(float(self._moe_tokens_cum.max() / mean) if mean > 0 else 0.0)
+
+    def _run_chunk(self, chunk: int):
         """Engine-call hook: dispatch one chunk of the slot scan (the paged
         subclass swaps in paged_slot_chunk). Returns the tick's tokens
-        [B, chunk], still on the device."""
-        toks, self.logits, self.cache, self.pos = self.engine.slot_chunk(
-            self.logits, self.cache, self.pos, self.active, chunk=chunk)
-        return toks
+        [B, chunk] and, for a MoE model, its routing-load vector (else
+        None), still on the device."""
+        return self._keep_carry(self.engine.slot_chunk(
+            self.logits, self.cache, self.pos, self.active, chunk=chunk))
+
+    def _keep_carry(self, out: tuple):
+        """Keep a slot chunk's carry; return (tokens, load or None)."""
+        toks, self.logits, self.cache, self.pos = out[:4]
+        return toks, (out[4] if len(out) > 4 else None)
 
     def _record(self, slot: int, toks) -> None:
         """Hook: paged slots record kept tokens for the retire-time tree
@@ -256,7 +300,7 @@ class DecodeSlots:
         that just finished]). Finished slots are NOT retired here: the
         caller streams their tail first, then retires."""
         self.tele.mark_dispatch("chunk")
-        toks = self._fetch(self._run_chunk(chunk))
+        toks = self._fetch(*self._run_chunk(chunk))
         out: Dict[int, np.ndarray] = {}
         finished: List[Tuple[int, object]] = []
         for b in self.occupied:
@@ -428,10 +472,9 @@ class PagedDecodeSlots(DecodeSlots):
         self._tokens[slot] = _TokenLog()
         super().retire(slot)
 
-    def _run_chunk(self, chunk: int) -> torch.Tensor:
-        toks, self.logits, self.cache, self.pos = self.engine.paged_slot_chunk(
-            self.logits, self.cache, self.pos, self.active, chunk=chunk)
-        return toks
+    def _run_chunk(self, chunk: int):
+        return self._keep_carry(self.engine.paged_slot_chunk(
+            self.logits, self.cache, self.pos, self.active, chunk=chunk))
 
     def _record(self, slot: int, toks) -> None:
         self._tokens[slot].extend(toks)

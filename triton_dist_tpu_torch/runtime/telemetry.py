@@ -19,8 +19,12 @@ the prefix cache use it. Host-side only: no tensor is touched here.
   (preemptions), as Chrome trace-event JSON (`export`, `dump`). With
   tracing off every trace entry point returns at once.
 
-Not ported yet (they come with TokenServer): SLO classes, labelled
-series, the Prometheus exposition and trace splicing.
+- LABELLED SERIES: a counter or gauge registered with labels lives under
+  `labeled_name(name, labels)`, e.g. `expert_tokens{expert=3}`, in the
+  registry and in its snapshots.
+
+Not ported yet (they come with TokenServer): SLO classes, the
+Prometheus exposition and trace splicing.
 """
 
 from __future__ import annotations
@@ -33,6 +37,15 @@ from collections import deque
 from typing import Dict, Optional
 
 import numpy as np
+
+
+def labeled_name(name: str, labels: Optional[Dict[str, str]]) -> str:
+    """The registry and snapshot key of a metric: `name` alone, or
+    `name{k=v,...}` with the labels sorted."""
+    if not labels:
+        return name
+    inner = ",".join(f"{k}={v}" for k, v in sorted(labels.items()))
+    return f"{name}{{{inner}}}"
 
 
 class Counter:
@@ -167,21 +180,23 @@ class MetricsRegistry:
         self.lock = threading.RLock()
         self._metrics: Dict[str, object] = {}
 
-    def _get(self, name: str, cls, help: str, **kw):
+    def _get(self, key: str, cls, help: str, **kw):
         with self.lock:
-            m = self._metrics.get(name)
+            m = self._metrics.get(key)
             if m is None:
-                m = self._metrics[name] = cls(name, help, **kw)
+                m = self._metrics[key] = cls(key, help, **kw)
             elif type(m) is not cls:
-                raise TypeError(f"metric {name!r} already registered as "
+                raise TypeError(f"metric {key!r} already registered as "
                                 f"{type(m).__name__}, not {cls.__name__}")
             return m
 
-    def counter(self, name: str, help: str = "") -> Counter:
-        return self._get(name, Counter, help)
+    def counter(self, name: str, help: str = "", *,
+                labels: Optional[Dict[str, str]] = None) -> Counter:
+        return self._get(labeled_name(name, labels), Counter, help)
 
-    def gauge(self, name: str, help: str = "") -> Gauge:
-        return self._get(name, Gauge, help)
+    def gauge(self, name: str, help: str = "", *,
+              labels: Optional[Dict[str, str]] = None) -> Gauge:
+        return self._get(labeled_name(name, labels), Gauge, help)
 
     def histogram(self, name: str, help: str = "", **kw) -> Histogram:
         return self._get(name, Histogram, help, **kw)

@@ -30,6 +30,34 @@ itself (mega/decode_layer.py FAULT):
     mega drop newest key    the attention walk stops one key short
     mega no residual        o_proj leaves out the attention residual
 
+    python3 -m triton_dist_tpu_torch.tools.fault_margin --moe
+
+holds the MoE path instead: Qwen3-30B-A3B at full width and depth
+(48 layers, 128 experts, top-8, random weights, seed 0, bf16) with every
+layer at capacity "dropless", B=4, S=64 (chip_smoke.py's dropless
+teacher-forced arm). The flash backend (grouped_gemm kernel) is held to
+the plain backend (the dense all-experts oracle), clean and with a
+grouped_gemm fault planted by wrapping the layer module's
+`grouped_gemm` at run time:
+
+    moe skip K panel       the first 32-deep panel of the contraction is
+                           left out (x's first 32 columns read as zero)
+    moe expert 0 zeroed    expert 0's outputs are zero
+
+Left free, the two paths route differently wherever a near tie at rank
+8/9 flips on bf16 noise, and every flip moves a token's FFN output: the
+clean run is shown once that way, with its count of flips. The checked
+runs pin the plain backend's routing to the flash path's (RouteTape), so
+the gap is the kernels'; the limit is MOE_LIMIT. Each fault is also
+planted in one full-width layer (layer 0, M=128 tokens) held to its
+plain composition (grouped_gemm_ref), as chip_smoke.py's layer phase
+holds it, at 1e-2 of the largest output. Then chip_smoke.py's dropless
+serving arm runs, clean and with each fault, and its served tokens are
+held to the argmax of the contiguous flash engine teacher-forced along
+them: the largest top-2 margin at which they disagree, and how many
+tokens clear twice each limit of SERVE_GRID (chip_smoke.py's
+MOE_SERVE_LIMIT is chosen from these).
+
 Prints one line per configuration and case with the largest relative gap
 over the steps and whether a limit of LIMIT times the largest logit
 catches it; needs one card.
@@ -37,13 +65,19 @@ catches it; needs one card.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import sys
 
 import torch
 
 LIMIT = 5e-2
+MOE_LIMIT = 3e-2                # chip_smoke.py's MOE_LIMIT
 B, S, STEPS = 128, 128, 8
+MOE_B, MOE_S = 4, 64
+# chip_smoke.py's dropless serving arm, and the limits tried on its tokens
+MOE_DL_REQS, MOE_DL_SLOTS, SERVE_MAX_SEQ = 8, 4, 224
+SERVE_GRID = (0.01, 0.02, 0.03, 0.05, 0.07, 0.1)
 
 
 def _faults(real, int8: bool):
@@ -124,12 +158,278 @@ def run_config(m, tp_attn, model, kv_dtype, label, B=B, S=S, mega=False):
     return results
 
 
+class RouteTape:
+    """Pins the MoE expert selection of one forward onto another. Under
+    record(), every routing call (layers.tp_moe.route) runs as usual and
+    its top-k experts are kept in call order; under replay(), each call
+    takes the next recorded selection in place of its own top-k, weighted
+    by its own softmax renormalised over it (what route gives for that
+    selection). Two paths that differ by bf16 noise then route alike, and
+    their gap is that of their kernels, not of near ties at rank k / k+1
+    flipping and moving a token's whole FFN output."""
+
+    def __init__(self):
+        self.calls, self.used = [], 0
+
+    @contextlib.contextmanager
+    def _routing(self, fn):
+        from triton_dist_tpu_torch.layers import tp_moe
+        real, tp_moe.route = tp_moe.route, fn
+        try:
+            yield self
+        finally:
+            tp_moe.route = real
+
+    def record(self):
+        from triton_dist_tpu_torch.kernels.ep_a2a import route
+        self.calls, self.used = [], 0
+
+        def rec(logits, k, **kw):
+            w, idx = route(logits, k, **kw)
+            self.calls.append(idx)
+            return w, idx
+        return self._routing(rec)
+
+    def replay(self):
+        def rep(logits, k, norm_topk=True):
+            idx = self.calls[self.used]
+            self.used += 1
+            if tuple(idx.shape) != (logits.shape[0], k):
+                raise ValueError(f"replayed selection {tuple(idx.shape)} for a routing "
+                                 f"call of {logits.shape[0]} rows, top-{k}")
+            w = torch.softmax(logits.float(), dim=-1).gather(1, idx.long())
+            return (w / w.sum(dim=-1, keepdim=True) if norm_topk else w), idx
+        return self._routing(rep)
+
+    def done(self) -> bool:
+        """Every recorded call was replayed."""
+        return self.used == len(self.calls)
+
+
+def _flips(a, b) -> int:
+    """(token, layer) routing choices whose expert sets differ."""
+    return sum(int((x.sort(1).values != y.sort(1).values).any(1).sum())
+               for x, y in zip(a, b))
+
+
+def _rel(got, ref) -> float:
+    return ((got - ref).abs().max() / ref.abs().max()).item()
+
+
+def _plain_layer(layer, x, gemm):
+    """TP_MoE.fwd_local composed from the port's pieces with `gemm` as
+    the grouped GEMM."""
+    from triton_dist_tpu_torch.kernels.ep_a2a import (group_tokens_by_expert, route,
+                                                     scatter_weighted)
+    M = x.shape[0]
+    topk_w, topk_idx = route(x @ layer.w_router, layer.top_k)
+    x_e, inv, tok = group_tokens_by_expert(x, topk_idx, layer.num_experts, layer._cap(M))
+    y_e = layer._expert_mlp_sharded(x_e, gemm=gemm)[0]
+    return scatter_weighted(y_e, inv, tok, topk_w, M).to(x.dtype)
+
+
+def _gemm_faults(real):
+    def skip_panel(x, w):
+        x = x.clone()
+        x[..., :32] = 0
+        return real(x, w)
+
+    def zero_expert(x, w):
+        out = real(x, w)
+        out[0] = 0
+        return out
+    return {"moe clean": real, "moe skip K panel": skip_panel,
+            "moe expert 0 zeroed": zero_expert}
+
+
+def _caught(worst: float, limit: float) -> str:
+    return f"{'caught' if worst > limit else 'NOT caught'} at {limit}"
+
+
+def run_moe(m, model):
+    """The MoE engine path, dropless: the plain backend's tokens, then
+    flash clean and with each planted grouped_gemm fault, teacher-forced
+    on them against the plain backend with the routing pinned to the
+    flash path's (RouteTape), as chip_smoke.py's dropless arm; the clean
+    flash path also once with free routing, with its routing flips."""
+    from triton_dist_tpu_torch.layers import tp_moe
+    for ly in model.layers:
+        ly.moe.capacity_factor = "dropless"
+    max_seq = MOE_S + STEPS + 8
+    dev = model.device
+    gen = torch.Generator(device=dev).manual_seed(1)
+    ids = torch.randint(0, model.config.vocab_size, (MOE_B, MOE_S), generator=gen,
+                        device=dev)
+    ref_eng = m.Engine(model, max_seq=max_seq, backend="xla", device=dev)
+    eng = m.Engine(model, max_seq=max_seq, backend="flash", device=dev)
+    ref_tape = RouteTape()
+    with ref_tape.record():
+        logits, cache = ref_eng.prefill(ids)
+        free_ref, toks = [logits], []
+        for _ in range(STEPS):
+            toks.append(torch.argmax(logits, -1))
+            logits = ref_eng.decode_step(toks[-1], cache)
+            free_ref.append(logits)
+    del cache
+
+    def pinned():
+        """Per step: flash (recording its routing), then the plain
+        backend replaying it; the relative logit gap per step."""
+        tape, rel = RouteTape(), []
+        with tape.record():
+            lf, cf = eng.prefill(ids)
+        with tape.replay():
+            lr, cr = ref_eng.prefill(ids)
+        rel.append(_rel(lf, lr))
+        for t in range(STEPS):
+            with tape.record():
+                lf = eng.decode_step(toks[t], cf)
+            with tape.replay():
+                lr = ref_eng.decode_step(toks[t], cr)
+            rel.append(_rel(lf, lr))
+        assert tape.done()
+        return rel
+
+    results = {}
+    tape = RouteTape()
+    with tape.record():
+        logits, cache = eng.prefill(ids)
+        free = [logits] + [eng.decode_step(toks[t], cache) for t in range(STEPS)]
+    del cache
+    rel = [_rel(g, r) for g, r in zip(free, free_ref)]
+    flips, rows = _flips(tape.calls, ref_tape.calls), sum(a.shape[0] for a in tape.calls)
+    results["moe clean, free routing"] = rel
+    results["routing flips"] = [flips, rows]
+    print(f"fault_margin moe dropless clean, free routing: max|d logits| / max|logit| "
+          f"per step {[round(x, 5) for x in rel]}; routing differs from the plain path in "
+          f"{flips} of {rows} (token, layer) choices", flush=True)
+
+    from triton_dist_tpu_torch.kernels import grouped_gemm_ref
+    layer = model.layers[0].moe
+    layer.capacity_factor = 2.0
+    x = torch.randn((B, model.config.hidden_size), generator=gen, device=dev,
+                    dtype=model.config.torch_dtype)
+    y_ref = _plain_layer(layer, x, grouped_gemm_ref)
+    layer.capacity_factor = "dropless"
+    real = tp_moe.grouped_gemm
+    for name, fn in _gemm_faults(real).items():
+        tp_moe.grouped_gemm = fn
+        try:
+            rel = pinned()
+            layer.capacity_factor = 2.0
+            y = layer.fwd_local(x)
+        finally:
+            tp_moe.grouped_gemm = real
+            layer.capacity_factor = "dropless"
+        layer_rel = _rel(y.float(), y_ref.float())
+        results[name + " layer"] = layer_rel
+        results[name] = rel
+        print(f"fault_margin moe dropless {name}, routing pinned: max|d logits| / "
+              f"max|logit| per step {[round(x, 5) for x in rel]}; worst {max(rel):.5f} -> "
+              f"{_caught(max(rel), MOE_LIMIT)}; layer 0 at M={B}, capacity 2.0, vs its "
+              f"plain composition: max|d| / max|y| {layer_rel:.5f} -> "
+              f"{_caught(layer_rel, 1e-2)}", flush=True)
+    return results
+
+
+def serving_requests(m, vocab: int, n: int):
+    """The first n of chip_smoke.py's 128 serving requests (the same
+    seeded draw): 4 system prompts of 96 tokens, a 16-48-token tail each,
+    32-64 tokens to generate."""
+    import numpy as np
+    rng = np.random.RandomState(1)
+    prompts = [rng.randint(0, vocab, 96) for _ in range(4)]
+    which = rng.permutation(np.arange(128) % 4)
+    return [m.Request(rid=i, ids=np.concatenate(
+                [prompts[w], rng.randint(0, vocab, rng.randint(16, 49))]).astype(np.int32),
+                gen_len=int(rng.randint(32, 65)))
+            for i, w in enumerate(which)][:n]
+
+
+def served_vs_contiguous(m, model, reqs, out, ref=None):
+    """Teacher-force the contiguous flash engine along each request's
+    prompt and served tokens. Per served token: its top-2 margin over
+    its largest logit, and whether the served token is its argmax. With
+    ref (a plain-backend engine), also the plain backend's logits with
+    the routing pinned to the flash engine's, and the largest relative
+    gap between the two."""
+    fl = m.Engine(model, max_seq=SERVE_MAX_SEQ, backend="flash", device=model.device)
+    margins, agree, worst = [], [], 0.0
+    for r in reqs:
+        toks = out[r.rid]
+        tape = RouteTape()
+        with tape.record():
+            lf, cf = fl.prefill(r.ids[None])
+        if ref is not None:
+            with tape.replay():
+                lr, cr = ref.prefill(r.ids[None])
+        for t in range(r.gen_len):
+            top = lf[0].topk(2).values
+            margins.append(((top[0] - top[1]) / lf.abs().max()).item())
+            agree.append(int(lf[0].argmax()) == int(toks[t]))
+            if ref is not None:
+                worst = max(worst, _rel(lf, lr))
+            tok = torch.tensor([[int(toks[t])]], device=model.device)
+            with tape.record():
+                lf, cf = model.forward_tokens(tok, cf, mode="flash")
+            if ref is not None:
+                with tape.replay():
+                    lr, cr = model.forward_tokens(tok, cr, mode="xla")
+    return margins, agree, worst
+
+
+def run_moe_serving(m, model):
+    """chip_smoke.py's dropless MoE serving arm (paged, radix cache, the
+    first MOE_DL_REQS requests on MOE_DL_SLOTS slots), clean and with each
+    planted grouped_gemm fault; each run's served tokens held to the
+    contiguous flash engine teacher-forced along them. A disagreement at
+    a top-2 margin above twice a limit fails the margin rule at that
+    limit: the largest such margin is the noise the rule must clear
+    (clean) or the fault's reach (planted)."""
+    from triton_dist_tpu_torch.layers import tp_moe
+    for ly in model.layers:
+        ly.moe.capacity_factor = "dropless"
+    reqs = serving_requests(m, model.config.vocab_size, MOE_DL_REQS)
+    eng = m.Engine(model, max_seq=SERVE_MAX_SEQ, backend="flash", device=model.device)
+    ref = m.Engine(model, max_seq=SERVE_MAX_SEQ, backend="xla", device=model.device)
+    real = tp_moe.grouped_gemm
+    results = {}
+    for name, fn in _gemm_faults(real).items():
+        tp_moe.grouped_gemm = fn
+        try:
+            out = m.ContinuousScheduler(eng, batch=MOE_DL_SLOTS, chunk=16, paged=True,
+                                        page=16).run(reqs)
+        finally:
+            tp_moe.grouped_gemm = real
+        margins, agree, worst = served_vs_contiguous(
+            m, model, reqs, out, ref if fn is real else None)
+        bad = [mg for mg, a in zip(margins, agree) if not a]
+        reach = max(bad, default=0.0)
+        cleared = {L: sum(mg > 2 * L for mg in margins) for L in SERVE_GRID}
+        results[name] = dict(tokens=len(margins), disagree=len(bad), max_margin=reach,
+                             cleared=cleared, pinned_gap=worst if fn is real else None)
+        print(f"fault_margin moe dropless serving {name}: {len(bad)} of {len(margins)} "
+              f"served tokens differ from the contiguous flash engine's argmax, the "
+              f"largest at top-2 margin {reach:.5f} of the largest logit; tokens whose "
+              f"margin clears twice a limit L: {cleared}"
+              + (f"; contiguous flash vs plain, routing pinned, along the served tokens: "
+                 f"max|d logits| / max|logit| {worst:.5f}" if fn is real else ""),
+              flush=True)
+    return results
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("fault_margin: needs an NVIDIA card", file=sys.stderr)
         return 2
     import triton_dist_tpu_torch.models as m
     from triton_dist_tpu_torch.layers import tp_attn
+    if "--moe" in sys.argv[1:]:
+        model = m.AutoLLM.from_config(m.qwen3_30b_a3b(), device="cuda", seed=0)
+        out = {"limit": MOE_LIMIT, "moe bf16 dropless": run_moe(m, model),
+               "moe bf16 dropless serving": run_moe_serving(m, model)}
+        print(json.dumps(out), flush=True)
+        return 0
     model = m.AutoLLM.from_config(m.qwen3_1p7b(), device="cuda", seed=0)
     if "--mega" in sys.argv[1:]:
         out = {"limit": LIMIT, "mega bf16": run_config(m, tp_attn, model, None,
