@@ -50,7 +50,23 @@ NVIDIA card: the quickest proof that the port still starts on the GPU.
    megakernel launches per decode step and per tick step, no
    flash_decode_paged or swiglu launch inside a mega tick, flash_decode
    and kv_update launched only by the admissions.
-7. MoE phases (Qwen3-30B-A3B, TP-MoE at tensor-parallel size 1, bf16,
+7. Training phases (Qwen3-1.7B, bf16). Kernel rows 1i
+   (flash_decode_partial, the training forward), 8 (dq) and 9 (dk/dv) at
+   B=4, S=T=1024, lse and D from the plain forward, and 14/15 (gemm, the
+   one-rank ag_gemm/gemm_rs) at the step's M=4096 projections and one
+   transposed-weight backward product, each held against its plain
+   version and timed beside its library call (SDPA forward, SDPA
+   backward, torch.matmul). Then full width and depth (28 layers, random
+   weights), B=4, S=1024, mean next-token cross-entropy through
+   DenseLLM.forward_train: one step through mode "train" with the launch
+   counts reset just before and read just after, exactly 28
+   flash_decode_partial, 28 dq, 28 dk/dv and 224 gemm launches and no
+   other; its loss and every parameter's gradient held against mode
+   "xla" (TRAIN_LOSS_LIMIT, TRAIN_GRAD_LIMIT); forward and backward ms,
+   tokens/s, the share of the bf16 peak, peak memory, a profiled step
+   (idle share, top device ops); then TRAIN_STEPS SGD steps on the same
+   batch, the loss falling at every step.
+8. MoE phases (Qwen3-30B-A3B, TP-MoE at tensor-parallel size 1, bf16,
    after every dense model is freed). Kernel rows 7a-7d (grouped_gemm at
    the decode and prefill capacities of the main path) and a ragged case,
    each x padded past C with 100x rows; flash_decode and
@@ -73,7 +89,7 @@ NVIDIA card: the quickest proof that the port still starts on the GPU.
    slots, no drop) whose served tokens are held to the contiguous flash
    engine teacher-forced along them, and that engine to the plain one
    with the routing pinned.
-8. Prints one JSON line of per-kernel results, then, last, the device
+9. Prints one JSON line of per-kernel results, then, last, the device
    line {"ok": true, "device": {...}}.
 
 Exits non-zero, printing no result, if there is no CUDA device, if the
@@ -113,6 +129,14 @@ MOE_TF_B, MOE_TF_S = 4, 64
 MOE_DL_REQS, MOE_DL_SLOTS = 8, 4
 MOE_LIMIT = 3e-2
 MOE_SERVE_LIMIT = 2e-2
+# training: batch and sequence of the step, SGD steps and rate (at 0.05
+# most bf16 updates round away and the loss need not fall at every
+# step), and the limits of the kernel path against the plain one on the
+# loss (relative) and on each parameter's gradient error as a share of
+# that gradient's largest value (triton_dist_tpu_torch/tools/fault_margin.py
+# --train)
+TRAIN_B, TRAIN_S, TRAIN_STEPS, TRAIN_LR = 4, 1024, 4, 0.5
+TRAIN_LOSS_LIMIT, TRAIN_GRAD_LIMIT = 1e-4, 0.15
 
 
 class CheckFailed(Exception):
@@ -786,8 +810,8 @@ def moe_engine_phase(m, k, model, ids, card):
     c_decode = k.launch_counts()
     peak = torch.cuda.max_memory_allocated()
     for label, c, fw in (("prefill", c_prefill, 1), ("decode", c_decode, GEN)):
-        want = dict(grouped_gemm=2 * L * fw, flash_decode=L * fw, kv_update=2 * L * fw,
-                    swiglu=0, flash_decode_paged=0, mega_decode=0, mega_paged_decode=0)
+        want = dict.fromkeys(c, 0)          # every other kernel: no launch
+        want.update(grouped_gemm=2 * L * fw, flash_decode=L * fw, kv_update=2 * L * fw)
         check(c == want, f"moe engine {label}: launches {c}, want {want}")
     check(tuple(toks.shape) == (B, GEN), f"moe engine: tokens {tuple(toks.shape)}")
     check(bool(torch.isfinite(logits).all()), "moe engine: non-finite logits")
@@ -1013,9 +1037,9 @@ def serving_phase(m, k, model, kv_dtype, label, paged, reqs, card, backend="flas
     if moe:
         # admissions: one batch-1 flash forward each; ticks: the paged
         # attention per layer and step; two grouped GEMMs per layer in both
-        want = dict(grouped_gemm=2 * L * (admits + steps), flash_decode=L * admits,
-                    kv_update=2 * L * admits, flash_decode_paged=L * steps, swiglu=0,
-                    mega_decode=0, mega_paged_decode=0)
+        want = dict.fromkeys(counts, 0)     # every other kernel: no launch
+        want.update(grouped_gemm=2 * L * (admits + steps), flash_decode=L * admits,
+                    kv_update=2 * L * admits, flash_decode_paged=L * steps)
         check(paged and counts == want, f"{label}: launches {counts} for {steps} tick steps and "
                               f"{admits} admissions, want {want}")
     elif backend == "mega":
@@ -1205,6 +1229,232 @@ def tick_probe(m, k, eng, paged, reqs, label):
     del sched, slots
 
 
+def train_kernel_phase(k, gen):
+    """Rows 1i (flash_decode_partial), 8 (dq), 9 (dk/dv) and 14/15 (gemm)
+    at the shapes of the training step (Qwen3-1.7B, B=4, S=T=1024,
+    M = B*S = 4096), each held against its plain version."""
+    import torch.nn.functional as F
+    from triton_dist_tpu_torch.kernels import flash_attn as fa
+    from triton_dist_tpu_torch.kernels import flash_attn_train as fat
+    dev = torch.device("cuda")
+    rows = []
+    key = ("train", "step")
+
+    def row(name, case, source, replaces, err, tol, kernel_fn, plain_fn, library_fn,
+            nbytes, flops):
+        check(err <= tol, f"{name} {case}: max_abs_err {err} > tol {tol}")
+        b_ms, b_by = bound(nbytes, flops)
+        r = dict(name=name, case=case, route="cuda", source=source, replaces=replaces,
+                 launches=None, max_abs_err=err, tol=tol, ms=cuda_ms(kernel_fn),
+                 plain_ms=cuda_ms(plain_fn, reps=5), bound_ms=b_ms, bound_by=b_by,
+                 library_ms=None if library_fn is None else cuda_ms(library_fn))
+        rows.append((r, key))
+        print(f"kernel {name} [{case}]: max_abs_err {err:.3g} (tol {tol:.3g}) "
+              f"ms {r['ms']:.4f} plain_ms {r['plain_ms']:.4f} library_ms "
+              f"{r['library_ms'] if r['library_ms'] is None else round(r['library_ms'], 4)} "
+              f"bound_ms {b_ms:.4f} ({b_by})", flush=True)
+
+    def randn(*shape, sc=1.0):
+        return torch.randn(shape, generator=gen, device=dev, dtype=torch.bfloat16) * sc
+
+    Bt, St, Hq, Hkv, d = TRAIN_B, TRAIN_S, 16, 8, 128
+    rep, X, T = Hq // Hkv, TRAIN_B * Hkv, TRAIN_S
+    scale = d ** -0.5
+    q, kk, vv = randn(Bt, St, Hq, d), randn(Bt, Hkv, T, d), randn(Bt, Hkv, T, d)
+    pairs = Bt * Hq * St * (St + 1) // 2          # causal (query, key) pairs
+    fd_src = "triton_dist_tpu_torch/kernels/csrc/flash_decode.cu"
+    acc, m_, l_ = fa._partial(q, kk, vv, T, 0, scale)
+    acc_r, m_r, l_r = fa._partial_ref(q, kk, vv, T, 0, scale)
+    torch.cuda.synchronize()
+    # m and l: f32 logits on both sides, l summed in another order; acc:
+    # the kernel rounds P to bf16 before the PV product (as the TPU
+    # kernel), the plain version keeps it in f32
+    m_err, l_err = max_err(m_, m_r), max_err(l_, l_r) / l_r.abs().max().item()
+    check(m_err <= 1e-3 and l_err <= 1e-4, f"flash_decode_partial: m error {m_err} "
+          f"(tol 1e-3), l error {l_err} of the largest l (tol 1e-4)")
+    qT, kT, vT = q.transpose(1, 2), kk, vv
+    row("flash_decode_partial", f"1i training forward B={Bt} S=T={St} Hq={Hq} Hkv={Hkv} "
+        f"d={d} bf16 (acc; m err {m_err:.3g}, l err {l_err:.3g} of max)", fd_src,
+        "triton_dist_tpu/kernels/flash_attn.py:406", max_err(acc, acc_r),
+        1e-2 * (1 + acc_r.abs().max().item()),
+        lambda: fa._partial(q, kk, vv, T, 0, scale),
+        lambda: fa._partial_ref(q, kk, vv, T, 0, scale),
+        lambda: F.scaled_dot_product_attention(qT, kT, vT, is_causal=True, enable_gqa=True),
+        2 * q.numel() + 2 * 2 * kk.numel() + 4 * acc.numel() + 2 * 4 * m_.numel(),
+        4 * d * pairs)
+
+    # the backward at the same shape, lse and D from the plain forward
+    do = randn(Bt, St, Hq, d)
+    qx = fat._fold_q(q, Hkv).contiguous()
+    dox = fat._fold_q(do, Hkv).contiguous()
+    kx, vx = kk.reshape(X, T, d), vv.reshape(X, T, d)
+    lse = m_r + torch.log(l_r.clamp_min(1e-30))
+    dvec = (dox.float() * (acc_r / l_r.clamp_min(1e-30)[..., None])).sum(-1)
+    del acc, m_, l_, acc_r, m_r, l_r
+    args = (qx, kx, vx, dox, lse, dvec, T, 0)
+    kw = dict(scale=scale, rep=rep)
+    dq = fat.flash_attention_bwd_dq(*args, **kw)
+    dk, dv = fat.flash_attention_bwd_dkdv(*args, **kw)
+    dq_r = fat.flash_attention_bwd_dq_ref(*args, **kw)
+    dk_r, dv_r = fat.flash_attention_bwd_dkdv_ref(*args, **kw)
+    torch.cuda.synchronize()
+    # one SDPA backward computes dq, dk and dv together: the yardstick of
+    # both rows
+    qs, ks, vs = (t.detach().requires_grad_() for t in (qT, kT, vT))
+    out = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True, enable_gqa=True)
+    gout = do.transpose(1, 2)
+
+    def library():
+        torch.autograd.grad(out, (qs, ks, vs), gout, retain_graph=True)
+    bwd_src = "triton_dist_tpu_torch/kernels/csrc/flash_attn_bwd.cu"
+    in_bytes = 2 * (qx.numel() + kx.numel() + vx.numel() + dox.numel()) + 4 * 2 * lse.numel()
+    # both kernels round P and dS to bf16 as the plain version does and
+    # sum in f32 in another order: within 1% of the largest output
+    row("flash_attn_bwd_dq", f"8 dq B={Bt} S=T={St} Hq={Hq} Hkv={Hkv} d={d} bf16", bwd_src,
+        "triton_dist_tpu/kernels/flash_attn_train.py:266", max_err(dq, dq_r),
+        1e-2 * dq_r.abs().max().item(), lambda: fat.flash_attention_bwd_dq(*args, **kw),
+        lambda: fat.flash_attention_bwd_dq_ref(*args, **kw), library,
+        in_bytes + 2 * dq.numel(), 6 * d * pairs)
+    err = max(max_err(dk, dk_r) / dk_r.abs().max().item(),
+              max_err(dv, dv_r) / dv_r.abs().max().item())
+    row("flash_attn_bwd_dkdv", f"9 dk/dv B={Bt} S=T={St} Hq={Hq} Hkv={Hkv} d={d} bf16 "
+        "(error as a share of the largest output)", bwd_src,
+        "triton_dist_tpu/kernels/flash_attn_train.py:283", err, 1e-2,
+        lambda: fat.flash_attention_bwd_dkdv(*args, **kw),
+        lambda: fat.flash_attention_bwd_dkdv_ref(*args, **kw), library,
+        in_bytes + 2 * (dk.numel() + dv.numel()), 8 * d * pairs)
+    del q, kk, vv, do, qx, dox, kx, vx, dq, dk, dv, dq_r, dk_r, dv_r, qs, ks, vs, out, gout
+    torch.cuda.empty_cache()
+
+    gemm_src = "triton_dist_tpu_torch/kernels/csrc/gemm.cu"
+    ag_rep = "triton_dist_tpu/kernels/allgather_gemm.py:341"
+    rs_rep = "triton_dist_tpu/kernels/gemm_reduce_scatter.py:315"
+    M = TRAIN_B * TRAIN_S
+    for case, K, N, rep_at, transposed in (
+            ("14 ag_gemm qkv", 2048, 4096, ag_rep, False),
+            ("15 gemm_rs o", 2048, 2048, rs_rep, False),
+            ("14 ag_gemm gate_up", 2048, 12288, ag_rep, False),
+            ("15 gemm_rs down", 6144, 2048, rs_rep, False),
+            ("15 gemm_rs gate_up backward da = dy @ W^T (W^T a view)", 12288, 2048, rs_rep,
+             True)):
+        a = randn(M, K)
+        b = randn(N, K, sc=K ** -0.5).T if transposed else randn(K, N, sc=K ** -0.5)
+        out = k.gemm(a, b)
+        ref = k.gemm_ref(a, b)
+        torch.cuda.synchronize()
+        # both accumulate in f32 and round once to bf16: one bf16 ulp of
+        # the largest output where the two sums straddle a rounding boundary
+        row("gemm", f"{case} M={M} K={K} N={N} bf16", gemm_src, rep_at, max_err(out, ref),
+            2 ** -7 * ref.float().abs().max().item(), lambda: k.gemm(a, b),
+            lambda: k.gemm_ref(a, b), lambda: a @ b, 2 * (M * K + K * N + M * N),
+            2 * M * N * K)
+        del a, b, out, ref
+    torch.cuda.empty_cache()
+    return rows
+
+
+def train_phase(m, k, card):
+    """Qwen3-1.7B at full width and depth (28 layers, bf16, random weights
+    from a seeded generator) through DenseLLM.forward_train under
+    torch.autograd: one checked step through mode "train" with exact
+    launch counts, its loss and every gradient held against the plain
+    mode "xla", timings, a profiled step, then TRAIN_STEPS SGD steps on
+    the same batch with a falling loss."""
+    from torch.profiler import ProfilerActivity, profile
+    from triton_dist_tpu_torch.tools.fault_margin import (grad_gaps, grads_of, train_batch,
+                                                          train_loss)
+    cfg = m.qwen3_1p7b()
+    model = m.AutoLLM.from_config(cfg, device="cuda", seed=0).requires_grad_()
+    ids, labels = train_batch(cfg, TRAIN_B, TRAIN_S)
+    L = cfg.num_layers
+    grads_of(model, ids, labels, "train")          # warm-up (cuBLAS, allocator)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    k.reset_launch_counts()
+    t0 = time.perf_counter()
+    loss = train_loss(model, ids, labels, "train")
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    loss.backward()
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    counts = k.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    want = dict.fromkeys(counts, 0)
+    want.update(flash_decode_partial=L, flash_attn_bwd_dq=L, flash_attn_bwd_dkdv=L,
+                gemm=8 * L)
+    check(counts == want, f"train step launches {counts}, want {want}")
+    loss_k = loss.item()
+    grads_k = {n: p.grad for n, p in model.named_parameters()}
+    for _, p in model.named_parameters():
+        p.grad = None
+    fwd_ms, bwd_ms = (t1 - t0) * 1e3, (t2 - t1) * 1e3
+    tokens = TRAIN_B * TRAIN_S
+    n_mm = sum(t.numel() for n, t in model.named_parameters()
+               if n.endswith(("w_qkv", "w_o", "w_gate_up", "w_down", "lm_head")))
+    # attention: QK^T and PV forward, twice that backward
+    attn_flops = 3 * 4 * cfg.head_dim * L * TRAIN_B * cfg.num_heads * TRAIN_S * (TRAIN_S + 1) // 2
+    flops = 6 * n_mm * tokens + attn_flops
+    step_s = (t2 - t0)
+    print(f"train step on {card}: Qwen3-1.7B {L} layers bf16, B={TRAIN_B} S={TRAIN_S}: "
+          f"loss {loss_k:.5f}, forward {fwd_ms:.1f} ms, backward {bwd_ms:.1f} ms, "
+          f"{tokens / step_s:.1f} tokens/s, {flops / 1e12:.2f} TFLOP a step (6 x {n_mm} "
+          f"matmul params x {tokens} tokens + {attn_flops / 1e12:.2f} attention) = "
+          f"{flops / step_s / 1e12:.1f} TFLOP/s, {flops / step_s / BF16_FLOPS_PER_S:.1%} of "
+          f"the bf16 peak; peak memory {peak / 2**30:.2f} GiB; launches {counts}",
+          flush=True)
+
+    # the gate: the plain path on the same weights and batch
+    torch.cuda.reset_peak_memory_stats()
+    loss_x, grads_x = grads_of(model, ids, labels, "xla")
+    loss_gap = abs(loss_k - loss_x) / abs(loss_x)
+    gaps = grad_gaps(grads_k, grads_x)
+    worst = max(gaps, key=gaps.get)
+    gap = gaps[worst]
+    print(f"train gate: loss {loss_k:.6f} (train) vs {loss_x:.6f} (xla), gap {loss_gap:.3g} "
+          f"(limit {TRAIN_LOSS_LIMIT}); worst gradient gap {gap:.4f} of its largest value "
+          f"({worst}; limit {TRAIN_GRAD_LIMIT}), median "
+          f"{sorted(gaps.values())[len(gaps) // 2]:.4f}; plain path peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
+    check(loss_gap <= TRAIN_LOSS_LIMIT and gap <= TRAIN_GRAD_LIMIT,
+          f"train gate: loss gap {loss_gap} (limit {TRAIN_LOSS_LIMIT}), gradient gap {gap} "
+          f"({worst}; limit {TRAIN_GRAD_LIMIT})")
+    del grads_k, grads_x
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        grads_of(model, ids, labels, "train")
+        torch.cuda.synchronize()
+        prof_s = time.perf_counter() - t0
+    ev = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in ev) / 1e3
+    top = sorted(ev, key=lambda e: -e.self_device_time_total)[:8]
+    print(f"profile train step: device busy {busy_ms:.1f} ms of {step_s * 1e3:.1f} ms wall "
+          f"({1 - busy_ms / (step_s * 1e3):.1%} idle; {prof_s * 1e3:.1f} ms under the "
+          f"profiler), device launches {sum(e.count for e in ev)}; top: "
+          + "; ".join(f"{e.key[:50]} {e.self_device_time_total / 1e3:.2f} ms" for e in top),
+          flush=True)
+
+    losses = []
+    for _ in range(TRAIN_STEPS):
+        loss, grads = grads_of(model, ids, labels, "train")
+        losses.append(loss)
+        with torch.no_grad():
+            for n, p in model.named_parameters():
+                p -= TRAIN_LR * grads[n]
+        del grads
+    with torch.no_grad():
+        losses.append(train_loss(model, ids, labels, "train").item())
+    print(f"train SGD (lr {TRAIN_LR}, same batch): loss per step "
+          f"{[round(x, 5) for x in losses]}", flush=True)
+    check(all(np.isfinite(losses)) and all(b < a for a, b in zip(losses, losses[1:])),
+          f"train SGD: the loss did not fall at every step: {losses}")
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -1229,7 +1479,7 @@ def main() -> int:
     t0 = time.perf_counter()
     _build.ext()
     print(f"build: {time.perf_counter() - t0:.1f} s (cpp_extension.load of "
-          f"{', '.join(_build.KERNELS)} and the binding)", flush=True)
+          f"{', '.join(_build.SOURCES)} and the binding)", flush=True)
 
     t_start = time.perf_counter()
 
@@ -1275,9 +1525,17 @@ def main() -> int:
                                             reqs, card)
     stamp("serving paged int8")
 
+    # training: Qwen3-1.7B steps through forward_train and the backward kernels
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    rows += train_kernel_phase(k, torch.Generator(device="cuda").manual_seed(2))
+    stamp("training kernel rows")
+    counts["train"] = {"step": train_phase(m, k, card)}
+    stamp("training steps")
+
     # MoE: Qwen3-30B-A3B, about 61 GB of bf16 weights, built once every
     # dense model is gone
-    del model
     gc.collect()
     torch.cuda.empty_cache()
     print(f"memory before the MoE phases: {torch.cuda.memory_allocated() / 2**30:.2f} GiB "

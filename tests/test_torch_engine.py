@@ -240,6 +240,9 @@ def _gate_cases():
                                            moe_impl="ep"),
         "mode_dist": lambda: model().forward_tokens(
             torch.zeros(1, 1, dtype=torch.long), model().make_cache(1, 8), mode="dist"),
+        "train_mode_dist": lambda: model().forward_train(torch.zeros(1, 2, dtype=torch.long),
+                                                         mode="dist"),
+        "train_int8": lambda: model().quantize_int8().requires_grad_(),
         "spec": lambda: sched(spec=2),
         "prefill_budget": lambda: sched(prefill_budget=8),
         "overlap": lambda: sched(overlap=True),

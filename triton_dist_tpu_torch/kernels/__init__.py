@@ -1,11 +1,19 @@
 """Kernels of the port: each hand-written CUDA kernel (csrc/) beside its
-plain PyTorch version, plus the int8 quantizers, `qmm` and the MoE
-routing helpers (ep_a2a.py)."""
+plain PyTorch version, the differentiable training ops built on them
+(flash_attn_train.py, grad.py), plus the int8 quantizers, `qmm` and the
+MoE routing helpers (ep_a2a.py)."""
 
 from triton_dist_tpu_torch.kernels._build import (  # noqa: F401
     launch_counts, reset_launch_counts)
+from triton_dist_tpu_torch.kernels.allgather_gemm import ag_gemm, ag_gemm_ref  # noqa: F401
 from triton_dist_tpu_torch.kernels.flash_attn import (  # noqa: F401
-    flash_decode, flash_decode_ref, kv_update, kv_update_ref)
+    flash_decode, flash_decode_partial, flash_decode_partial_ref, flash_decode_ref,
+    kv_update, kv_update_ref, lse_combine)
+from triton_dist_tpu_torch.kernels.flash_attn_train import (  # noqa: F401
+    flash_attention, flash_attention_bwd, flash_attention_bwd_ref, flash_attention_ref)
+from triton_dist_tpu_torch.kernels.gemm import gemm, gemm_ref  # noqa: F401
+from triton_dist_tpu_torch.kernels.gemm_reduce_scatter import gemm_rs, gemm_rs_ref  # noqa: F401
+from triton_dist_tpu_torch.kernels.grad import ag_gemm_grad, gemm_rs_grad  # noqa: F401
 from triton_dist_tpu_torch.kernels.group_gemm import (  # noqa: F401
     grouped_gemm, grouped_gemm_ref)
 from triton_dist_tpu_torch.kernels.paged_kv import (  # noqa: F401

@@ -31,6 +31,43 @@ void flash_decode(int q_dtype, int kv_dtype, int64_t q, int64_t k, int64_t v, in
                                    Hkv, T, HD, static_cast<float>(scale), s, stream(st)));
 }
 
+void flash_decode_partial(int dtype, int64_t q, int64_t k, int64_t v, int64_t acc, int64_t m,
+                          int64_t l, int kv_len, int q_off, int B, int S, int Hq, int Hkv,
+                          int T, int HD, double scale, int64_t q_sb, int64_t q_ss,
+                          int64_t q_sh, int64_t kv_sb, int64_t kv_sh, int64_t kv_st,
+                          int64_t st) {
+  const long long s[6] = {q_sb, q_ss, q_sh, kv_sb, kv_sh, kv_st};
+  C10_CUDA_CHECK(tdt::flash_decode_partial(
+      dtype, ptr<const void>(q), ptr<const void>(k), ptr<const void>(v), ptr<float>(acc),
+      ptr<float>(m), ptr<float>(l), kv_len, q_off, B, S, Hq, Hkv, T, HD,
+      static_cast<float>(scale), s, stream(st)));
+}
+
+void flash_attn_bwd_dq(int dtype, int64_t q, int64_t k, int64_t v, int64_t dout, int64_t lse,
+                       int64_t dvec, int64_t dq, int X, int R, int T, int HD, int rep,
+                       int valid_len, int q_off, double scale, int fault, int64_t st) {
+  C10_CUDA_CHECK(tdt::flash_attn_bwd_dq(
+      dtype, ptr<const void>(q), ptr<const void>(k), ptr<const void>(v), ptr<const void>(dout),
+      ptr<const float>(lse), ptr<const float>(dvec), ptr<void>(dq), X, R, T, HD, rep,
+      valid_len, q_off, static_cast<float>(scale), fault, stream(st)));
+}
+
+void flash_attn_bwd_dkdv(int dtype, int64_t q, int64_t k, int64_t v, int64_t dout,
+                         int64_t lse, int64_t dvec, int64_t dk, int64_t dv, int X, int R,
+                         int T, int HD, int rep, int valid_len, int q_off, double scale,
+                         int fault, int64_t st) {
+  C10_CUDA_CHECK(tdt::flash_attn_bwd_dkdv(
+      dtype, ptr<const void>(q), ptr<const void>(k), ptr<const void>(v), ptr<const void>(dout),
+      ptr<const float>(lse), ptr<const float>(dvec), ptr<void>(dk), ptr<void>(dv), X, R, T,
+      HD, rep, valid_len, q_off, static_cast<float>(scale), fault, stream(st)));
+}
+
+void gemm(int dtype, int64_t a, int64_t sam, int64_t sak, int64_t b, int64_t sbk, int64_t sbn,
+          int64_t c, int M, int N, int K, int64_t st) {
+  C10_CUDA_CHECK(tdt::gemm(dtype, ptr<const void>(a), sam, sak, ptr<const void>(b), sbk, sbn,
+                           ptr<void>(c), M, N, K, stream(st)));
+}
+
 void flash_decode_paged(int q_dtype, int kv_dtype, int64_t q, int64_t k, int64_t v,
                         int64_t ks, int64_t vs, int64_t table, int64_t kv_lens, int64_t o,
                         int B, int Hq, int Hkv, int maxp, int page, int HD, double scale,
@@ -140,7 +177,11 @@ void mega_paged_decode(const std::vector<int64_t>& p, const std::vector<int64_t>
 
 PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("flash_decode", &flash_decode);
+  m.def("flash_decode_partial", &flash_decode_partial);
+  m.def("flash_attn_bwd_dq", &flash_attn_bwd_dq);
+  m.def("flash_attn_bwd_dkdv", &flash_attn_bwd_dkdv);
   m.def("flash_decode_paged", &flash_decode_paged);
+  m.def("gemm", &gemm);
   m.def("grouped_gemm", &grouped_gemm);
   m.def("kv_update", &kv_update);
   m.def("mega_decode", &mega_decode);

@@ -18,6 +18,14 @@
 // Prefill (S = 128) is bounded by bytes as well at these shapes (q, K, V
 // and the output are each touched once; the causal work is ~8 GFLOP).
 //
+// The partial form (flash_decode_partial, the TPU kernel's partial=True,
+// public in triton_dist_tpu/kernels/flash_attn.py:286) is the training
+// forward: one launch over the whole query (B=4, S=T=1024 at Qwen3-1.7B's
+// width), the causal frontier q_off given by the caller, the unnormalised
+// f32 acc and the (m, l) statistics stored per folded row. Its causal work
+// (~17 GFLOP a layer at that shape) runs on FMA units, so operations bound
+// it on this design, not the card's tensor-core peak.
+//
 // The tile loop and its design are in flash_tile.cuh (ContigKV
 // addressing). With per-row lengths each CTA walks only its own row's
 // keys, so a mixed-length batch reads sum(len_b) rows, not B * max_len.
@@ -37,7 +45,32 @@ cudaError_t launch(int HD, const void* q, const void* k, const void* v, const vo
                                           st[2], stream);
 }
 
+template <typename T>
+cudaError_t launch_partial(int HD, const void* q, const void* k, const void* v,
+                           const tdt_flash::Partial& P, int kv_len, int B, int S, int Hq,
+                           int Hkv, int T_, float scale, const long long* st,
+                           cudaStream_t stream) {
+  const tdt_flash::ContigKV<T> A{static_cast<const T*>(k), static_cast<const T*>(v), nullptr,
+                                 nullptr, nullptr, kv_len, T_, st[3], st[4], st[5], 0, 0};
+  return tdt_flash::launch<T, T, false, true>(HD, q, nullptr, A, B, S, Hq, Hkv, scale, st[0],
+                                              st[1], st[2], stream, P);
+}
+
 }  // namespace
+
+cudaError_t tdt::flash_decode_partial(int dtype, const void* q, const void* k, const void* v,
+                                      float* acc, float* m, float* l, int kv_len, int q_off,
+                                      int B, int S, int Hq, int Hkv, int T, int HD,
+                                      float scale, const long long* st,
+                                      cudaStream_t stream) {
+  const tdt_flash::Partial P{acc, m, l, q_off};
+  if (dtype == kF32)
+    return launch_partial<float>(HD, q, k, v, P, kv_len, B, S, Hq, Hkv, T, scale, st, stream);
+  if (dtype == kBF16)
+    return launch_partial<__nv_bfloat16>(HD, q, k, v, P, kv_len, B, S, Hq, Hkv, T, scale, st,
+                                         stream);
+  return cudaErrorInvalidValue;
+}
 
 cudaError_t tdt::flash_decode(int q_dtype, int kv_dtype, const void* q, const void* k,
                               const void* v, const void* ks, const void* vs,

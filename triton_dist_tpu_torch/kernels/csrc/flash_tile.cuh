@@ -20,6 +20,13 @@
 // int8 K scale multiplies the logits and the V scale multiplies P, P is
 // rounded to the query dtype before the PV product, and the output is
 // acc / max(l, 1e-30) in f32. Plain FMA, no tensor cores.
+//
+// The partial form (PARTIAL, flash_decode.cu's flash_decode_partial, the
+// training forward) takes the causal frontier q_off from the caller
+// instead of kv_len - S and stores the unnormalised f32 acc and the
+// running (m, l) of each row in the folded layout [B*Hkv, S*rep], as the
+// TPU kernel's partial=True outputs; rows that see no key keep m = -1e30,
+// l = 0 and acc = 0.
 #pragma once
 
 #include "common.cuh"
@@ -81,11 +88,21 @@ template <typename KT> struct PagedKV {
   }
 };
 
-template <typename QT, typename KT, bool QUANT, int HD, int RPW, typename KV>
+// Outputs of the partial form: acc [X, rows, HD], m and l [X, rows] f32
+// (X = B * Hkv streams; row r of stream x at x * rows + r); q_off is the
+// position of query row 0 relative to key 0 (may be negative or past T).
+struct Partial {
+  float* acc;
+  float* m;
+  float* l;
+  int q_off;
+};
+
+template <typename QT, typename KT, bool QUANT, bool PARTIAL, int HD, int RPW, typename KV>
 __global__ void __launch_bounds__(kThreads)
 flash_tile_kernel(const QT* __restrict__ q, QT* __restrict__ o, const KV A, int S,
                   int Hq, int Hkv, float scale, long long q_sb, long long q_ss,
-                  long long q_sh) {
+                  long long q_sh, const Partial P) {
   constexpr int R = kWarps * RPW;  // query rows per CTA
   constexpr int DPL = HD / 32;     // output dims per lane
   constexpr int VN = Vec16<KT>::n;
@@ -101,7 +118,7 @@ flash_tile_kernel(const QT* __restrict__ q, QT* __restrict__ o, const KV A, int 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
 
   const int kv_len = A.len(b);
-  const int q_off = kv_len - S;  // position of query row 0
+  const int q_off = PARTIAL ? P.q_off : kv_len - S;  // position of query row 0
   const int kv_end = min(kv_len, A.cap());
   const int walk_end = min(kv_end, q_off + (min(r0 + R, rows) - 1) / rep + 1);
 
@@ -211,6 +228,16 @@ flash_tile_kernel(const QT* __restrict__ q, QT* __restrict__ o, const KV A, int 
   for (int i = 0; i < RPW; ++i) {
     const int r = wr0 + i;
     if (r >= rows) break;
+    if (PARTIAL) {
+      const long long xr = static_cast<long long>(x) * rows + r;
+#pragma unroll
+      for (int e = 0; e < DPL; ++e) P.acc[xr * HD + lane + 32 * e] = acc[i][e];
+      if (lane == 0) {
+        P.m[xr] = m[i];
+        P.l[xr] = l[i];
+      }
+      continue;
+    }
     const int s = r / rep, h = g * rep + r % rep;
     const float inv_l = 1.f / fmaxf(l[i], 1e-30f);
     QT* orow = o + ((static_cast<long long>(b) * S + s) * Hq + h) * HD;
@@ -222,10 +249,10 @@ flash_tile_kernel(const QT* __restrict__ q, QT* __restrict__ o, const KV A, int 
 // Launch the tile kernel for head dim HD over B*Hkv streams of S query
 // positions; q strides (elements) q_sb, q_ss, q_sh; output [B, S, Hq, HD]
 // contiguous. Returns cudaGetLastError() after the launch.
-template <typename QT, typename KT, bool QUANT, int HD, typename KV>
+template <typename QT, typename KT, bool QUANT, bool PARTIAL, int HD, typename KV>
 cudaError_t launch_hd(const void* q, void* o, const KV& A, int B, int S, int Hq, int Hkv,
                       float scale, long long q_sb, long long q_ss, long long q_sh,
-                      cudaStream_t stream) {
+                      cudaStream_t stream, const Partial& P) {
   const int rows = S * (Hq / Hkv);
   // prefill-sized streams take 4 rows per warp (16 per CTA); decode 1 per warp
   const bool wide = rows >= 16;
@@ -233,25 +260,26 @@ cudaError_t launch_hd(const void* q, void* o, const KV& A, int B, int S, int Hq,
   const dim3 grid(B * Hkv, (rows + R - 1) / R);
   auto run = [&](auto kernel) {
     kernel<<<grid, kThreads, 0, stream>>>(static_cast<const QT*>(q), static_cast<QT*>(o),
-                                          A, S, Hq, Hkv, scale, q_sb, q_ss, q_sh);
+                                          A, S, Hq, Hkv, scale, q_sb, q_ss, q_sh, P);
   };
   if (wide)
-    run(flash_tile_kernel<QT, KT, QUANT, HD, 4, KV>);
+    run(flash_tile_kernel<QT, KT, QUANT, PARTIAL, HD, 4, KV>);
   else
-    run(flash_tile_kernel<QT, KT, QUANT, HD, 1, KV>);
+    run(flash_tile_kernel<QT, KT, QUANT, PARTIAL, HD, 1, KV>);
   return cudaGetLastError();
 }
 
-template <typename QT, typename KT, bool QUANT, typename KV>
+// PARTIAL: o is unused and P receives the partial outputs.
+template <typename QT, typename KT, bool QUANT, bool PARTIAL = false, typename KV>
 cudaError_t launch(int HD, const void* q, void* o, const KV& A, int B, int S, int Hq,
                    int Hkv, float scale, long long q_sb, long long q_ss, long long q_sh,
-                   cudaStream_t stream) {
+                   cudaStream_t stream, const Partial& P = Partial{}) {
   if (HD == 128)
-    return launch_hd<QT, KT, QUANT, 128>(q, o, A, B, S, Hq, Hkv, scale, q_sb, q_ss, q_sh,
-                                         stream);
+    return launch_hd<QT, KT, QUANT, PARTIAL, 128>(q, o, A, B, S, Hq, Hkv, scale, q_sb, q_ss,
+                                                  q_sh, stream, P);
   if (HD == 64)
-    return launch_hd<QT, KT, QUANT, 64>(q, o, A, B, S, Hq, Hkv, scale, q_sb, q_ss, q_sh,
-                                        stream);
+    return launch_hd<QT, KT, QUANT, PARTIAL, 64>(q, o, A, B, S, Hq, Hkv, scale, q_sb, q_ss,
+                                                 q_sh, stream, P);
   return cudaErrorInvalidValue;
 }
 

@@ -25,6 +25,39 @@ cudaError_t flash_decode(int q_dtype, int kv_dtype, const void* q, const void* k
                          int Hkv, int T, int HD, float scale, const long long* st,
                          cudaStream_t stream);
 
+// csrc/flash_decode.cu, the partial form (the training forward). q as
+// above (st[0..2]), k/v [B, Hkv, T, d] (st[3..5]), bf16 or f32 alike;
+// outputs acc [B*Hkv, S*rep, d], m and l [B*Hkv, S*rep] f32, contiguous;
+// query row s sits at position q_off + s and attends keys <= that, below
+// min(kv_len, T).
+cudaError_t flash_decode_partial(int dtype, const void* q, const void* k, const void* v,
+                                 float* acc, float* m, float* l, int kv_len, int q_off, int B,
+                                 int S, int Hq, int Hkv, int T, int HD, float scale,
+                                 const long long* st, cudaStream_t stream);
+
+// csrc/flash_attn_bwd.cu. Folded GQA layout, contiguous: q, dout, dq [X, R,
+// HD]; k, v, dk, dv [X, T, HD]; lse, dvec [X, R] f32; row r attends keys
+// <= q_off + r / rep below min(valid_len, T). fault: 0, or a planted fault
+// for tools/fault_margin.py --train (1: dq stops one KV tile short; 2:
+// dk/dv skips the first query block of its walk).
+cudaError_t flash_attn_bwd_dq(int dtype, const void* q, const void* k, const void* v,
+                              const void* dout, const float* lse, const float* dvec, void* dq,
+                              int X, int R, int T, int HD, int rep, int valid_len, int q_off,
+                              float scale, int fault, cudaStream_t stream);
+cudaError_t flash_attn_bwd_dkdv(int dtype, const void* q, const void* k, const void* v,
+                                const void* dout, const float* lse, const float* dvec,
+                                void* dk, void* dv, int X, int R, int T, int HD, int rep,
+                                int valid_len, int q_off, float scale, int fault,
+                                cudaStream_t stream);
+
+// csrc/gemm.cu. c [M, N] contiguous = a [M, K] @ b [K, N] in a's dtype (bf16
+// or f32), f32 accumulation; strides in elements. bf16: each operand has a
+// unit stride in one dimension, K and N are multiples of 8 (M too for a
+// column-major a), leading strides multiples of 8.
+cudaError_t gemm(int dtype, const void* a, long long sam, long long sak, const void* b,
+                 long long sbk, long long sbn, void* c, int M, int N, int K,
+                 cudaStream_t stream);
+
 // csrc/flash_decode_paged.cu. q [B, 1, Hq, HD]; pools [NP, 1, page, HD];
 // strides in elements: st = {q_sb, q_sh, page stride and row stride of
 // the pools, page stride of the scale pools}; ks/vs are null for a

@@ -8,11 +8,16 @@ Counterpart of triton_dist_tpu/kernels/flash_attn.py (`flash_decode`,
 positions: query s sits at kv_len - S + s and attends causally; the
 continuous-batching tick passes per-row lengths `kv_lens` [B] instead.
 
-`flash_decode` and `kv_update` launch the hand-written CUDA kernels
-(csrc/flash_decode.cu, csrc/kv_update.cu) for CUDA tensors and take the
-plain PyTorch versions (`flash_decode_ref`, `kv_update_ref`) only for
-CPU tensors. The cache is updated in place where the JAX package
-aliased (donated) the buffer.
+`flash_decode_partial` (with `lse_combine`) is the split-KV partial
+form: unnormalised f32 accumulators and the (m, l) softmax statistics,
+the training forward's building block (kernels/flash_attn_train.py).
+
+`flash_decode`, `flash_decode_partial` and `kv_update` launch the
+hand-written CUDA kernels (csrc/flash_decode.cu, csrc/kv_update.cu) for
+CUDA tensors and take the plain PyTorch versions (`flash_decode_ref`,
+`flash_decode_partial_ref`, `kv_update_ref`) only for CPU tensors. The
+cache is updated in place where the JAX package aliased (donated) the
+buffer.
 """
 
 from __future__ import annotations
@@ -145,6 +150,103 @@ def _validate_flash(q, k, v, k_scale, v_scale, quant: bool) -> None:
     if (any(s * size % 16 for s in k.stride()[:3])
             or k.data_ptr() % 16 or v.data_ptr() % 16):
         raise ValueError("flash_decode: every K/V row must be 16-byte aligned")
+
+
+def _fold_q(a, Hkv: int):
+    """[B, S, Hq, ...] -> [B*Hkv, S*rep, ...], grouped by kv head (the
+    folded GQA layout of the flash kernels)."""
+    B, S, Hq = a.shape[:3]
+    rep = Hq // Hkv
+    tail = a.shape[3:]
+    return (a.reshape(B, S, Hkv, rep, *tail).transpose(1, 2)
+            .reshape(B * Hkv, S * rep, *tail))
+
+
+def _unfold_q(a, B: int, S: int, Hkv: int):
+    """[B*Hkv, S*rep, ...] -> [B, S, Hq, ...]: the inverse of _fold_q."""
+    rep = a.shape[1] // S
+    tail = a.shape[2:]
+    return (a.reshape(B, Hkv, S, rep, *tail).transpose(1, 2)
+            .reshape(B, S, Hkv * rep, *tail))
+
+
+def _partial_ref(q, k, v, kv_len: int, q_offset: int, scale: float):
+    """Plain version of the partial kernel in the folded layout: query s
+    attends keys t <= q_offset + s with t < min(kv_len, T). Returns acc
+    [B*Hkv, S*rep, d] (unnormalised) and m, l [B*Hkv, S*rep], all f32;
+    a row with no key keeps m = -1e30, l = 0, acc = 0, as the kernel."""
+    B, S, Hq, d = q.shape
+    _, Hkv, T, _ = k.shape
+    rep = Hq // Hkv
+    X = B * Hkv
+    qx = _fold_q(q, Hkv).float()
+    kx = k.reshape(X, T, d).float()
+    vx = v.reshape(X, T, d).float()
+    s = torch.bmm(qx, kx.transpose(1, 2)) * scale                 # [X, R, T]
+    row = torch.arange(S * rep, device=q.device)[:, None] // rep
+    col = torch.arange(T, device=q.device)[None, :]
+    mask = (col <= row + q_offset) & (col < min(kv_len, T))
+    m = torch.where(mask, s, torch.full_like(s, -1e30)).amax(-1)
+    p = torch.where(mask, torch.exp(s - m[..., None]), torch.zeros_like(s))
+    return torch.bmm(p, vx), m, p.sum(-1)
+
+
+def _partial(q, k, v, kv_len: int, q_offset: int, scale: float):
+    """flash_decode_partial in the folded layout: (acc, m, l) as
+    _partial_ref, from the kernel for CUDA tensors."""
+    if q.device.type == "cpu":
+        return _partial_ref(q, k, v, kv_len, q_offset, scale)
+    _validate_flash(q, k, v, None, None, False)
+    B, S, Hq, d = q.shape
+    _, Hkv, T, _ = k.shape
+    X, R = B * Hkv, S * (Hq // Hkv)
+    acc = torch.empty((X, R, d), dtype=torch.float32, device=q.device)
+    m = torch.empty((X, R), dtype=torch.float32, device=q.device)
+    l = torch.empty((X, R), dtype=torch.float32, device=q.device)
+    _build.ext().flash_decode_partial(
+        _build.DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        acc.data_ptr(), m.data_ptr(), l.data_ptr(), kv_len, q_offset, B, S, Hq, Hkv, T, d,
+        float(scale), q.stride(0), q.stride(1), q.stride(2), k.stride(0), k.stride(1),
+        k.stride(2), _build.stream_ptr(q.device))
+    _build.count("flash_decode_partial")
+    return acc, m, l
+
+
+def flash_decode_partial_ref(q, k, v, kv_len: int, q_offset: int, *,
+                             scale: Optional[float] = None):
+    """Plain version of flash_decode_partial (same contract): masked f32
+    products, unnormalised."""
+    B, S, _, d = q.shape
+    Hkv = k.shape[1]
+    acc, m, l = _partial_ref(q, k, v, kv_len, q_offset, d ** -0.5 if scale is None else scale)
+    return _unfold_q(acc, B, S, Hkv), _unfold_q(m, B, S, Hkv), _unfold_q(l, B, S, Hkv)
+
+
+def flash_decode_partial(q, k, v, kv_len: int, q_offset: int, *,
+                         scale: Optional[float] = None):
+    """Split-KV partial attention: the unnormalised f32 accumulator and
+    the softmax statistics of each query against one KV buffer, for an
+    LSE combine (`lse_combine`) across buffers or the training forward.
+
+    q: [B, S, Hq, d] (last dim contiguous); k, v: [B, Hkv, T, d] of q's
+    dtype, bf16 or f32. kv_len: valid keys in the buffer (may be 0);
+    q_offset: position of query 0 relative to key 0 (query s attends keys
+    <= q_offset + s; may be negative or past T). Returns (acc [B, S, Hq,
+    d], m [B, S, Hq], l [B, S, Hq]), all f32."""
+    B, S, _, d = q.shape
+    Hkv = k.shape[1]
+    acc, m, l = _partial(q, k, v, kv_len, q_offset, d ** -0.5 if scale is None else scale)
+    return _unfold_q(acc, B, S, Hkv), _unfold_q(m, B, S, Hkv), _unfold_q(l, B, S, Hkv)
+
+
+def lse_combine(accs, ms, ls, dtype=None):
+    """Merge split-KV partials: accs [n, ..., d] f32 unnormalised, ms/ls
+    [n, ...]. Returns the normalised [..., d] (in dtype when given)."""
+    m_star = ms.amax(0)
+    w = torch.exp(ms - m_star[None])
+    acc = (accs * w[..., None]).sum(0)
+    out = acc / (ls * w).sum(0).clamp_min(1e-30)[..., None]
+    return out if dtype is None else out.to(dtype)
 
 
 def kv_update_ref(cache: torch.Tensor, new: torch.Tensor, pos: int) -> torch.Tensor:

@@ -3,9 +3,10 @@
 Counterpart of triton_dist_tpu/layers/tp_attn.py (`TP_Attn.init`,
 `_qkv_proj`, `_attend_cached`, `_o_proj`, `fwd_cached`, and the
 continuous-batching forms `_attend_cached_slots`/`fwd_cached_slots`
-and `_attend_paged_slots`/`fwd_cached_slots_paged`) at tensor-parallel
-size 1, for the modes "flash" (the CUDA kernels) and "xla" (the plain
-PyTorch versions, the JAX package's oracle mode). The packed weight
+and `_attend_paged_slots`/`fwd_cached_slots_paged`, and the training
+forms `_local_attn_train`/`fwd_train`) at tensor-parallel size 1, for the
+modes "flash" (the CUDA kernels) and "xla" (the plain PyTorch versions,
+the JAX package's oracle mode). The packed weight
 layout is kept: w_qkv is [D, (Hq + 2*Hkv) * hd] = [q | k | v]. The KV
 cache tensors and page pools are updated in place; the per-row writes
 of the slot forms are plain torch indexing, as the JAX `.at[].set`
@@ -22,6 +23,9 @@ import torch
 from triton_dist_tpu_torch.kernels.flash_attn import (flash_decode,
                                                       flash_decode_ref,
                                                       kv_update, kv_update_ref)
+from triton_dist_tpu_torch.kernels.flash_attn_train import (flash_attention,
+                                                            flash_attention_ref)
+from triton_dist_tpu_torch.kernels.grad import ag_gemm_grad, gemm_rs_grad
 from triton_dist_tpu_torch.kernels.paged_kv import (flash_decode_paged,
                                                    flash_decode_paged_ref)
 from triton_dist_tpu_torch.kernels.quant import Weight, qmm, quantize_kv_int8
@@ -247,3 +251,37 @@ class TP_Attn:
         o, kv = self._attend_paged_slots(self._qkv_proj(x), cos, sin, batch, kv,
                                          table, pos, impl)
         return self._o_proj(o), kv
+
+    def _local_attn_train(self, qkv, cos, sin, batch: int, impl: str = "flash"):
+        """Full-causal attention for training: each of `batch` sequences of
+        M // batch rows attends within itself, from position 0. qkv: [M,
+        qkv_cols]; impl "flash" (the differentiable kernels) or "ref" (the
+        plain oracle, flash_attention_ref). Returns o [M, Hq*hd]."""
+        hq, hkv, hd = self.n_heads, self.n_kv_heads, self.head_dim
+        M = qkv.shape[0]
+        S = M // batch
+        q = qkv[:, :hq * hd].reshape(batch, S, hq, hd)
+        k = qkv[:, hq * hd:(hq + hkv) * hd].reshape(batch, S, hkv, hd)
+        v = qkv[:, (hq + hkv) * hd:].reshape(batch, S, hkv, hd)
+        if self.q_norm is not None:
+            q = rms_norm(q, self.q_norm)
+        if self.k_norm is not None:
+            k = rms_norm(k, self.k_norm)
+        positions = torch.arange(S, device=qkv.device)
+        q = apply_rope(q, cos, sin, positions)
+        k = apply_rope(k, cos, sin, positions)
+        attend = flash_attention if impl == "flash" else flash_attention_ref
+        o = attend(q, k.transpose(1, 2), v.transpose(1, 2), scale=hd ** -0.5)
+        return o.reshape(M, hq * hd)
+
+    def fwd_train(self, x, cos, sin, batch: int, impl: str = "flash"):
+        """Differentiable attention block for training (no KV cache).
+        impl "flash": ag_gemm -> flash attention -> gemm_rs, each with its
+        kernel backward (kernels/grad.py, flash_attn_train.py); "ref": the
+        plain oracle (plain products and flash_attention_ref). x: [B*S,
+        D]; returns [B*S, D]."""
+        if impl == "flash":
+            qkv = ag_gemm_grad()(x, self.w_qkv)
+            return gemm_rs_grad()(self._local_attn_train(qkv, cos, sin, batch, "flash"),
+                                  self.w_o)
+        return self._local_attn_train(x @ self.w_qkv, cos, sin, batch, "ref") @ self.w_o

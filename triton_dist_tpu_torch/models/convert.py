@@ -9,7 +9,8 @@ arrays named after the JAX model's attributes:
     layers.{i}.moe.w_router / w_gate_up / w_down (MoE),
     layers.{i}.ln_attn / ln_mlp,
 where a weight quantized to int8 (QuantW) comes as `{name}.q` and
-`{name}.s`. The packed layouts ([q | k | v], [gate | up], per expert
+`{name}.s`. `to_arrays(model, grads=)` goes the other way for a dense
+model's parameters or their gradients, under the same names. The packed layouts ([q | k | v], [gate | up], per expert
 [gate | up]) are the JAX package's at tensor-parallel size 1, so they
 are copied as they are. This module sees numpy arrays only, never a jax
 object.
@@ -76,3 +77,16 @@ def from_jax_arrays(cfg: ModelConfig, arrays: dict, device=None,
     cls = Qwen3MoE if cfg.is_moe else DenseLLM
     return cls(embed=get("embed"), layers=layers, final_norm=get("final_norm"),
                lm_head=get("lm_head"), cos=cos, sin=sin, config=cfg)
+
+
+def to_arrays(model: DenseLLM, grads: bool = False) -> dict:
+    """The model's parameters (DenseLLM.named_parameters), or with grads
+    their .grad, as a flat dict of numpy arrays under the names of
+    from_jax_arrays; bf16 is widened to f32 (exactly). A parameter with
+    no gradient is left out."""
+    out = {}
+    for name, t in model.named_parameters():
+        t = t.grad if grads else t
+        if t is not None:
+            out[name] = t.detach().float().cpu().numpy()
+    return out

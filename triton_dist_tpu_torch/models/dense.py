@@ -1,10 +1,12 @@
 """Dense Qwen3-family LLM: counterpart of triton_dist_tpu/models/dense.py
 (`random_init`, `from_hf`, `quantize_int8`, `forward_tokens`,
-`forward_tokens_slots`, `forward_tokens_slots_paged`, `make_cache`) at
-tensor-parallel size 1.
+`forward_tokens_slots`, `forward_tokens_slots_paged`, `forward_train`,
+`make_cache`) at tensor-parallel size 1.
 
 The model is a dataclass of tensors on one device (the JAX pytree's
-leaves); `forward_tokens` fills the cache in place.
+leaves); `forward_tokens` fills the cache in place. `forward_train` runs
+under torch.autograd on the parameters that `named_parameters` lists and
+`requires_grad_` marks.
 """
 
 from __future__ import annotations
@@ -14,11 +16,29 @@ import os
 
 import torch
 
-from triton_dist_tpu_torch.kernels.quant import Weight, qmm, quantize_int8
+from triton_dist_tpu_torch.kernels.quant import QuantW, Weight, _mm_f32, qmm, quantize_int8
 from triton_dist_tpu_torch.layers import TP_Attn, TP_MLP, precompute_rope, rms_norm
 from triton_dist_tpu_torch.models.config import ModelConfig
 from triton_dist_tpu_torch.models.kv_cache import KVCache
 from triton_dist_tpu_torch.runtime.device import resolve_device
+
+
+class _HeadF32(torch.autograd.Function):
+    """logits = x @ w with an f32 result and f32 accumulation, the weight
+    not widened on the card (kernels/quant.py _mm_f32); the gradients come
+    in the operands' dtype, from the f32 cotangent rounded to it."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        return _mm_f32(x, w)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        g = g.to(x.dtype)
+        return (g @ w.T if ctx.needs_input_grad[0] else None,
+                x.T @ g if ctx.needs_input_grad[1] else None)
 
 
 @dataclasses.dataclass
@@ -137,6 +157,65 @@ class DenseLLM:
             for ly in self.layers]
         return dataclasses.replace(self, layers=layers,
                                    lm_head=quantize_int8(self.lm_head))
+
+    def named_parameters(self) -> list:
+        """The trainable tensors as (name, tensor) pairs under the JAX
+        pytree's leaf names, those of models/convert.py: embed,
+        layers.{i}.attn.w_qkv / w_o / q_norm / k_norm,
+        layers.{i}.mlp.w_gate_up / w_down, layers.{i}.ln_attn / ln_mlp,
+        final_norm, lm_head. The rope tables (cos, sin), leaves of the JAX
+        pytree too, are constants here."""
+        out = [("embed", self.embed)]
+        for i, ly in enumerate(self.layers):
+            p = f"layers.{i}."
+            out += [(f"{p}attn.{n}", getattr(ly.attn, n))
+                    for n in ("w_qkv", "w_o", "q_norm", "k_norm")]
+            out += [(f"{p}mlp.{n}", getattr(ly.mlp, n)) for n in ("w_gate_up", "w_down")]
+            out += [(p + "ln_attn", ly.ln_attn), (p + "ln_mlp", ly.ln_mlp)]
+        out += [("final_norm", self.final_norm), ("lm_head", self.lm_head)]
+        out = [(n, t) for n, t in out if t is not None]
+        if any(isinstance(t, QuantW) for _, t in out):
+            raise NotImplementedError("training int8 (QuantW) weights: not yet ported")
+        return out
+
+    def requires_grad_(self, flag: bool = True) -> "DenseLLM":
+        """Mark every parameter as trainable (or not); returns the model. A
+        tied head, a view of the embedding, first becomes a tensor of its
+        own: in the JAX pytree lm_head is a separate leaf with its own
+        gradient, and the two drift apart from the first step on."""
+        self.named_parameters()              # raises for what cannot train
+        if flag and (self.lm_head.untyped_storage().data_ptr()
+                     == self.embed.untyped_storage().data_ptr()):
+            self.lm_head = self.lm_head.clone()
+        for _, t in self.named_parameters():
+            t.requires_grad_(flag)
+        return self
+
+    def forward_train(self, ids: torch.Tensor, mode: str = "train") -> torch.Tensor:
+        """Training forward (no KV cache): full-causal attention within each
+        of the B sequences of ids [B, S]; returns the logits of every
+        position, [B, S, V] f32, to differentiate with torch.autograd.
+
+        mode "train": every projection through ag_gemm/gemm_rs (the GEMM
+        kernel, kernels/grad.py) and the attention through the flash
+        forward and backward kernels (kernels/flash_attn_train.py); "xla":
+        the plain oracle (plain products, flash_attention_ref, the SwiGLU
+        as plain ops). Embedding gather, final norm and LM head are plain
+        in both, as in the JAX package."""
+        if mode not in ("train", "xla"):
+            raise NotImplementedError(f"forward_train mode {mode!r}: not yet ported (the "
+                                      "port runs 'train' and 'xla')")
+        B, S = ids.shape
+        cfg = self.config
+        attn_impl, mlp_impl = ("flash", "dist") if mode == "train" else ("ref", "xla")
+        x = self.embed[ids].reshape(B * S, cfg.hidden_size)
+        for layer in self.layers:
+            h = rms_norm(x, layer.ln_attn, cfg.rms_norm_eps)
+            x = x + layer.attn.fwd_train(h, self.cos, self.sin, B, attn_impl)
+            h = rms_norm(x, layer.ln_mlp, cfg.rms_norm_eps)
+            x = x + layer.mlp.fwd_train(h, mlp_impl)
+        x = rms_norm(x, self.final_norm, cfg.rms_norm_eps)
+        return _HeadF32.apply(x, self.lm_head).reshape(B, S, -1)
 
     def forward_tokens(self, ids: torch.Tensor, cache: KVCache,
                        mode: str = "flash", last_pos=None):

@@ -198,3 +198,6 @@ class Qwen3MoE(DenseLLM):
 
     def forward_train(self, *args, **kw):
         raise _not_ported("Qwen3MoE.forward_train (training)")
+
+    def named_parameters(self):
+        raise _not_ported("Qwen3MoE.named_parameters (training)")

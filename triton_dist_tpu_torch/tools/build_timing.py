@@ -51,7 +51,7 @@ def main() -> int:
     t0 = time.perf_counter()
     procs = [subprocess.Popen([nvcc, *_build.CUDA_FLAGS, "-shared", "-Xcompiler", "-fPIC",
                                "-o", str(root / "nvcc" / f"lib{n}.so"),
-                               str(_build.CSRC / f"{n}.cu")]) for n in _build.KERNELS]
+                               str(_build.CSRC / f"{n}.cu")]) for n in _build.SOURCES]
     rcs = [p.wait() for p in procs]
     t_nvcc = time.perf_counter() - t0
     if any(rcs):

@@ -58,6 +58,25 @@ them: the largest top-2 margin at which they disagree, and how many
 tokens clear twice each limit of SERVE_GRID (chip_smoke.py's
 MOE_SERVE_LIMIT is chosen from these).
 
+    python3 -m triton_dist_tpu_torch.tools.fault_margin --train
+
+holds the training path instead: Qwen3-1.7B at full width and depth
+(random weights, seed 0, bf16), one step of DenseLLM.forward_train on
+chip_smoke.py's batch (B=4, S=1024, mean next-token cross-entropy). The
+plain mode ("xla") gives the reference loss and gradients; mode "train"
+(the kernels) runs clean and with each planted fault, and each run's
+loss gap and, per parameter, max|d grad| / max|grad| are printed, the
+loss gap against TRAIN_LOSS_LIMIT and the worst gradient gap over the
+parameters against TRAIN_GRAD_LIMIT (chip_smoke.py's):
+
+    dq drops its last KV tile     the dq kernel stops one 32-key tile short
+                                  of each block's causal frontier
+                                  (flash_attn_train.FAULT = 1)
+    dk/dv skips a query block     the dk/dv kernel leaves out the first
+                                  32-row query block of its walk (FAULT = 2)
+    gemm skips a K panel          every GEMM launch of ag_gemm and gemm_rs
+                                  reads A's first 32 columns as zero
+
 Prints one line per configuration and case with the largest relative gap
 over the steps and whether a limit of LIMIT times the largest logit
 catches it; needs one card.
@@ -78,6 +97,8 @@ MOE_B, MOE_S = 4, 64
 # chip_smoke.py's dropless serving arm, and the limits tried on its tokens
 MOE_DL_REQS, MOE_DL_SLOTS, SERVE_MAX_SEQ = 8, 4, 224
 SERVE_GRID = (0.01, 0.02, 0.03, 0.05, 0.07, 0.1)
+TRAIN_B, TRAIN_S = 4, 1024      # chip_smoke.py's training step
+TRAIN_LOSS_LIMIT, TRAIN_GRAD_LIMIT = 1e-4, 0.15    # chip_smoke.py's
 
 
 def _faults(real, int8: bool):
@@ -418,12 +439,100 @@ def run_moe_serving(m, model):
     return results
 
 
+def train_batch(cfg, B=TRAIN_B, S=TRAIN_S):
+    """The training batch of chip_smoke.py: token ids and labels [B, S]
+    from a generator seeded 1, on the card."""
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    ids = torch.randint(0, cfg.vocab_size, (B, S), generator=gen, device="cuda")
+    labels = torch.randint(0, cfg.vocab_size, (B, S), generator=gen, device="cuda")
+    return ids, labels
+
+
+def train_loss(model, ids, labels, mode):
+    """Mean next-token cross-entropy of forward_train (the JAX example's
+    loss: -mean log p(label))."""
+    logits = model.forward_train(ids, mode)
+    return torch.nn.functional.cross_entropy(logits.reshape(-1, logits.shape[-1]),
+                                             labels.reshape(-1))
+
+
+def grads_of(model, ids, labels, mode):
+    """(loss, {name: gradient}) of one backward; the gradients are taken
+    off the model."""
+    for _, p in model.named_parameters():
+        p.grad = None
+    loss = train_loss(model, ids, labels, mode)
+    loss.backward()
+    grads = {}
+    for n, p in model.named_parameters():
+        grads[n], p.grad = p.grad, None
+    return loss.item(), grads
+
+
+def grad_gaps(got, ref) -> dict:
+    """max |got - ref| / max |ref| of each parameter's gradient."""
+    return {n: ((got[n].float() - ref[n].float()).abs().max()
+                / ref[n].float().abs().max()).item() for n in ref}
+
+
+@contextlib.contextmanager
+def _train_fault(case: str):
+    from triton_dist_tpu_torch.kernels import (allgather_gemm, flash_attn_train,
+                                               gemm_reduce_scatter)
+    real = allgather_gemm.gemm
+
+    def skip_panel(a, b):
+        a = a.clone()
+        a[:, :32] = 0
+        return real(a, b)
+    flash_attn_train.FAULT = {"dq drops its last KV tile": 1,
+                              "dk/dv skips a query block": 2}.get(case, 0)
+    if case == "gemm skips a K panel":
+        allgather_gemm.gemm = gemm_reduce_scatter.gemm = skip_panel
+    try:
+        yield
+    finally:
+        flash_attn_train.FAULT = 0
+        allgather_gemm.gemm = gemm_reduce_scatter.gemm = real
+
+
+def run_train(m):
+    """The training step, plain against the kernels clean and with each
+    planted fault."""
+    model = m.AutoLLM.from_config(m.qwen3_1p7b(), device="cuda", seed=0).requires_grad_()
+    ids, labels = train_batch(model.config)
+    loss_x, ref = grads_of(model, ids, labels, "xla")
+    results = {}
+    for case in ("train clean", "dq drops its last KV tile", "dk/dv skips a query block",
+                 "gemm skips a K panel"):
+        with _train_fault(case):
+            loss_k, got = grads_of(model, ids, labels, "train")
+        gaps = grad_gaps(got, ref)
+        worst = max(gaps, key=gaps.get)
+        loss_gap = abs(loss_k - loss_x) / abs(loss_x)
+        results[case] = dict(loss_gap=loss_gap, worst=gaps[worst], worst_param=worst,
+                             median=sorted(gaps.values())[len(gaps) // 2])
+        top = sorted(gaps, key=gaps.get, reverse=True)[:4]
+        print(f"train {case}: loss {loss_k:.6f} vs plain {loss_x:.6f} (gap {loss_gap:.3g}); "
+              f"gradient gap worst {gaps[worst]:.5f} ({worst}), median "
+              f"{results[case]['median']:.5f}; top {[(n, round(gaps[n], 5)) for n in top]}; "
+              f"loss {_caught(loss_gap, TRAIN_LOSS_LIMIT)}, gradients "
+              f"{_caught(gaps[worst], TRAIN_GRAD_LIMIT)}", flush=True)
+        del got
+    return results
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("fault_margin: needs an NVIDIA card", file=sys.stderr)
         return 2
     import triton_dist_tpu_torch.models as m
     from triton_dist_tpu_torch.layers import tp_attn
+    if "--train" in sys.argv[1:]:
+        out = {"loss limit": TRAIN_LOSS_LIMIT, "gradient limit": TRAIN_GRAD_LIMIT,
+               "train bf16": run_train(m)}
+        print(json.dumps(out), flush=True)
+        return 0
     if "--moe" in sys.argv[1:]:
         model = m.AutoLLM.from_config(m.qwen3_30b_a3b(), device="cuda", seed=0)
         out = {"limit": MOE_LIMIT, "moe bf16 dropless": run_moe(m, model),
