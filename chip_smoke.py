@@ -16,7 +16,16 @@ NVIDIA card: the quickest proof that the port still starts on the GPU.
    plain version and one PyTorch library call of the same function
    (where there is one) with CUDA events. bound_ms is the larger of
    bytes / HBM rate and flops / bf16 peak, from the H100 SXM data
-   sheet, counting the bytes this run's lengths need.
+   sheet, counting the bytes this run's lengths need. The q_lens window
+   forms of flash_decode and flash_decode_paged (speculative verify and
+   chunked prefill), bf16 and int8: B=16 slots with 5-position windows
+   and q_lens in [0, 5], and B=7 with one 32-token prompt chunk and six
+   decode rows, kv_lens up to 400; paged bf16 at the mixed ticks of the
+   serving workload at prefill_budget 64 (B=64, S=64) and of the MoE arm
+   (B=4, S=32, 32 query and 4 kv heads), kv_lens up to the serving
+   capacity; keys past each row's length at 100x, valid positions held
+   to the plain version, padding positions finite; the library time is
+   SDPA with each position's boolean mask.
 4. Engine phases, bf16 then int8 (quantize_int8 weights and an int8 KV
    cache): Qwen3-1.7B at full width (28 layers, random weights from a
    seeded torch.Generator), Engine(backend="flash") prefill and decode.
@@ -50,13 +59,40 @@ NVIDIA card: the quickest proof that the port still starts on the GPU.
    megakernel launches per decode step and per tick step, no
    flash_decode_paged or swiglu launch inside a mega tick, flash_decode
    and kv_update launched only by the admissions.
-7. Training phases (Qwen3-1.7B, bf16). Kernel rows 1i
+7. Window phases (Qwen3-1.7B, bf16 unless named). Speculative decoding
+   (bench.py:396-430): 16 requests, each prompt its own seeded 4-token
+   pattern tiled 16 times plus 2, 96 tokens each, ContinuousScheduler
+   with spec=4 and chunk 4, contiguous and paged, with the n-gram
+   drafter, one that proposes the spec=0 run's tokens and one that is
+   always wrong, beside spec=0: exact launch counts, tokens per verify
+   forward, accept rate, tok/s, ms per verify tick. Then the verify
+   program itself, teacher-forced along the served streams of each form:
+   windows of the streams' own tokens (seeded lengths, about half with
+   one draft replaced so that it is rejected and rolled back) through
+   slot_verify_chunk / paged_slot_verify_chunk, the window logits at
+   every position held to the plain engine at 5e-2 of its largest logit,
+   the kept counts and next seeds to the plain engine's where their
+   margins decide them. Chunked prefill
+   (bench.py:498-560): 6 live requests (16-token prompts, 192 tokens)
+   decoding at chunk 2 when a 384-token prompt (8 tokens asked) arrives:
+   its TTFT and the live streams' inter-token gaps until then,
+   prefill_budget 32 against monolithic admissions, paged and contiguous
+   in bf16 and int8 (int8 weights and KV; contiguous int8 chunked only),
+   exact launch counts of the chunked runs. Then the serving workload of
+   5. on the paged pool with prefill_budget 64: the first wave's first
+   poll beside the monolithic one, and the whole run with exact launch
+   counts. Every distinct served stream of these phases is held,
+   teacher-forced, to the plain contiguous engine by the margin rule of
+   4, with at least one token checked in each phase.
+8. Training phases (Qwen3-1.7B, bf16). Kernel rows 1i
    (flash_decode_partial, the training forward), 8 (dq) and 9 (dk/dv) at
    B=4, S=T=1024, lse and D from the plain forward, and 14/15 (gemm, the
    one-rank ag_gemm/gemm_rs) at the step's M=4096 projections and one
    transposed-weight backward product, each held against its plain
    version and timed beside its library call (SDPA forward, SDPA
-   backward, torch.matmul). Then full width and depth (28 layers, random
+   backward, torch.matmul); dq and dk/dv also with queries after the
+   first key (q_off > 0), keys cut short (valid_len < T) and at head dim
+   64 in f32, and gemm's f32 path with ragged M and N. Then full width and depth (28 layers, random
    weights), B=4, S=1024, mean next-token cross-entropy through
    DenseLLM.forward_train: one step through mode "train" with the launch
    counts reset just before and read just after, exactly 28
@@ -66,7 +102,7 @@ NVIDIA card: the quickest proof that the port still starts on the GPU.
    tokens/s, the share of the bf16 peak, peak memory, a profiled step
    (idle share, top device ops); then TRAIN_STEPS SGD steps on the same
    batch, the loss falling at every step.
-8. MoE phases (Qwen3-30B-A3B, TP-MoE at tensor-parallel size 1, bf16,
+9. MoE phases (Qwen3-30B-A3B, TP-MoE at tensor-parallel size 1, bf16,
    after every dense model is freed). Kernel rows 7a-7d (grouped_gemm at
    the decode and prefill capacities of the main path) and a ragged case,
    each x padded past C with 100x rows; flash_decode and
@@ -86,10 +122,12 @@ NVIDIA card: the quickest proof that the port still starts on the GPU.
    The serving phase: the 128 requests through
    ContinuousScheduler(paged=True) at capacity 2.0 (exact launch counts,
    the MoE counters, the tick probe), then a dropless arm (8 requests, 4
-   slots, no drop) whose served tokens are held to the contiguous flash
-   engine teacher-forced along them, and that engine to the plain one
-   with the routing pinned.
-9. Prints one JSON line of per-kernel results, then, last, the device
+   slots, no drop) whose 8 served streams are held to the contiguous
+   flash engine teacher-forced along them, and that engine to the plain
+   one with the routing pinned; the same arm with prefill_budget 32 (a
+   mixed tick routes its whole window, padding too; exact launch counts;
+   4 of its streams held so).
+10. Prints one JSON line of per-kernel results, then, last, the device
    line {"ok": true, "device": {...}}.
 
 Exits non-zero, printing no result, if there is no CUDA device, if the
@@ -111,10 +149,23 @@ import torch
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM, NVIDIA data sheet
 BF16_FLOPS_PER_S = 989e12      # dense bf16 tensor-core peak, same source
+F32_FLOPS_PER_S = 67e12        # float32 outside the tensor cores, same source
 B, S, GEN, T_KERNEL, KV_DECODE = 128, 128, 32, 264, 200
 N_LAYERS = 28                  # Qwen3-1.7B: one megakernel launch per layer per step
 TF_STEPS = 8                   # teacher-forced decode steps checked per phase
 PAGE = 16
+# window kernel rows: the cache's positions and the longest row length
+WIN_T, WIN_KV = 416, 400
+# speculative decoding (bench.py:396-430): requests, budget, draft length,
+# the prompt's pattern and its repeats
+SPEC_B, SPEC_GEN, SPEC_K, SPEC_PERIOD, SPEC_REPS = 16, 96, 4, 4, 16
+# chunked prefill (bench.py:498-560): live requests, their prompt and
+# budget, the long prompt, the prefill budget; the serving workload's
+# budget
+CL_LIVE, CL_PLEN, CL_GEN, CL_LONG, CL_BUDGET = 6, 16, 192, 384, 32
+SERVE_BUDGET = 64
+# the first-poll ms of each serving phase's tick probe, by label
+FIRST_POLL_MS = {}
 # serving: slots, chunk, slot capacity (prompt <= 144 + gen <= 64 plus the
 # paged pool's chunk margin of 15), requests, system prompts and their
 # length, requests teacher-forced against the plain engine
@@ -127,8 +178,29 @@ N_REQ, N_SYS, SYS_LEN, TF_REQS = 128, 4, 96, 8
 # (triton_dist_tpu_torch/tools/fault_margin.py --moe)
 MOE_TF_B, MOE_TF_S = 4, 64
 MOE_DL_REQS, MOE_DL_SLOTS = 8, 4
+# served streams of the dropless prefill_budget arm held, teacher-forced,
+# to the contiguous flash engine with the routing pinned (about 12 s a
+# request; the monolithic arm holds all MOE_DL_REQS)
+MOE_TF_REQS = 4
 MOE_LIMIT = 3e-2
 MOE_SERVE_LIMIT = 2e-2
+MOE_BUDGET = 32                # the MoE arm's prefill_budget
+# window kernel rows: (case, slots, window, query heads, kv heads, cache
+# positions, longest kv length, forms, KV types, the key of the serving
+# run whose launches the row reports, by KV type and form): the spec
+# verify window, the chunked tick, and the mixed ticks of the serving
+# workload at prefill_budget SERVE_BUDGET and of the MoE arm
+WIN_CASES = (
+    ("spec", SPEC_B, SPEC_K + 1, 16, 8, WIN_T, WIN_KV, ("contiguous", "paged"),
+     ("bf16", "int8"),
+     # int8: the chunked int8 runs, the only int8 window phases
+     lambda kvt, form: (kvt, f"{'spec' if kvt == 'bf16' else 'chunked'} {form}")),
+    ("chunked", CL_LIVE + 1, CL_BUDGET, 16, 8, WIN_T, WIN_KV, ("contiguous", "paged"),
+     ("bf16", "int8"), lambda kvt, form: (kvt, f"chunked {form}")),
+    ("serving", SERVE_B, SERVE_BUDGET, 16, 8, SERVE_MAX_SEQ, SERVE_MAX_SEQ, ("paged",),
+     ("bf16",), lambda kvt, form: ("bf16", "chunked serving")),
+    ("moe", MOE_DL_SLOTS, MOE_BUDGET, 32, 4, SERVE_MAX_SEQ, SERVE_MAX_SEQ, ("paged",),
+     ("bf16",), lambda kvt, form: ("moe", "chunked")))
 # training: batch and sequence of the step, SGD steps and rate (at 0.05
 # most bf16 updates round away and the loss need not fall at every
 # step), and the limits of the kernel path against the plain one on the
@@ -165,9 +237,11 @@ def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
-def bound(nbytes: float, flops: float):
+def bound(nbytes: float, flops: float, flops_per_s: float = BF16_FLOPS_PER_S):
+    """The least ms the card could take: bytes over the HBM rate or
+    operations over the peak rate of their type (bf16 unless given)."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / BF16_FLOPS_PER_S * 1e3
+    t_ops = flops / flops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -372,6 +446,137 @@ def kernel_phase(k, gen):
             0.0, lambda: k.swiglu(x),
             lambda: k.swiglu_ref(x), lambda: F.silu(g) * u,
             3 * M * I * 2, 0, ("bf16", phase))
+    return rows
+
+
+def window_kernel_phase(k, gen):
+    """flash_decode and flash_decode_paged in their q_lens window forms at
+    the shapes the window paths give them (WIN_CASES): Qwen3-1.7B's heads
+    (Hq=16, Hkv=8, hd=128) with B=16 slots of S=5 windows and q_lens in
+    [0, 5] (the spec K=4 verify window) and B=7 with S=32, one 32-token
+    prompt chunk and six decode rows of q_len 1 (the chunked tick), bf16
+    and int8, kv_lens up to WIN_KV in a cache of WIN_T positions; the
+    serving workload's mixed tick at prefill_budget SERVE_BUDGET (B=64,
+    S=64, the serving capacity) and the MoE arm's at MOE_BUDGET (B=4,
+    S=32, Qwen3-30B-A3B's Hq=32, Hkv=4: 256 folded rows per stream), paged
+    bf16. Every key past a row's length holds 100x values; valid window
+    positions are held to the plain version, padding positions must be
+    finite."""
+    import torch.nn.functional as F
+    dev = torch.device("cuda")
+    d = 128
+    rows = []
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev, dtype=torch.bfloat16)
+
+    fd_src = "triton_dist_tpu_torch/kernels/csrc/flash_decode.cu"
+    fd_rep = "triton_dist_tpu/kernels/flash_attn.py:406"
+    fdp_src = "triton_dist_tpu_torch/kernels/csrc/flash_decode_paged.cu"
+    fdp_rep = "triton_dist_tpu/kernels/paged_kv.py:411"
+    for case, Bw, Sw, Hq, Hkv, T, kv_max, forms, kvts, keys in WIN_CASES:
+        rep = Hq // Hkv
+        if case == "chunked":
+            ql = torch.ones(Bw, dtype=torch.int32, device=dev)
+            ql[0] = Sw
+        else:
+            ql = torch.randint(0, Sw + 1, (Bw,), generator=gen, device=dev, dtype=torch.int32)
+            ql[:3] = torch.tensor([0, 1, Sw], dtype=torch.int32)
+        kl = (ql + torch.randint(0, kv_max - Sw + 1, (Bw,), generator=gen, device=dev,
+                                 dtype=torch.int32)).to(torch.int32)
+        if case == "chunked":
+            kl[0] = kv_max                  # the prompt chunk ends at the longest length
+        else:
+            kl[0] = 0                       # a row with no key at all
+            if case != "spec":
+                kl[2] = kv_max              # a full window at the capacity
+        s_idx = torch.arange(Sw, device=dev)
+        live_q = s_idx[None, :] < ql[:, None]                       # [B, S] valid
+        front = kl[:, None] - ql[:, None] + torch.minimum(s_idx[None], ql[:, None] - 1)
+        n_pairs = int(((front + 1) * live_q).sum())                # (query, key) pairs
+        n_keys = int(kl.sum())
+        q = randn(Bw, Sw, Hq, d)
+        flops = 4 * d * rep * Hkv * n_pairs
+        qo_bytes = 2 * 2 * q.numel()
+        t_idx = torch.arange(T, device=dev)
+        valid_kv = t_idx[None, :] < kl[:, None]                     # [B, T]
+        kc, vc = randn(Bw, Hkv, T, d), randn(Bw, Hkv, T, d)
+        kc[~valid_kv[:, None, :, None].expand_as(kc)] *= 100
+        vc[~valid_kv[:, None, :, None].expand_as(vc)] *= 100
+        sdpa_mask = (t_idx[None, None, :] <= front[:, :, None])[:, None]    # [B, 1, S, T]
+
+        def held(name, out, ref, label):
+            err = max_err(out[live_q], ref[live_q])
+            tol = 1e-2 * (1 + ref[live_q].float().abs().max().item())
+            check(bool(torch.isfinite(out).all()), f"{name} {label}: non-finite output")
+            return err, tol
+
+        # the paged pool: a random permutation of pages per stream, every
+        # pool row that no stream reads (past its length, unmapped, the
+        # trash page 0) at 100x
+        maxp = T // PAGE
+        X = Bw * Hkv
+        NP = 1 + X * maxp
+        table = (1 + torch.randperm(NP - 1, generator=gen, device=dev)[:X * maxp]
+                 ).reshape(X, maxp).to(torch.int32)
+        kl_x = kl.repeat_interleave(Hkv)
+        tpos = torch.arange(maxp * PAGE, device=dev)
+        used = torch.zeros(NP * PAGE, dtype=torch.bool, device=dev)
+        used[(table.long()[:, tpos // PAGE] * PAGE + tpos % PAGE)[
+            tpos[None, :] < kl_x[:, None]]] = True
+        pk, pv = randn(NP, PAGE, d), randn(NP, PAGE, d)
+        pk[~used.reshape(NP, PAGE)] *= 100
+        pv[~used.reshape(NP, PAGE)] *= 100
+        table_bytes = int(((kl_x + PAGE - 1) // PAGE).sum()) * 4
+        for kvt in kvts:
+            if kvt == "bf16":
+                kw, kk, vv, qk, qv = {}, kc, vc, pk, pv
+                kv_bytes = 2 * Hkv * n_keys * d * 2
+            else:
+                kk, ks = k.quantize_kv_int8(kc)
+                vv, vs = k.quantize_kv_int8(vc)
+                qk, pks = k.quantize_kv_int8(pk)
+                qv, pvs = k.quantize_kv_int8(pv)
+                kv_bytes = 2 * Hkv * n_keys * (d + 4)
+            ckw = {} if kvt == "bf16" else dict(k_scale=ks, v_scale=vs)
+            pkw = {} if kvt == "bf16" else dict(k_scale=pks, v_scale=pvs)
+            label = f"{case} B={Bw} S={Sw} q_lens in [{int(ql.min())}, {int(ql.max())}] " \
+                    f"kv_lens <= {int(kl.max())} T={T} Hq={Hq} Hkv={Hkv} {kvt}"
+            for name, src, rep_at, fn, plain, lib, extra in (
+                    ("flash_decode", fd_src, fd_rep,
+                     lambda: k.flash_decode(q, kk, vv, kv_lens=kl, q_lens=ql, **ckw),
+                     lambda: k.flash_decode_ref(q, kk, vv, kv_lens=kl, q_lens=ql, **ckw),
+                     # SDPA with each query position's boolean mask (rows
+                     # with no key give NaN there; only timed)
+                     None if kvt == "int8" else (
+                         lambda: F.scaled_dot_product_attention(
+                             q.transpose(1, 2), kc, vc, attn_mask=sdpa_mask,
+                             enable_gqa=True)), 2 * Bw * 4),
+                    ("flash_decode_paged", fdp_src, fdp_rep,
+                     lambda: k.flash_decode_paged(q, qk, qv, table, kv_lens=kl, q_lens=ql,
+                                                  **pkw),
+                     lambda: k.flash_decode_paged_ref(q, qk, qv, table, kv_lens=kl,
+                                                      q_lens=ql, **pkw),
+                     None, 2 * Bw * 4 + table_bytes)):
+                form = "paged" if name == "flash_decode_paged" else "contiguous"
+                if form not in forms:
+                    continue
+                out, ref = fn(), plain()
+                torch.cuda.synchronize()
+                err, tol = held(name, out, ref, label)
+                check(err <= tol, f"{name} window {label}: max_abs_err {err} > tol {tol}")
+                b_ms, b_by = bound(qo_bytes + kv_bytes + extra, flops)
+                r = dict(name=name, case=f"window {label}", route="cuda", source=src,
+                         replaces=rep_at, launches=None, max_abs_err=err, tol=tol,
+                         ms=cuda_ms(fn), plain_ms=cuda_ms(plain, reps=5), bound_ms=b_ms,
+                         bound_by=b_by, library_ms=None if lib is None else cuda_ms(lib))
+                rows.append((r, keys(kvt, form)))
+                print(f"kernel {name} [window {label}]: max_abs_err {err:.3g} (tol "
+                      f"{tol:.3g}) ms {r['ms']:.4f} plain_ms {r['plain_ms']:.4f} library_ms "
+                      f"{r['library_ms'] if lib is None else round(r['library_ms'], 4)} "
+                      f"bound_ms {b_ms:.4f} ({b_by})", flush=True)
+        del kc, vc, pk, pv, kk, vv, qk, qv
+    torch.cuda.empty_cache()
     return rows
 
 
@@ -1001,25 +1206,24 @@ def serving_requests(m, vocab: int):
 
 
 def serving_phase(m, k, model, kv_dtype, label, paged, reqs, card, backend="flash",
-                  batch=SERVE_B, tf_reqs=TF_REQS, probe=True):
+                  batch=SERVE_B, tf_reqs=TF_REQS, probe=True, prefill_budget=None):
     """Drive ContinuousScheduler through its entry points with the launch
     counts read around the run, then hold the tokens of tf_reqs seeded
     requests (0: none), teacher-forced, against the plain contiguous
-    engine."""
+    engine. With prefill_budget the admissions are chunked: they run no
+    forward, and every prompt token goes through the mixed ticks."""
     eng = m.Engine(model, max_seq=SERVE_MAX_SEQ, backend=backend, kv_dtype=kv_dtype)
     L = model.config.num_layers
     moe = model.config.is_moe
 
     def scheduler():
         return m.ContinuousScheduler(eng, batch=batch, chunk=SERVE_CHUNK,
-                                     paged=paged, page=PAGE)
+                                     paged=paged, page=PAGE, prefill_budget=prefill_budget)
 
     # warm-up (cuBLAS handles and heuristics, allocator), not counted
     scheduler().run(reqs[:2])
     sched = scheduler()
-    ticks = []
-    step_chunk = sched.slots.step_chunk
-    sched.slots.step_chunk = lambda chunk: ticks.append(chunk) or step_chunk(chunk)
+    ticks, mixed = count_ticks(sched)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     k.reset_launch_counts()
@@ -1029,19 +1233,34 @@ def serving_phase(m, k, model, kv_dtype, label, paged, reqs, card, backend="flas
     wall = time.perf_counter() - t0
     counts = k.launch_counts()
     peak = torch.cuda.max_memory_allocated()
-    # drop the tick counter: it and the slots referred to each other
-    del sched.slots.step_chunk, step_chunk
+    # drop the tick counters: they and the slots referred to each other
+    del sched.slots.step_chunk, sched.slots.step_mixed
     st = sched.stats()
-    admits = len(reqs) + st["preemptions"]
+    # monolithic admissions run one batch-1 forward each; chunked ones none
+    admits = 0 if prefill_budget else len(reqs) + st["preemptions"]
     steps = sum(ticks)
+    fwd = steps + len(mixed)              # tick forwards: decode steps and mixed ticks
+    if prefill_budget:
+        check(st["max_prefill_tokens_per_poll"] <= prefill_budget,
+              f"{label}: {st['max_prefill_tokens_per_poll']} prefill tokens in one poll, "
+              f"budget {prefill_budget}")
     if moe:
         # admissions: one batch-1 flash forward each; ticks: the paged
-        # attention per layer and step; two grouped GEMMs per layer in both
+        # attention per layer and forward; two grouped GEMMs per layer in all
         want = dict.fromkeys(counts, 0)     # every other kernel: no launch
-        want.update(grouped_gemm=2 * L * (admits + steps), flash_decode=L * admits,
-                    kv_update=2 * L * admits, flash_decode_paged=L * steps)
-        check(paged and counts == want, f"{label}: launches {counts} for {steps} tick steps and "
-                              f"{admits} admissions, want {want}")
+        want.update(grouped_gemm=2 * L * (admits + fwd), flash_decode=L * admits,
+                    kv_update=2 * L * admits, flash_decode_paged=L * fwd)
+        check(paged and counts == want, f"{label}: launches {counts} for {steps} tick steps, "
+                              f"{len(mixed)} mixed ticks and {admits} admissions, "
+                              f"want {want}")
+    elif prefill_budget:
+        # chunked dense: every forward is a tick's (attention per layer and
+        # forward, through the table when paged); no admission forward
+        want = dict.fromkeys(counts, 0)
+        want.update({"flash_decode_paged" if paged else "flash_decode": L * fwd,
+                     "swiglu": L * fwd})
+        check(counts == want, f"{label}: launches {counts} for {steps} tick steps and "
+                              f"{len(mixed)} mixed ticks, want {want}")
     elif backend == "mega":
         # ticks: 28 megakernel launches per step and nothing else of the
         # per-op decode; admissions: one batch-1 flash forward each
@@ -1070,15 +1289,19 @@ def serving_phase(m, k, model, kv_dtype, label, paged, reqs, card, backend="flas
                    itl_p50_ms=itl["p50"], itl_p99_ms=itl["p99"],
                    prefill_skip_frac=st.get("prefill_skip_frac"), hits=st.get("hits"),
                    preemptions=st["preemptions"], peak_gib=peak / 2**30,
-                   tick_steps=sum(ticks), launches=counts)
+                   tick_steps=sum(ticks), mixed_ticks=len(mixed),
+                   max_prefill_tokens_per_poll=st["max_prefill_tokens_per_poll"],
+                   launches=counts)
     if moe:
         summary.update(moe_capacity_drops=st["moe_capacity_drops"],
                        expert_load_imbalance=st["expert_load_imbalance"],
                        expert_tokens=sum(st[f"expert_tokens{{expert={e}}}"]
                                          for e in range(model.config.num_experts)))
-        check(summary["expert_tokens"] == model.config.num_experts_per_tok * L * batch
-              * steps, f"{label}: expert_tokens {summary['expert_tokens']} for {steps} "
-                       f"tick steps of {batch} slots")
+        # a mixed tick routes its whole [batch, budget] window, padding too
+        rows = batch * steps + sum(batch * w for w in mixed)
+        check(summary["expert_tokens"] == model.config.num_experts_per_tok * L * rows,
+              f"{label}: expert_tokens {summary['expert_tokens']} for {steps} tick steps "
+              f"and {len(mixed)} mixed ticks of {batch} slots")
     print(f"serving {label} on {card}: {json.dumps(summary)}", flush=True)
     if probe:
         tick_probe(m, k, eng, paged, reqs, label)
@@ -1118,6 +1341,452 @@ def serving_phase(m, k, model, kv_dtype, label, paged, reqs, card, backend="flas
     del sched, eng, ref
     torch.cuda.empty_cache()
     return counts
+
+
+def spec_requests(m, vocab: int):
+    """bench.py's speculative-decoding row at full size: SPEC_B requests,
+    each prompt its own seeded SPEC_PERIOD-token pattern tiled SPEC_REPS
+    times plus its first two tokens, SPEC_GEN tokens each."""
+    rng = np.random.RandomState(3)
+    reqs = []
+    for i in range(SPEC_B):
+        pat = np.tile(rng.randint(0, vocab, SPEC_PERIOD), SPEC_REPS)
+        reqs.append(m.Request(rid=i, ids=np.concatenate([pat, pat[:2]]).astype(np.int32),
+                              gen_len=SPEC_GEN))
+    return reqs
+
+
+class OracleDrafter:
+    """Proposes the tokens a spec=0 run emitted after the history (its
+    drafts are accepted wherever the verify agrees with that run)."""
+
+    def __init__(self, reqs, streams):
+        self.by_prompt = {tuple(r.ids.tolist()): np.asarray(streams[r.rid]) for r in reqs}
+
+    def propose(self, history, k):
+        h = np.asarray(history)
+        for p, s in self.by_prompt.items():
+            if len(h) >= len(p) and tuple(h[:len(p)].tolist()) == p:
+                done = len(h) - len(p)
+                return [int(t) for t in s[done:done + k]]
+        return []
+
+
+class WrongDrafter:
+    """Always wrong: every draft is rejected and every window rolls back."""
+
+    def __init__(self, vocab):
+        self.vocab = vocab
+
+    def propose(self, history, k):
+        return [(int(history[-1]) + 1) % self.vocab] * k
+
+
+def spec_phase(m, k, model, card):
+    """Speculative decoding at full width (bench.py:396-430): the spec
+    requests through ContinuousScheduler(spec=SPEC_K, chunk 4), contiguous
+    and paged, with the n-gram drafter, one that proposes the spec=0 run's
+    tokens and one that is always wrong; exact launch counts, tokens per
+    verify forward, accept rate, tok/s and ms per verify tick beside the
+    spec=0 run. Every distinct served stream is held to the plain
+    contiguous engine by the margin rule, and the verify program of each
+    form is teacher-forced along the streams served in that form
+    (verify_gate). Returns the launch counts of the n-gram runs."""
+    cfg = model.config
+    L = cfg.num_layers
+    reqs = spec_requests(m, cfg.vocab_size)
+    max_seq = len(reqs[0].ids) + SPEC_GEN + 8
+    eng = m.Engine(model, max_seq=max_seq)
+    counts = {}
+    served = []                         # (prompt, stream) of every run
+
+    def run(paged, spec, drafter=None):
+        sched = m.ContinuousScheduler(eng, batch=SPEC_B, chunk=4, paged=paged, page=PAGE,
+                                      spec=spec, drafter=drafter)
+        torch.cuda.synchronize()
+        k.reset_launch_counts()
+        t0 = time.perf_counter()
+        out = sched.run(reqs)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        return out, wall, k.launch_counts(), sched.stats()
+
+    run(False, SPEC_K)                  # warm-up (cuBLAS heuristics of the windows)
+    for paged in (False, True):
+        form = "paged" if paged else "contiguous"
+        base, b_wall, _, _ = run(paged, 0)
+        streams = [(r.ids, base[r.rid]) for r in reqs]
+        tokens = SPEC_B * SPEC_GEN
+        print(f"spec {form} bf16 on {card}: spec=0: {tokens / b_wall:.1f} tok/s "
+              f"({b_wall * 1e3:.1f} ms)", flush=True)
+        for dname, drafter in (("ngram", None), ("oracle", OracleDrafter(reqs, base)),
+                               ("wrong", WrongDrafter(cfg.vocab_size))):
+            out, wall, c, st = run(paged, SPEC_K, drafter)
+            verifies = st["spec_steps"]
+            # admissions: one batch-1 forward each; verify ticks: one window
+            # forward each (through the table when paged)
+            want = dict.fromkeys(c, 0)
+            want.update(flash_decode=L * SPEC_B + (0 if paged else L * verifies),
+                        kv_update=2 * L * SPEC_B, swiglu=L * (SPEC_B + verifies))
+            if paged:
+                want["flash_decode_paged"] = L * verifies
+            check(c == want, f"spec {form} {dname}: launches {c} for {verifies} verify "
+                             f"ticks, want {want}")
+            check(st["drafter_errors"] == 0, f"spec {form} {dname}: drafter errors")
+            check(all(len(out[r.rid]) == SPEC_GEN for r in reqs),
+                  f"spec {form} {dname}: a request did not get its budget")
+            if dname == "ngram":
+                counts[form] = c
+            if dname == "wrong":
+                check(st["spec_accepted"] == 0, f"spec wrong drafter: "
+                                                f"{st['spec_accepted']} drafts accepted")
+            streams += [(r.ids, out[r.rid]) for r in reqs]
+            print(f"spec {form} bf16 K={SPEC_K} {dname} drafter: tokens per step "
+                  f"{st['tokens_per_step']:.4f}, accept rate {st['spec_accept_rate']:.4f}, "
+                  f"{tokens / wall:.1f} tok/s ({wall * 1e3:.1f} ms), {verifies} verify ticks "
+                  f"at {wall * 1e3 / verifies:.3f} ms each; streams equal to spec=0: "
+                  f"{sum(np.array_equal(out[r.rid], base[r.rid]) for r in reqs)}/{SPEC_B}",
+                  flush=True)
+        verify_gate(m, model, streams, paged, f"spec {form}", max_seq)
+        served += streams
+    forced, n = tf_gate(m, model, None, served, "spec", max_seq)
+    print(f"spec: teacher-forced vs plain engine, {n} distinct streams of both forms and "
+          f"every drafter, {forced} tokens checked", flush=True)
+    del eng
+    torch.cuda.empty_cache()
+    return counts
+
+
+def verify_gate(m, model, pairs, paged, label, max_seq, limit=5e-2):
+    """The spec verify program (Engine.slot_verify_chunk, or
+    paged_slot_verify_chunk through a shuffled page table) teacher-forced
+    along the distinct served streams `pairs` [(prompt, stream)], one slot
+    each: every call's window holds the stream's next q_len tokens at the
+    slot's position (q_len seeded in [1, SPEC_K + 1]; in about half the
+    rows one draft replaced by another token, so the verify rejects it and
+    rolls back), the next call starting where that call's n_emit left the
+    slot. The window forward's logits at every position whose inputs are
+    all stream tokens must stay within `limit` of the largest logit of the
+    plain engine ("xla") along the stream; the kept count, the next seed
+    and the position must be the plain engine's wherever every comparison
+    that decides them has a top-2 margin over twice that. Prints and
+    returns (positions held, acceptances held)."""
+    pairs = distinct(pairs)
+    ids = np.stack([p for p, _ in pairs])
+    streams = np.stack([s for _, s in pairs])
+    Bv, plen = ids.shape
+    gen = streams.shape[1]
+    V = model.config.vocab_size
+    S = SPEC_K + 1
+    dev = model.device
+    # the plain engine along every stream: lref[:, t] is the logits that
+    # predict streams[:, t]
+    ref = m.Engine(model, max_seq=max_seq, backend="xla")
+    toks = torch.tensor(streams, device=dev)
+    logits, cache = ref.prefill(ids)
+    lref = [logits.float()]
+    for t in range(gen - 1):
+        lref.append(ref.decode_step(toks[:, t], cache).float())
+    lref = torch.stack(lref, 1)                                 # [B, gen, V]
+    del ref, cache, logits
+    top2 = lref.topk(2, dim=-1).values
+    sure = ((top2[..., 0] - top2[..., 1]) > 2 * limit * lref.abs().amax(-1)).cpu().numpy()
+    nxt = lref.argmax(-1).cpu().numpy()
+
+    eng = m.Engine(model, max_seq=max_seq)
+    if paged:
+        cache = eng.make_paged_slot_cache(Bv, page=PAGE)
+        Hkv, maxp = model.config.num_kv_heads, cache.table.shape[1]
+        pages = 1 + np.random.RandomState(8).permutation(cache.num_pages - 1)
+        blocks = pages[:Bv * Hkv * maxp].reshape(Bv, Hkv, maxp).astype(np.int32)
+        none = np.zeros(Hkv, np.int64)
+        for b in range(Bv):
+            eng.admit_slot_paged(cache, b, ids[b], blocks[b], 0, none, none, 0)
+        verify, fwd_name = eng.paged_slot_verify_chunk, "forward_tokens_slots_paged_verify"
+    else:
+        cache = eng.make_slot_cache(Bv)
+        for b in range(Bv):
+            eng.prefill_into_slot(cache, b, ids[b])
+        verify, fwd_name = eng.slot_verify_chunk, "forward_tokens_slots_verify"
+    # the window forward's per-position logits, as the verify program sees them
+    captured = []
+    forward = getattr(model, fwd_name)
+
+    def capture(*a, **kw):
+        out = forward(*a, **kw)
+        captured.append(out[0])
+        return out
+
+    rng = np.random.RandomState(7)
+    t = np.zeros(Bv, np.int64)          # slot b's seed: streams[b, t[b]] at plen + t[b]
+    n_pos = n_acc = n_seed = calls = 0
+    worst = 0.0
+    setattr(model, fwd_name, capture)
+    try:
+        while True:
+            # column i predicts streams[b, t + 1 + i], so q_len <= gen - 1 - t
+            ql = np.minimum(rng.randint(1, S + 1, Bv), gen - 1 - t).astype(np.int32)
+            active = ql > 0
+            if not active.any():
+                break
+            tokens = np.zeros((Bv, S), np.int64)
+            bad = np.full(Bv, S)        # the replaced draft's column (S: none)
+            for b in np.nonzero(active)[0]:
+                tokens[b, :ql[b]] = streams[b, t[b]:t[b] + ql[b]]
+                if ql[b] > 1 and rng.rand() < 0.5:
+                    bad[b] = rng.randint(1, ql[b])
+                    tokens[b, bad[b]] = (tokens[b, bad[b]] + 1) % V
+            captured.clear()
+            n_emit, t0n, cache, pos = verify(
+                cache, torch.tensor(plen + t, dtype=torch.int32, device=dev),
+                torch.tensor(active, device=dev), tokens, ql)
+            calls += 1
+            lf = captured[0].float()                            # [B, S, V]
+            col = np.arange(S)[None]
+            clean = torch.tensor(col < np.minimum(ql, bad)[:, None], device=dev)
+            at = torch.tensor(np.minimum(t[:, None] + 1 + col, gen - 1), device=dev)
+            lr = lref[torch.arange(Bv, device=dev)[:, None], at]    # [B, S, V]
+            gap = ((lf - lr).abs().amax(-1) / lr.abs().amax(-1))[clean]
+            if gap.numel():
+                worst = max(worst, gap.max().item())
+            check(worst <= limit, f"{label} verify: window logits max|d| / max|logit| "
+                                  f"{worst} > {limit} at call {calls}")
+            n_pos += int(clean.sum())
+            ne, t0, po = (x.cpu().numpy() for x in (n_emit, t0n, pos))
+            check(not ne[~active].any(), f"{label} verify: an idle slot emitted {ne}")
+            for b in np.nonzero(active)[0]:
+                acc, known = 0, True
+                for j in range(1, ql[b]):
+                    i = t[b] + j        # column j - 1's stream index
+                    if j - 1 >= bad[b] or not sure[b, i]:
+                        known = False
+                        break
+                    if tokens[b, j] != nxt[b, i]:
+                        break
+                    acc = j
+                if known and ql[b] > 1:
+                    check(ne[b] == 1 + acc, f"{label} verify: slot {b} at stream index "
+                                            f"{t[b]} kept {ne[b]}, the plain engine {1 + acc}")
+                    n_acc += 1
+                if known and sure[b, t[b] + 1 + acc]:
+                    check(t0[b] == nxt[b, t[b] + 1 + acc],
+                          f"{label} verify: slot {b} next seed {t0[b]}, the plain engine "
+                          f"{nxt[b, t[b] + 1 + acc]}")
+                    n_seed += 1
+                check(po[b] == plen + t[b] + ne[b], f"{label} verify: slot {b} position "
+                                                    f"{po[b]}, want {plen + t[b] + ne[b]}")
+                t[b] += ne[b]
+    finally:
+        delattr(model, fwd_name)
+    check(n_pos > 0 and n_acc > 0, f"{label} verify: {n_pos} positions and {n_acc} "
+                                   "acceptances held")
+    print(f"{label} verify program teacher-forced along {Bv} distinct streams: {calls} "
+          f"calls, {n_pos} window positions within {worst:.5f} of the largest plain logit "
+          f"(limit {limit}); kept counts of {n_acc} draft windows and {n_seed} next seeds "
+          "equal to the plain engine's", flush=True)
+    del eng, cache, lref
+    torch.cuda.empty_cache()
+    return n_pos, n_acc
+
+
+def chunked_requests(m, vocab: int):
+    """bench.py's chunked-prefill row at full size: CL_LIVE live requests
+    of CL_PLEN prompt tokens and CL_GEN tokens each, and one long
+    CL_LONG-token prompt asking for 8."""
+    rng = np.random.RandomState(6)
+    live = [m.Request(rid=f"l{i}", ids=rng.randint(0, vocab, CL_PLEN).astype(np.int32),
+                      gen_len=CL_GEN) for i in range(CL_LIVE)]
+    return live, m.Request(rid="long", ids=rng.randint(0, vocab, CL_LONG).astype(np.int32),
+                           gen_len=8)
+
+
+def chunked_phase(m, k, model, kv_dtype, label, paged, card, compare=True):
+    """Chunked prefill under decode load (bench.py:498-560): the live
+    requests decode (chunk 2) when the long prompt arrives; its TTFT and
+    the live streams' inter-token gaps until its first token, with
+    prefill_budget CL_BUDGET and (compare) monolithic, in this run. The
+    chunked run's launches are exact; every stream of both is held to the
+    plain contiguous engine by the margin rule. Returns the chunked run's
+    launch counts."""
+    L = model.config.num_layers
+    max_seq = CL_LONG + CL_GEN + 16
+    eng = m.Engine(model, max_seq=max_seq, kv_dtype=kv_dtype)
+    live, long_req = chunked_requests(m, model.config.vocab_size)
+    res, served = {}, []
+
+    def run(budget):
+        sched = m.ContinuousScheduler(eng, batch=CL_LIVE + 1, chunk=2, paged=paged,
+                                      page=PAGE, prefill_budget=budget)
+        ticks, mixed = count_ticks(sched)
+        acc = {r.rid: [] for r in live + [long_req]}
+
+        def poll():
+            out, _ = sched.poll()
+            for rid, t in out.items():
+                acc[rid].extend(t.tolist())
+            return out
+
+        torch.cuda.synchronize()
+        k.reset_launch_counts()
+        for r in live:
+            sched.submit(r)
+        for _ in range(4):                  # live slots armed and decoding
+            poll()
+        last = {r.rid: time.perf_counter() for r in live}
+        gaps, ttft = [], None
+        t_submit = time.perf_counter()
+        sched.submit(long_req)
+        while ttft is None:
+            out = poll()
+            now = time.perf_counter()
+            for r in live:
+                if len(out.get(r.rid, ())):
+                    gaps.append(now - last[r.rid])
+                    last[r.rid] = now
+            if len(out.get("long", ())):
+                ttft = now - t_submit
+        while not sched.idle:
+            poll()
+        torch.cuda.synchronize()
+        c = k.launch_counts()
+        st = sched.stats()
+        del sched.slots.step_chunk, sched.slots.step_mixed
+        check(not sched.rejected, f"chunked {label}: rejected {sched.rejected}")
+        return acc, ttft, gaps, c, st, sum(ticks), len(mixed)
+
+    for budget in (CL_BUDGET, None) if compare else (CL_BUDGET,):
+        name = "chunked" if budget else "monolithic"
+        if label == "paged bf16":
+            run(budget)                     # warm-up (the first arm of the phase)
+        acc, ttft, gaps, c, st, steps, n_mixed = run(budget)
+        if budget:
+            check(st["max_prefill_tokens_per_poll"] <= budget,
+                  f"chunked {label}: {st['max_prefill_tokens_per_poll']} prefill tokens in "
+                  f"one poll, budget {budget}")
+            fwd = steps + n_mixed
+            want = dict.fromkeys(c, 0)
+            want.update({"flash_decode_paged" if paged else "flash_decode": L * fwd,
+                         "swiglu": L * fwd})
+            check(c == want, f"chunked {label}: launches {c} for {steps} tick steps and "
+                             f"{n_mixed} mixed ticks, want {want}")
+            res["counts"] = c
+        check(all(len(acc[r.rid]) == r.gen_len for r in live + [long_req]),
+              f"chunked {label} {name}: a request did not get its budget")
+        served += [(r.ids, acc[r.rid]) for r in live + [long_req]]
+        g = np.asarray(gaps) * 1e3
+        res[name] = ttft
+        print(f"chunked {label} on {card}, {name}"
+              + (f" (prefill_budget {budget})" if budget else "")
+              + f": long request ({CL_LONG} tokens) TTFT {ttft * 1e3:.2f} ms under "
+              f"{CL_LIVE} live streams; their inter-token gaps until then p50 "
+              f"{np.percentile(g, 50):.3f} ms p99 {np.percentile(g, 99):.3f} ms max "
+              f"{g.max():.3f} ms ({len(g)} gaps); max prefill tokens per poll "
+              f"{st['max_prefill_tokens_per_poll']}; {steps} decode steps + {n_mixed} mixed "
+              f"ticks; launches {c}", flush=True)
+    forced, n = tf_gate(m, model, kv_dtype, served, f"chunked {label}", max_seq)
+    print(f"chunked {label}: teacher-forced vs plain engine, {n} distinct streams, "
+          f"{forced} tokens checked", flush=True)
+    del eng
+    torch.cuda.empty_cache()
+    return res["counts"]
+
+
+def chunked_first_poll(m, model, reqs, card):
+    """The serving workload's first wave (SERVE_B requests) on the paged pool
+    with prefill_budget SERVE_BUDGET: the first poll (SERVE_B chunked
+    admissions, no forward, and one mixed tick), and the time until every
+    request of the wave emitted its first token, beside the monolithic
+    first poll of this run's paged bf16 serving phase."""
+    eng = m.Engine(model, max_seq=SERVE_MAX_SEQ)
+    sched = m.ContinuousScheduler(eng, batch=SERVE_B, chunk=SERVE_CHUNK, paged=True,
+                                  page=PAGE, prefill_budget=SERVE_BUDGET)
+    wave = reqs[:SERVE_B]
+    for r in wave:
+        sched.submit(r)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    seen = set()
+    out, _ = sched.poll()
+    first_s = time.perf_counter() - t0
+    polls = 1
+    while True:
+        seen |= {rid for rid, t in out.items() if len(t)}
+        if len(seen) == len(wave):
+            break
+        out, _ = sched.poll()
+        polls += 1
+    all_s = time.perf_counter() - t0
+    print(f"tick paged bf16 prefill_budget {SERVE_BUDGET}: first poll ({SERVE_B} chunked "
+          f"admissions + one mixed tick) {first_s * 1e3:.1f} ms (monolithic first poll of "
+          f"this run: {FIRST_POLL_MS.get('paged bf16', float('nan')):.1f} ms; "
+          f"4119.6 ms in the runs PERF.md records); every request of the wave streaming "
+          f"after {polls} polls, {all_s * 1e3:.1f} ms", flush=True)
+    del sched, eng
+    torch.cuda.empty_cache()
+
+
+def count_ticks(sched):
+    """Count a scheduler's ticks: returns (the chunk lengths of its decode
+    ticks, the window widths of its mixed ticks), lists filled as it
+    runs. The caller deletes the wrappers afterwards (slots.step_chunk,
+    slots.step_mixed), which refer to the slots."""
+    ticks, mixed = [], []
+    slots = sched.slots
+    step_chunk, step_mixed = slots.step_chunk, slots.step_mixed
+    slots.step_chunk = lambda chunk: ticks.append(chunk) or step_chunk(chunk)
+
+    def counted_mixed(budget):
+        mixed.append(max(budget, slots.spec + 1))
+        return step_mixed(budget)
+
+    slots.step_mixed = counted_mixed
+    return ticks, mixed
+
+
+def distinct(pairs):
+    """The distinct (prompt, stream) pairs among `pairs`, as int arrays: a
+    stream served by several runs (spec on and off, chunked and
+    monolithic) is checked once."""
+    out = {}
+    for p, st in pairs:
+        p, st = np.asarray(p, np.int32), np.asarray(st, np.int64)
+        out.setdefault((p.tobytes(), st.tobytes()), (p, st))
+    return list(out.values())
+
+
+def tf_gate(m, model, kv_dtype, pairs, label, max_seq, limit=5e-2):
+    """The distinct served streams among `pairs` [(prompt, stream)] against
+    the plain contiguous engine (backend "xla"), teacher-forced along each
+    stream: each token must be the plain argmax wherever the plain top-2
+    margin exceeds twice `limit` of that row's largest logit (the engine
+    phase's rule), and at least one token must be so checked. Streams of
+    one prompt length and length run as one batch. Returns (tokens
+    checked, distinct streams)."""
+    ref = m.Engine(model, max_seq=max_seq, backend="xla", kv_dtype=kv_dtype)
+    pairs = distinct(pairs)
+    groups = {}
+    for p, st in pairs:
+        groups.setdefault((len(p), len(st)), []).append((p, st))
+    forced = 0
+    for (_, gen), rows in groups.items():
+        ids = np.stack([p for p, _ in rows])
+        toks = torch.tensor(np.stack([st for _, st in rows]), device=model.device)
+        logits, cache = ref.prefill(ids)
+        for t in range(gen):
+            tol = limit * logits.abs().amax(-1)
+            top2 = logits.topk(2, dim=-1).values
+            sure = (top2[:, 0] - top2[:, 1]) > 2 * tol
+            agree = torch.argmax(logits, -1) == toks[:, t]
+            check(bool(agree[sure].all()), f"{label}: step {t} of {len(rows)} streams of "
+                  "this length: a token differs from the plain engine where the margin "
+                  "exceeds the tolerance")
+            forced += int(sure.sum())
+            if t + 1 < gen:
+                logits = ref.decode_step(toks[:, t], cache)
+        del cache
+    check(forced > 0, f"{label}: no token of {len(pairs)} streams passed the margin rule")
+    del ref
+    return forced, len(pairs)
 
 
 def moe_served_check(m, model, reqs, out, n, label):
@@ -1180,6 +1849,7 @@ def tick_probe(m, k, eng, paged, reqs, label):
     sched.poll()                         # SERVE_B admissions + one tick
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
+    FIRST_POLL_MS[label] = first_s * 1e3
     slots = sched.slots
     tick = eng.paged_slot_chunk if paged else eng.slot_chunk
 
@@ -1241,9 +1911,9 @@ def train_kernel_phase(k, gen):
     key = ("train", "step")
 
     def row(name, case, source, replaces, err, tol, kernel_fn, plain_fn, library_fn,
-            nbytes, flops):
+            nbytes, flops, flops_per_s=BF16_FLOPS_PER_S):
         check(err <= tol, f"{name} {case}: max_abs_err {err} > tol {tol}")
-        b_ms, b_by = bound(nbytes, flops)
+        b_ms, b_by = bound(nbytes, flops, flops_per_s)
         r = dict(name=name, case=case, route="cuda", source=source, replaces=replaces,
                  launches=None, max_abs_err=err, tol=tol, ms=cuda_ms(kernel_fn),
                  plain_ms=cuda_ms(plain_fn, reps=5), bound_ms=b_ms, bound_by=b_by,
@@ -1326,6 +1996,64 @@ def train_kernel_phase(k, gen):
     del q, kk, vv, do, qx, dox, kx, vx, dq, dk, dv, dq_r, dk_r, dv_r, qs, ks, vs, out, gout
     torch.cuda.empty_cache()
 
+    # the backward kernels' other arguments: queries after the first key
+    # (q_off > 0, T > S), keys cut short (valid_len < T, the SP ring
+    # backward's chunks), head dim 64, f32; lse and D from the plain forward
+    for case, Bc, Sc, Tc, Hqc, Hkvc, dc, dt, q_off, valid in (
+            ("T>S q_off>0", 2, 256, 1024, 16, 8, 128, torch.bfloat16, 768, 1024),
+            ("valid_len<T", 2, 512, 1024, 16, 8, 128, torch.bfloat16, 512, 900),
+            ("hd 64 f32", 2, 256, 256, 8, 4, 64, torch.float32, 0, 256)):
+        repc, Xc, sc = Hqc // Hkvc, Bc * Hkvc, dc ** -0.5
+        gq = lambda *shape: torch.randn(shape, generator=gen, device=dev, dtype=dt)
+        q, kk, vv, do = gq(Bc, Sc, Hqc, dc), gq(Bc, Hkvc, Tc, dc), gq(Bc, Hkvc, Tc, dc), \
+            gq(Bc, Sc, Hqc, dc)
+        acc_r, m_r, l_r = fa._partial_ref(q, kk, vv, valid, q_off, sc)
+        qx, dox = fat._fold_q(q, Hkvc).contiguous(), fat._fold_q(do, Hkvc).contiguous()
+        kx, vx = kk.reshape(Xc, Tc, dc), vv.reshape(Xc, Tc, dc)
+        lse = m_r + torch.log(l_r.clamp_min(1e-30))
+        dvec = (dox.float() * (acc_r / l_r.clamp_min(1e-30)[..., None])).sum(-1)
+        args = (qx, kx, vx, dox, lse, dvec, valid, q_off)
+        kw = dict(scale=sc, rep=repc)
+        dq, (dk, dv) = fat.flash_attention_bwd_dq(*args, **kw), \
+            fat.flash_attention_bwd_dkdv(*args, **kw)
+        dq_r, (dk_r, dv_r) = fat.flash_attention_bwd_dq_ref(*args, **kw), \
+            fat.flash_attention_bwd_dkdv_ref(*args, **kw)
+        torch.cuda.synchronize()
+        # the library: one SDPA backward with the same causal frontier and
+        # key cut as a boolean mask
+        s_i, t_i = torch.arange(Sc, device=dev)[:, None], torch.arange(Tc, device=dev)[None]
+        mask = (t_i <= q_off + s_i) & (t_i < valid)
+        qs, ks, vs = (t.detach().requires_grad_() for t in (q.transpose(1, 2), kk, vv))
+        out = F.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask, enable_gqa=True)
+        gout = do.transpose(1, 2)
+
+        def library(out=out, qs=qs, ks=ks, vs=vs, gout=gout):
+            torch.autograd.grad(out, (qs, ks, vs), gout, retain_graph=True)
+        # bf16 as above; f32 (nothing rounded) sums in another order
+        rel = 1e-2 if dt == torch.bfloat16 else 1e-3
+        rate = BF16_FLOPS_PER_S if dt == torch.bfloat16 else F32_FLOPS_PER_S
+        pairs_c = Bc * Hqc * sum(min(q_off + s + 1, valid) for s in range(Sc))
+        esz = 2 if dt == torch.bfloat16 else 4
+        in_b = esz * (qx.numel() + kx.numel() + vx.numel() + dox.numel()) + 8 * lse.numel()
+        label = f"B={Bc} S={Sc} T={Tc} q_off={q_off} valid_len={valid} Hq={Hqc} " \
+                f"Hkv={Hkvc} d={dc} {'bf16' if dt == torch.bfloat16 else 'f32'}"
+        row("flash_attn_bwd_dq", f"8 dq {case} {label} (error as a share of the largest "
+            "output)", bwd_src, "triton_dist_tpu/kernels/flash_attn_train.py:266",
+            max_err(dq, dq_r) / dq_r.abs().max().item(), rel,
+            lambda: fat.flash_attention_bwd_dq(*args, **kw),
+            lambda: fat.flash_attention_bwd_dq_ref(*args, **kw), library,
+            in_b + esz * dq.numel(), 6 * dc * pairs_c, rate)
+        err = max(max_err(dk, dk_r) / dk_r.abs().max().item(),
+                  max_err(dv, dv_r) / dv_r.abs().max().item())
+        row("flash_attn_bwd_dkdv", f"9 dk/dv {case} {label} (error as a share of the "
+            "largest output)", bwd_src, "triton_dist_tpu/kernels/flash_attn_train.py:283",
+            err, rel, lambda: fat.flash_attention_bwd_dkdv(*args, **kw),
+            lambda: fat.flash_attention_bwd_dkdv_ref(*args, **kw), library,
+            in_b + esz * (dk.numel() + dv.numel()), 8 * dc * pairs_c, rate)
+        del q, kk, vv, do, qx, dox, kx, vx, dq, dk, dv, dq_r, dk_r, dv_r, acc_r, m_r, l_r
+        del qs, ks, vs, out, gout, library
+    torch.cuda.empty_cache()
+
     gemm_src = "triton_dist_tpu_torch/kernels/csrc/gemm.cu"
     ag_rep = "triton_dist_tpu/kernels/allgather_gemm.py:341"
     rs_rep = "triton_dist_tpu/kernels/gemm_reduce_scatter.py:315"
@@ -1349,6 +2077,18 @@ def train_kernel_phase(k, gen):
             lambda: k.gemm_ref(a, b), lambda: a @ b, 2 * (M * K + K * N + M * N),
             2 * M * N * K)
         del a, b, out, ref
+    # the f32 path with ragged M and N edges (no multiple of a tile), b a
+    # transposed view: f32 sums in another order, 1e-5 of the largest output
+    Mf, Kf, Nf = 1000, 300, 770
+    a = torch.randn(Mf, Kf, generator=gen, device=dev)
+    b = (torch.randn(Nf, Kf, generator=gen, device=dev) * Kf ** -0.5).T
+    out, ref = k.gemm(a, b), k.gemm_ref(a, b)
+    torch.cuda.synchronize()
+    row("gemm", f"ragged f32 M={Mf} K={Kf} N={Nf} (b a transposed view)", gemm_src, rs_rep,
+        max_err(out, ref), 1e-5 * ref.abs().max().item(), lambda: k.gemm(a, b),
+        lambda: k.gemm_ref(a, b), lambda: a @ b, 4 * (Mf * Kf + Kf * Nf + Mf * Nf),
+        2 * Mf * Nf * Kf, F32_FLOPS_PER_S)
+    del a, b, out, ref
     torch.cuda.empty_cache()
     return rows
 
@@ -1488,6 +2228,7 @@ def main() -> int:
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     rows = kernel_phase(k, gen)
+    rows += window_kernel_phase(k, torch.Generator(device="cuda").manual_seed(6))
     rows += mega_kernel_phase(gen)
     stamp("kernel phases")
 
@@ -1520,10 +2261,28 @@ def main() -> int:
                                                  "mega paged int8-KV", True, reqs, card,
                                                  backend="mega")
     stamp("serving mega paged int8-KV")
+    # the window path: speculative decoding and chunked prefill
+    spec_counts = spec_phase(m, k, model, card)
+    for form, c in spec_counts.items():
+        counts["bf16"][f"spec {form}"] = c
+    stamp("spec serving bf16")
+    for form, paged in (("paged", True), ("contiguous", False)):
+        counts["bf16"][f"chunked {form}"] = chunked_phase(m, k, model, None, f"{form} bf16",
+                                                          paged, card)
+        stamp(f"chunked prefill {form} bf16")
+    chunked_first_poll(m, model, reqs, card)
+    counts["bf16"]["chunked serving"] = serving_phase(
+        m, k, model, None, f"paged bf16 prefill_budget {SERVE_BUDGET}", True, reqs, card,
+        probe=False, prefill_budget=SERVE_BUDGET)
+    stamp(f"serving paged bf16 prefill_budget {SERVE_BUDGET}")
     model = model.quantize_int8()
     counts["int8"]["paged"] = serving_phase(m, k, model, torch.int8, "paged int8", True,
                                             reqs, card)
     stamp("serving paged int8")
+    for form, paged in (("paged", True), ("contiguous", False)):
+        counts["int8"][f"chunked {form}"] = chunked_phase(
+            m, k, model, torch.int8, f"{form} int8", paged, card, compare=paged)
+        stamp(f"chunked prefill {form} int8")
 
     # training: Qwen3-1.7B steps through forward_train and the backward kernels
     del model
@@ -1557,8 +2316,13 @@ def main() -> int:
     set_capacity(model, "dropless")
     serving_phase(m, k, model, None, "moe paged bf16 dropless", True, reqs[:MOE_DL_REQS],
                   card, batch=MOE_DL_SLOTS, tf_reqs=MOE_DL_REQS, probe=False)
-    set_capacity(model, 2.0)
     stamp("serving moe paged bf16 dropless")
+    counts["moe"]["chunked"] = serving_phase(
+        m, k, model, None, f"moe paged bf16 dropless prefill_budget {MOE_BUDGET}", True,
+        reqs[:MOE_DL_REQS], card, batch=MOE_DL_SLOTS, tf_reqs=MOE_TF_REQS, probe=False,
+        prefill_budget=MOE_BUDGET)
+    set_capacity(model, 2.0)
+    stamp(f"serving moe paged bf16 dropless prefill_budget {MOE_BUDGET}")
 
     out = []
     for r, (kvt, phase) in rows:

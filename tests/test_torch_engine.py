@@ -25,10 +25,11 @@ import torch
 from triton_dist_tpu.models import DenseLLM as JaxDenseLLM
 from triton_dist_tpu.models import Engine as JaxEngine
 from triton_dist_tpu.models.config import tiny_qwen3 as jax_tiny_qwen3
-from triton_dist_tpu_torch.kernels import flash_decode, flash_decode_paged
+from triton_dist_tpu_torch.kernels import flash_decode_paged
 from triton_dist_tpu_torch.models import (AutoLLM, ContinuousScheduler, DenseLLM, Engine,
                                           ModelConfig, Request, tiny_qwen3)
 from triton_dist_tpu_torch.models.convert import from_jax_arrays
+from triton_dist_tpu_torch.models.spec_decode import accept_sampled, target_probs
 
 B, S, GEN = 2, 8, 4
 MAX_SEQ = S + GEN + 8
@@ -231,7 +232,6 @@ def _gate_cases():
         sched().submit(Request(rid=0, ids=np.zeros(4, np.int32), gen_len=2, **kw))
 
     q = torch.zeros(1, 1, 2, 32)
-    kv = torch.zeros(1, 1, 8, 32)
     pool = torch.zeros(3, 8, 32)
     table = torch.zeros(1, 2, dtype=torch.int32)
     lens = torch.ones(1, dtype=torch.int32)
@@ -243,8 +243,6 @@ def _gate_cases():
         "train_mode_dist": lambda: model().forward_train(torch.zeros(1, 2, dtype=torch.long),
                                                          mode="dist"),
         "train_int8": lambda: model().quantize_int8().requires_grad_(),
-        "spec": lambda: sched(spec=2),
-        "prefill_budget": lambda: sched(prefill_budget=8),
         "overlap": lambda: sched(overlap=True),
         "host_pool_pages": lambda: sched(paged=True, host_pool_pages=4),
         "watchdog_s": lambda: sched(watchdog_s=1.0),
@@ -254,11 +252,10 @@ def _gate_cases():
         "request_deadline_ms": lambda: submit(deadline_ms=100.0),
         "request_n": lambda: submit(n=2),
         "request_grammar": lambda: submit(grammar=object()),
-        "flash_decode_q_lens": lambda: flash_decode(q, kv, kv, kv_lens=lens, q_lens=lens),
-        "flash_decode_paged_q_lens": lambda: flash_decode_paged(
-            q, pool, pool, table, kv_lens=lens, q_lens=lens),
         "flash_decode_paged_partial": lambda: flash_decode_paged(
             q, pool, pool, table, kv_lens=lens, tile_owned=table),
+        "spec_accept_sampled": lambda: accept_sampled(None, None, None, None),
+        "spec_target_probs": lambda: target_probs(None, "top_k", {}),
     }
 
 

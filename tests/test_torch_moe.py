@@ -416,8 +416,7 @@ def _moe_model():
 
 
 @pytest.mark.parametrize("case", ["ep_backend", "ep_flash_backend", "moe_impl_ep",
-                                  "slots_verify", "slots_paged_verify", "forward_train",
-                                  "mode_dist", "quantize_int8"])
+                                  "forward_train", "mode_dist", "quantize_int8"])
 def test_moe_not_ported_paths_raise(case):
     m = _moe_model()
     calls = {
@@ -425,9 +424,6 @@ def test_moe_not_ported_paths_raise(case):
         "ep_flash_backend": lambda: Engine(m, backend="ep_flash", device="cpu"),
         "moe_impl_ep": lambda: AutoLLM.from_config(tiny_qwen3_moe(1), device="cpu",
                                                    moe_impl="ep"),
-        "slots_verify": lambda: m.forward_tokens_slots_verify(None, None, None, None),
-        "slots_paged_verify": lambda: m.forward_tokens_slots_paged_verify(
-            None, None, None, None),
         "forward_train": lambda: m.forward_train(None),
         "mode_dist": lambda: m.layers[0].moe(torch.zeros(1, 64), "dist"),
         "quantize_int8": m.quantize_int8,

@@ -19,16 +19,17 @@ template <typename P> P* ptr(int64_t p) { return reinterpret_cast<P*>(p); }
 cudaStream_t stream(int64_t s) { return reinterpret_cast<cudaStream_t>(s); }
 
 void flash_decode(int q_dtype, int kv_dtype, int64_t q, int64_t k, int64_t v, int64_t ks,
-                  int64_t vs, int64_t kv_lens, int64_t o, int kv_len, int B, int S, int Hq,
-                  int Hkv, int T, int HD, double scale, int64_t q_sb, int64_t q_ss,
-                  int64_t q_sh, int64_t kv_sb, int64_t kv_sh, int64_t kv_st, int64_t sc_sb,
-                  int64_t sc_sh, int64_t st) {
+                  int64_t vs, int64_t kv_lens, int64_t q_lens, int64_t o, int kv_len, int B,
+                  int S, int Hq, int Hkv, int T, int HD, double scale, int64_t q_sb,
+                  int64_t q_ss, int64_t q_sh, int64_t kv_sb, int64_t kv_sh, int64_t kv_st,
+                  int64_t sc_sb, int64_t sc_sh, int64_t st) {
   const long long s[8] = {q_sb, q_ss, q_sh, kv_sb, kv_sh, kv_st, sc_sb, sc_sh};
   C10_CUDA_CHECK(tdt::flash_decode(q_dtype, kv_dtype, ptr<const void>(q),
                                    ptr<const void>(k), ptr<const void>(v),
                                    ptr<const void>(ks), ptr<const void>(vs),
-                                   ptr<const int>(kv_lens), ptr<void>(o), kv_len, B, S, Hq,
-                                   Hkv, T, HD, static_cast<float>(scale), s, stream(st)));
+                                   ptr<const int>(kv_lens), ptr<const int>(q_lens),
+                                   ptr<void>(o), kv_len, B, S, Hq, Hkv, T, HD,
+                                   static_cast<float>(scale), s, stream(st)));
 }
 
 void flash_decode_partial(int dtype, int64_t q, int64_t k, int64_t v, int64_t acc, int64_t m,
@@ -69,16 +70,17 @@ void gemm(int dtype, int64_t a, int64_t sam, int64_t sak, int64_t b, int64_t sbk
 }
 
 void flash_decode_paged(int q_dtype, int kv_dtype, int64_t q, int64_t k, int64_t v,
-                        int64_t ks, int64_t vs, int64_t table, int64_t kv_lens, int64_t o,
-                        int B, int Hq, int Hkv, int maxp, int page, int HD, double scale,
-                        int64_t q_sb, int64_t q_sh, int64_t pg_st, int64_t row_st,
-                        int64_t spg_st, int64_t st) {
-  const long long s[5] = {q_sb, q_sh, pg_st, row_st, spg_st};
+                        int64_t ks, int64_t vs, int64_t table, int64_t kv_lens,
+                        int64_t q_lens, int64_t o, int B, int S, int Hq, int Hkv, int maxp,
+                        int page, int HD, double scale, int64_t q_sb, int64_t q_ss,
+                        int64_t q_sh, int64_t pg_st, int64_t row_st, int64_t spg_st,
+                        int64_t st) {
+  const long long s[6] = {q_sb, q_ss, q_sh, pg_st, row_st, spg_st};
   C10_CUDA_CHECK(tdt::flash_decode_paged(
       q_dtype, kv_dtype, ptr<const void>(q), ptr<const void>(k), ptr<const void>(v),
       ptr<const void>(ks), ptr<const void>(vs), ptr<const int>(table),
-      ptr<const int>(kv_lens), ptr<void>(o), B, Hq, Hkv, maxp, page, HD,
-      static_cast<float>(scale), s, stream(st)));
+      ptr<const int>(kv_lens), ptr<const int>(q_lens), ptr<void>(o), B, S, Hq, Hkv, maxp,
+      page, HD, static_cast<float>(scale), s, stream(st)));
 }
 
 void grouped_gemm(int64_t x, int64_t x_es, int64_t w, int64_t out, int E, int C, int D,

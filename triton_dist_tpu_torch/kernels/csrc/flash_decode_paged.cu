@@ -3,22 +3,28 @@
 //
 // Replaces the TPU kernel triton_dist_tpu/kernels/paged_kv.py
 // `_paged_kernel` (launched by `_flash_decode_paged_call`, the pallas_call
-// at paged_kv.py:411) in its per-stream (`kv_lens`) decode form, plain
-// and int8. Contract:
-//   q [B, 1, Hq, d] (row strides given); pools k/v [NP, G, page, d] with
+// at paged_kv.py:411) in its per-stream (`kv_lens`) decode form and its
+// `q_lens` window form (speculative verify and chunked prefill; the
+// frontier kvl - ql + min(row, ql - 1) of paged_kv.py:279-350), plain and
+// int8. Contract:
+//   q [B, S, Hq, d] (row strides given); pools k/v [NP, G, page, d] with
 //   G == 1 (page and row strides given, d contiguous), optional int8
 //   pools with per-position f32 scale pages [NP, G, page]; table
 //   [B*Hkv, maxp] int32 (contiguous) maps logical tile t of stream
 //   b*Hkv + h to a physical page; kv_lens [B] int32: row b attends its
-//   own positions [0, kv_lens[b]). Output [B, 1, Hq, d] contiguous, in
-//   q's dtype.
+//   own positions [0, kv_lens[b]). S == 1 without q_lens; with q_lens [B]
+//   int32 row b's first q_lens[b] query positions are a window ending at
+//   kv_lens[b] - 1, causal within it (padding positions repeat the last
+//   valid one). Output [B, S, Hq, d] contiguous, in q's dtype.
 //
 // What bounds it on an H100: one decode step reads every valid K/V row of
 // every stream once (about 4 flops per byte), so HBM bytes bound it, and
 // the bytes are sum over streams of kv_lens[b] rows, not B * capacity.
 //
 // Design (flash_tile.cuh with PagedKV addressing): one CTA per stream
-// x = b*Hkv + h. The TPU kernel resolved pages in its BlockSpec index map
+// x = b*Hkv + h (a window's S * rep folded query rows take one CTA per
+// block of rows, each walking to its block's furthest frontier). The TPU
+// kernel resolved pages in its BlockSpec index map
 // (scalar prefetch) and clamped the walk of a short stream to its last
 // page; here the CTA reads its own page ids, table[x, t / page], for the
 // keys t < kv_lens[b] only, so the clamp is the loop bound and no page
@@ -34,32 +40,45 @@ namespace {
 
 template <typename QT, typename KT, bool QUANT>
 cudaError_t launch(int HD, const void* q, const void* k, const void* v, const void* ks,
-                   const void* vs, const int* table, const int* kv_lens, void* o, int B,
-                   int Hq, int Hkv, int maxp, int page, float scale, const long long* st,
-                   cudaStream_t stream) {
-  const tdt_flash::PagedKV<KT> A{
-      static_cast<const KT*>(k), static_cast<const KT*>(v), static_cast<const float*>(ks),
-      static_cast<const float*>(vs), table, kv_lens, Hkv, maxp, page, st[2], st[3], st[4]};
-  return tdt_flash::launch<QT, KT, QUANT>(HD, q, o, A, B, 1, Hq, Hkv, scale, st[0], 0,
-                                          st[1], stream);
+                   const void* vs, const int* table, const int* kv_lens, const int* q_lens,
+                   void* o, int B, int S, int Hq, int Hkv, int maxp, int page, float scale,
+                   const long long* st, cudaStream_t stream) {
+  const tdt_flash::PagedKV<KT> A{static_cast<const KT*>(k),
+                                 static_cast<const KT*>(v),
+                                 static_cast<const float*>(ks),
+                                 static_cast<const float*>(vs),
+                                 table,
+                                 kv_lens,
+                                 q_lens,
+                                 Hkv,
+                                 maxp,
+                                 page,
+                                 st[3],
+                                 st[4],
+                                 st[5]};
+  return tdt_flash::launch<QT, KT, QUANT>(HD, q, o, A, B, S, Hq, Hkv, scale, st[0], st[1],
+                                          st[2], stream);
 }
 
 }  // namespace
 
 cudaError_t tdt::flash_decode_paged(int q_dtype, int kv_dtype, const void* q, const void* k,
                                     const void* v, const void* ks, const void* vs,
-                                    const int* table, const int* kv_lens, void* o, int B,
-                                    int Hq, int Hkv, int maxp, int page, int HD, float scale,
+                                    const int* table, const int* kv_lens,
+                                    const int* q_lens, void* o, int B, int S, int Hq,
+                                    int Hkv, int maxp, int page, int HD, float scale,
                                     const long long* st, cudaStream_t stream) {
+  if (S != 1 && q_lens == nullptr) return cudaErrorInvalidValue;
   if (q_dtype == kF32 && kv_dtype == kF32)
-    return launch<float, float, false>(HD, q, k, v, ks, vs, table, kv_lens, o, B, Hq, Hkv,
-                                       maxp, page, scale, st, stream);
+    return launch<float, float, false>(HD, q, k, v, ks, vs, table, kv_lens, q_lens, o, B, S,
+                                       Hq, Hkv, maxp, page, scale, st, stream);
   if (q_dtype == kBF16 && kv_dtype == kBF16)
     return launch<__nv_bfloat16, __nv_bfloat16, false>(HD, q, k, v, ks, vs, table,
-                                                       kv_lens, o, B, Hq, Hkv, maxp, page,
-                                                       scale, st, stream);
+                                                       kv_lens, q_lens, o, B, S, Hq, Hkv,
+                                                       maxp, page, scale, st, stream);
   if (q_dtype == kBF16 && kv_dtype == kI8)
-    return launch<__nv_bfloat16, int8_t, true>(HD, q, k, v, ks, vs, table, kv_lens, o, B,
-                                               Hq, Hkv, maxp, page, scale, st, stream);
+    return launch<__nv_bfloat16, int8_t, true>(HD, q, k, v, ks, vs, table, kv_lens, q_lens,
+                                               o, B, S, Hq, Hkv, maxp, page, scale, st,
+                                               stream);
   return cudaErrorInvalidValue;
 }

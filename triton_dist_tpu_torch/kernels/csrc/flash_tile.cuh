@@ -21,6 +21,15 @@
 // rounded to the query dtype before the PV product, and the output is
 // acc / max(l, 1e-30) in f32. Plain FMA, no tensor cores.
 //
+// The window form (q_lens, per batch row, device int32 [B] beside the
+// per-row lengths: speculative verify and chunked prefill) puts row b's
+// first q_lens[b] query positions at kv_len - q_lens[b] .. kv_len - 1,
+// causal within the window: position s attends keys
+// t <= kv_len - q_len + min(s, q_len - 1). Padding positions (s >= q_len)
+// repeat the last valid one; q_len == 0 attends keys < kv_len (its output
+// is discarded by the caller and stays finite). Without q_lens every row
+// has q_len = S, the plain causal frontier kv_len - S + s.
+//
 // The partial form (PARTIAL, flash_decode.cu's flash_decode_partial, the
 // training forward) takes the causal frontier q_off from the caller
 // instead of kv_len - S and stores the unnormalised f32 acc and the
@@ -39,13 +48,15 @@ constexpr int kBT = 32;  // keys per tile == warp width: lane j owns key j
 
 // Contiguous cache k/v [B, Hkv, T, d] (row strides in elements), int8
 // scales [B, Hkv, T]. lens: per-batch-row lengths [B] on the device, or
-// null for the one scalar kv_len of every row.
+// null for the one scalar kv_len of every row; qlens: per-batch-row query
+// windows [B] on the device (with lens), or null.
 template <typename KT> struct ContigKV {
   const KT* k;
   const KT* v;
   const float* ks;
   const float* vs;
   const int* lens;
+  const int* qlens;
   int kv_len, T;
   long long kv_sb, kv_sh, kv_st, sc_sb, sc_sh;
 
@@ -63,8 +74,9 @@ template <typename KT> struct ContigKV {
 // Page pool: payload pages of `page` rows (page stride pg_st, row stride
 // row_st, in elements), int8 scale pages (page stride spg_st), one
 // int32 table [B*Hkv, maxp] mapping logical tile t/page of stream
-// b*Hkv+g to its physical page, per-batch-row lengths lens [B]. Only
-// tiles below the stream's length are ever looked up.
+// b*Hkv+g to its physical page, per-batch-row lengths lens [B] and query
+// windows qlens [B] (or null). Only tiles below the stream's length are
+// ever looked up.
 template <typename KT> struct PagedKV {
   const KT* k;
   const KT* v;
@@ -72,6 +84,7 @@ template <typename KT> struct PagedKV {
   const float* vs;
   const int* table;
   const int* lens;
+  const int* qlens;
   int Hkv, maxp, page;
   long long pg_st, row_st, spg_st;
 
@@ -118,9 +131,16 @@ flash_tile_kernel(const QT* __restrict__ q, QT* __restrict__ o, const KV A, int 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
 
   const int kv_len = A.len(b);
-  const int q_off = PARTIAL ? P.q_off : kv_len - S;  // position of query row 0
+  // query position s attends keys <= q_off + min(s, s_max): the window's
+  // frontier (s_max = q_len - 1 clamps the padding positions), the plain
+  // causal one (q_len = S), or the partial form's q_off
+  const int q_len = A.qlens ? A.qlens[b] : S;
+  const int q_off = PARTIAL ? P.q_off : kv_len - q_len;
+  const int s_max = q_len - 1;
   const int kv_end = min(kv_len, A.cap());
-  const int walk_end = min(kv_end, q_off + (min(r0 + R, rows) - 1) / rep + 1);
+  // the block's last row has its furthest frontier
+  const int walk_end =
+      min(kv_end, q_off + min((min(r0 + R, rows) - 1) / rep, s_max) + 1);
 
   for (int idx = tid; idx < R * HD; idx += kThreads) {
     const int rr = idx / HD, c = idx % HD, r = r0 + rr;
@@ -135,7 +155,7 @@ flash_tile_kernel(const QT* __restrict__ q, QT* __restrict__ o, const KV A, int 
   // this warp's rows: r0 + warp * RPW + i; the last one has the furthest frontier
   const int wr0 = r0 + warp * RPW;
   const int w_last = min(wr0 + RPW, rows) - 1;
-  const int w_front = w_last >= wr0 ? q_off + w_last / rep : -1;
+  const int w_front = w_last >= wr0 ? q_off + min(w_last / rep, s_max) : -1;
 
   float m[RPW], l[RPW], acc[RPW][DPL];
 #pragma unroll
@@ -197,7 +217,7 @@ flash_tile_kernel(const QT* __restrict__ q, QT* __restrict__ o, const KV A, int 
 #pragma unroll
     for (int i = 0; i < RPW; ++i) {
       const int r = wr0 + i;
-      const bool valid = r < rows && j <= q_off + r / rep && j < kv_end;
+      const bool valid = r < rows && j <= q_off + min(r / rep, s_max) && j < kv_end;
       float s = dot[i] * scale;
       if (QUANT) s *= ksj;
       const float m_new = fmaxf(m[i], warp_max(valid ? s : -1e30f));

@@ -18,12 +18,13 @@ enum Dtype { kF32 = 0, kBF16 = 1, kI8 = 2 };
 // csrc/flash_decode.cu. Strides in elements: st = {q_sb, q_ss, q_sh, kv_sb,
 // kv_sh, kv_st, sc_sb, sc_sh}; ks/vs are null for a bf16/f32 cache;
 // kv_lens is null (every row uses kv_len) or per-batch-row lengths [B]
-// int32 on the device (then S must be 1).
+// int32 on the device (then S must be 1 unless q_lens is given); q_lens
+// is null or per-batch-row query windows [B] int32 on the device.
 cudaError_t flash_decode(int q_dtype, int kv_dtype, const void* q, const void* k,
                          const void* v, const void* ks, const void* vs,
-                         const int* kv_lens, void* o, int kv_len, int B, int S, int Hq,
-                         int Hkv, int T, int HD, float scale, const long long* st,
-                         cudaStream_t stream);
+                         const int* kv_lens, const int* q_lens, void* o, int kv_len, int B,
+                         int S, int Hq, int Hkv, int T, int HD, float scale,
+                         const long long* st, cudaStream_t stream);
 
 // csrc/flash_decode.cu, the partial form (the training forward). q as
 // above (st[0..2]), k/v [B, Hkv, T, d] (st[3..5]), bf16 or f32 alike;
@@ -58,15 +59,17 @@ cudaError_t gemm(int dtype, const void* a, long long sam, long long sak, const v
                  long long sbk, long long sbn, void* c, int M, int N, int K,
                  cudaStream_t stream);
 
-// csrc/flash_decode_paged.cu. q [B, 1, Hq, HD]; pools [NP, 1, page, HD];
-// strides in elements: st = {q_sb, q_sh, page stride and row stride of
-// the pools, page stride of the scale pools}; ks/vs are null for a
-// bf16/f32 pool; table [B*Hkv, maxp] and kv_lens [B] int32 on the device.
+// csrc/flash_decode_paged.cu. q [B, S, Hq, HD]; pools [NP, 1, page, HD];
+// strides in elements: st = {q_sb, q_ss, q_sh, page stride and row stride
+// of the pools, page stride of the scale pools}; ks/vs are null for a
+// bf16/f32 pool; table [B*Hkv, maxp] and kv_lens [B] int32 on the device;
+// q_lens [B] int32 on the device, or null (then S must be 1).
 cudaError_t flash_decode_paged(int q_dtype, int kv_dtype, const void* q, const void* k,
                                const void* v, const void* ks, const void* vs,
-                               const int* table, const int* kv_lens, void* o, int B,
-                               int Hq, int Hkv, int maxp, int page, int HD, float scale,
-                               const long long* st, cudaStream_t stream);
+                               const int* table, const int* kv_lens, const int* q_lens,
+                               void* o, int B, int S, int Hq, int Hkv, int maxp, int page,
+                               int HD, float scale, const long long* st,
+                               cudaStream_t stream);
 
 // csrc/kv_update.cu. cache: [B, H, T, row_bytes] contiguous bytes; src
 // strides in bytes.

@@ -6,7 +6,10 @@ Counterpart of triton_dist_tpu/kernels/flash_attn.py (`flash_decode`,
     int8 caches carry per-position f32 scales [B, Hkv, T].
 `kv_len` counts the valid cache positions INCLUDING the S query
 positions: query s sits at kv_len - S + s and attends causally; the
-continuous-batching tick passes per-row lengths `kv_lens` [B] instead.
+continuous-batching tick passes per-row lengths `kv_lens` [B] instead,
+and the speculative-verify and chunked-prefill windows add per-row
+query windows `q_lens` [B] (row b's first q_lens[b] positions end at
+kv_lens[b] - 1, causal within the window; the rest is padding).
 
 `flash_decode_partial` (with `lse_combine`) is the split-KV partial
 form: unnormalised f32 accumulators and the (m, l) softmax statistics,
@@ -33,12 +36,16 @@ _HEAD_DIMS = (64, 128)   # head dims csrc/flash_decode.cu is instantiated for
 
 
 def flash_decode_ref(q, k, v, kv_len=None, *, scale: Optional[float] = None,
-                     k_scale=None, v_scale=None, kv_lens=None):
+                     k_scale=None, v_scale=None, kv_lens=None, q_lens=None):
     """Plain version of flash_decode: masked f32 softmax over the whole
     static T (the math of the JAX `attention_cached_ref`); an int8 cache
     is dequantized with its per-position scales first. kv_lens [B]
-    gives each batch row its own length in place of kv_len. Returns q's
-    dtype."""
+    gives each batch row its own length in place of kv_len; q_lens [B]
+    (with kv_lens) makes row b's first q_lens[b] positions a window
+    ending at kv_lens[b] - 1, causal within it, the padding positions
+    repeating the last valid one. A position that sees no key (q_lens[b]
+    == kv_lens[b] == 0) gives zeros where the JAX oracle gives NaN, as
+    the kernel does. Returns q's dtype."""
     B, S, Hq, d = q.shape
     _, Hkv, T, _ = k.shape
     rep = Hq // Hkv
@@ -54,11 +61,17 @@ def flash_decode_ref(q, k, v, kv_len=None, *, scale: Optional[float] = None,
     ti = torch.arange(T, device=q.device)[None, :]
     if kv_lens is None:
         mask = (ti <= si + (kv_len - S))[None]                 # [1, S, T]
-    else:
+    elif q_lens is None:
         lens = kv_lens.to(q.device, torch.long)[:, None, None]
         mask = ti[None] <= si[None] + (lens - S)                # [B, S, T]
+    else:
+        lens = kv_lens.to(q.device, torch.long)[:, None, None]
+        ql = q_lens.to(q.device, torch.long)[:, None, None]
+        mask = ti[None] <= lens - ql + torch.minimum(si[None], ql - 1)
     logits = logits.masked_fill(~mask[:, None, :, None, :], float("-inf"))
     p = torch.softmax(logits, dim=-1)
+    if q_lens is not None:
+        p = p.nan_to_num(0.0)             # a position with no key
     out = torch.einsum("bgsrt,bgtd->bsgrd", p, vf)
     return out.reshape(B, S, Hq, d).to(q.dtype)
 
@@ -78,22 +91,30 @@ def flash_decode(q, k, v, kv_len: Optional[int] = None, *,
     kv_len: valid positions including the S new ones. kv_lens: per-row
     lengths [B] int32 on q's device in place of kv_len (S == 1, the
     continuous-batching tick): row b attends exactly kv_lens[b]
-    positions; the values stay on the device (the kernel reads them), so
-    they are not range-checked here. Returns [B, S, Hq, d] in q's
-    dtype."""
-    if q_lens is not None:
-        raise NotImplementedError("flash_decode q_lens (verify and chunked-"
-                                  "prefill windows): not yet ported")
+    positions. q_lens: per-row query windows [B] int32 on q's device
+    (with kv_lens, any S: the verify and chunked-prefill windows): row
+    b's first q_lens[b] positions sit at kv_lens[b] - q_lens[b] ..
+    kv_lens[b] - 1 and attend causally within the window; the outputs
+    of its padding positions repeat the last valid one, and a row with
+    q_lens[b] == 0 attends kv_lens[b] - 1 positions (its output is
+    discarded by the caller, and finite). The per-row values stay on
+    the device (the kernel reads them), so they are not range-checked
+    here. Returns [B, S, Hq, d] in q's dtype."""
     B, S, Hq, d = q.shape
     _, Hkv, T, _ = k.shape
     if kv_lens is None:
+        if q_lens is not None:
+            raise ValueError("flash_decode: q_lens rides on per-row kv_lens")
         _check_kv_len(kv_len, S, T)
-    elif S != 1 or kv_lens.shape != (B,) or kv_lens.dtype != torch.int32:
-        raise ValueError(f"flash_decode: kv_lens must be int32 [B={B}] with S == 1 "
-                         f"(got {tuple(kv_lens.shape)} {kv_lens.dtype}, S={S})")
+    elif (kv_lens.shape != (B,) or kv_lens.dtype != torch.int32
+          or (S != 1 and q_lens is None)):
+        raise ValueError(f"flash_decode: kv_lens must be int32 [B={B}], with S == 1 "
+                         f"unless q_lens is given (got {tuple(kv_lens.shape)} "
+                         f"{kv_lens.dtype}, S={S})")
+    _check_windows(q_lens, kv_lens, B, "flash_decode")
     if q.device.type == "cpu":
         return flash_decode_ref(q, k, v, kv_len, scale=scale, k_scale=k_scale,
-                                v_scale=v_scale, kv_lens=kv_lens)
+                                v_scale=v_scale, kv_lens=kv_lens, q_lens=q_lens)
     if scale is None:
         scale = d ** -0.5
     quant = k_scale is not None
@@ -108,12 +129,24 @@ def flash_decode(q, k, v, kv_len: Optional[int] = None, *,
     _build.ext().flash_decode(
         _build.DTYPE_CODES[q.dtype], _build.DTYPE_CODES[k.dtype],
         q.data_ptr(), k.data_ptr(), v.data_ptr(), ks_ptr, vs_ptr,
-        0 if kv_lens is None else kv_lens.data_ptr(), out.data_ptr(),
+        0 if kv_lens is None else kv_lens.data_ptr(),
+        0 if q_lens is None else q_lens.data_ptr(), out.data_ptr(),
         0 if kv_len is None else kv_len, B, S, Hq, Hkv, T, d,
         float(scale), q.stride(0), q.stride(1), q.stride(2), k.stride(0),
         k.stride(1), k.stride(2), *sc_strides, _build.stream_ptr(q.device))
     _build.count("flash_decode")
     return out
+
+
+def _check_windows(q_lens, kv_lens, B: int, who: str) -> None:
+    """q_lens: None, or int32 [B], contiguous on kv_lens' device."""
+    if q_lens is None:
+        return
+    if (q_lens.shape != (B,) or q_lens.dtype != torch.int32
+            or q_lens.device != kv_lens.device or not q_lens.is_contiguous()):
+        raise ValueError(f"{who}: q_lens must be contiguous int32 [B={B}] on kv_lens' "
+                         f"device (got {tuple(q_lens.shape)} {q_lens.dtype} on "
+                         f"{q_lens.device})")
 
 
 def _validate_flash(q, k, v, k_scale, v_scale, quant: bool) -> None:

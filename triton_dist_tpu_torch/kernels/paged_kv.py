@@ -1,8 +1,9 @@
 """Decode attention through a page table, and the host page allocator.
 
 Counterpart of triton_dist_tpu/kernels/paged_kv.py (`flash_decode_paged`
-in its per-slot `kv_lens` decode form, `PageAllocator`), same layouts:
-    q [B, 1, Hq, d]; page pools k, v [NP, page, d] (one page = `page`
+in its per-slot `kv_lens` decode form and its `q_lens` window form,
+`PageAllocator`), same layouts:
+    q [B, S, Hq, d]; page pools k, v [NP, page, d] (one page = `page`
     consecutive positions of ONE (slot, kv-head) stream); page table
     [B*Hkv, max_pages] int32 (row b*Hkv + h is stream (b, h)); int8
     pools carry per-position f32 scale pages [NP, page].
@@ -22,18 +23,19 @@ from typing import List, Optional
 import torch
 
 from triton_dist_tpu_torch.kernels import _build
-from triton_dist_tpu_torch.kernels.flash_attn import _HEAD_DIMS, flash_decode_ref
+from triton_dist_tpu_torch.kernels.flash_attn import (_HEAD_DIMS, _check_windows,
+                                                      flash_decode_ref)
 
 
 def flash_decode_paged_ref(q, pages_k, pages_v, page_table, *, kv_lens,
-                           scale: Optional[float] = None, k_scale=None,
+                           scale: Optional[float] = None, q_lens=None, k_scale=None,
                            v_scale=None):
     """Plain version of flash_decode_paged: gather every stream's pages
     through the table into a contiguous [B, Hkv, max_pages*page, d]
     cache (scales too) and run the plain contiguous attention
-    (flash_decode_ref) with per-row lengths — the JAX layer's "xla"
-    oracle. Rows of the table past a stream's length are gathered but
-    masked, so they must only hold in-range page ids."""
+    (flash_decode_ref) with per-row lengths and windows — the JAX
+    layer's "xla" oracle. Rows of the table past a stream's length are
+    gathered but masked, so they must only hold in-range page ids."""
     B, S, Hq, d = q.shape
     X, maxp = page_table.shape
     Hkv = X // B
@@ -47,7 +49,7 @@ def flash_decode_paged_ref(q, pages_k, pages_v, page_table, *, kv_lens,
     if k_scale is not None:
         ks, vs = gather(k_scale), gather(v_scale)
     return flash_decode_ref(q, gather(pages_k), gather(pages_v), scale=scale,
-                            k_scale=ks, v_scale=vs, kv_lens=kv_lens)
+                            k_scale=ks, v_scale=vs, kv_lens=kv_lens, q_lens=q_lens)
 
 
 def flash_decode_paged(q, pages_k, pages_v, page_table, *, kv_lens,
@@ -55,31 +57,33 @@ def flash_decode_paged(q, pages_k, pages_v, page_table, *, kv_lens,
                        k_scale=None, v_scale=None, tile_owned=None):
     """Cached GQA decode attention through a page table.
 
-    q: [B, 1, Hq, d] (last dim contiguous); pages_k/v: [NP, page, d] of
+    q: [B, S, Hq, d] (last dim contiguous); pages_k/v: [NP, page, d] of
     q's dtype, or int8 with k_scale/v_scale [NP, page] f32 (then q is
     bf16); page_table: [B*Hkv, max_pages] int32; kv_lens: per-row
     lengths [B] int32 on q's device: row b attends positions
     [0, kv_lens[b]) of its own streams,
     whose table entries must be valid page ids for those positions
-    (entries past them are never read). Returns [B, 1, Hq, d] in q's
-    dtype."""
-    if q_lens is not None:
-        raise NotImplementedError("flash_decode_paged q_lens (verify and "
-                                  "chunked-prefill windows): not yet ported")
+    (entries past them are never read). S == 1 without q_lens; q_lens
+    [B] int32 on q's device (any S, the verify and chunked-prefill
+    windows) makes row b's first q_lens[b] positions a window ending at
+    kv_lens[b] - 1, causal within it (flash_decode's contract). Returns
+    [B, S, Hq, d] in q's dtype."""
     if tile_owned is not None:
         raise NotImplementedError("flash_decode_paged_partial (the sequence-"
                                   "parallel split-KV form): not yet ported")
     B, S, Hq, d = q.shape
     X, maxp = page_table.shape
-    if S != 1 or X % B:
+    if (S != 1 and q_lens is None) or X % B:
         raise ValueError(f"flash_decode_paged: q {tuple(q.shape)} and table "
-                         f"{tuple(page_table.shape)}: want S == 1 and B*Hkv rows")
+                         f"{tuple(page_table.shape)}: want S == 1 (or q_lens) and "
+                         "B*Hkv rows")
     if kv_lens.shape != (B,) or kv_lens.dtype != torch.int32:
         raise ValueError(f"flash_decode_paged: kv_lens must be int32 [B={B}], got "
                          f"{tuple(kv_lens.shape)} {kv_lens.dtype}")
+    _check_windows(q_lens, kv_lens, B, "flash_decode_paged")
     if q.device.type == "cpu":
         return flash_decode_paged_ref(q, pages_k, pages_v, page_table, scale=scale,
-                                      kv_lens=kv_lens, k_scale=k_scale,
+                                      kv_lens=kv_lens, q_lens=q_lens, k_scale=k_scale,
                                       v_scale=v_scale)
     Hkv = X // B
     page = pages_k.shape[1]
@@ -87,13 +91,14 @@ def flash_decode_paged(q, pages_k, pages_v, page_table, *, kv_lens,
         scale = d ** -0.5
     quant = k_scale is not None
     _validate_paged(q, pages_k, pages_v, page_table, kv_lens, k_scale, v_scale, quant)
-    out = torch.empty((B, 1, Hq, d), dtype=q.dtype, device=q.device)
+    out = torch.empty((B, S, Hq, d), dtype=q.dtype, device=q.device)
     _build.ext().flash_decode_paged(
         _build.DTYPE_CODES[q.dtype], _build.DTYPE_CODES[pages_k.dtype],
         q.data_ptr(), pages_k.data_ptr(), pages_v.data_ptr(),
         k_scale.data_ptr() if quant else 0, v_scale.data_ptr() if quant else 0,
-        page_table.data_ptr(), kv_lens.data_ptr(), out.data_ptr(), B, Hq, Hkv, maxp,
-        page, d, float(scale), q.stride(0), q.stride(2), pages_k.stride(0),
+        page_table.data_ptr(), kv_lens.data_ptr(),
+        0 if q_lens is None else q_lens.data_ptr(), out.data_ptr(), B, S, Hq, Hkv, maxp,
+        page, d, float(scale), q.stride(0), q.stride(1), q.stride(2), pages_k.stride(0),
         pages_k.stride(1), k_scale.stride(0) if quant else 0,
         _build.stream_ptr(q.device))
     _build.count("flash_decode_paged")

@@ -43,8 +43,11 @@ def apply_rope_slots(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor,
                      pos: torch.Tensor):
     """Per-slot RoPE: x [B, S, H, D]; pos [B] — row b rotates at
     positions pos[b] .. pos[b]+S-1 (the continuous-batching tick, where
-    every row is a different request). Returns x's dtype."""
+    every row is a different request). A position past the tables (a
+    verify window's padding near the end of a slot) takes the last row,
+    as the JAX gather clamps. Returns x's dtype."""
     p = pos[:, None] + torch.arange(x.shape[1], device=pos.device)   # [B, S]
+    p = p.clamp(max=cos.shape[0] - 1)
     c = cos[p][:, :, None, :]
     s = sin[p][:, :, None, :]
     x1, x2 = x.float().chunk(2, dim=-1)

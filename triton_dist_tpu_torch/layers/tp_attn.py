@@ -1,16 +1,23 @@
 """Attention block (GQA, Qwen3 QK-norm) with the KV cache.
 
 Counterpart of triton_dist_tpu/layers/tp_attn.py (`TP_Attn.init`,
-`_qkv_proj`, `_attend_cached`, `_o_proj`, `fwd_cached`, and the
+`_qkv_proj`, `_attend_cached`, `_o_proj`, `fwd_cached`, the
 continuous-batching forms `_attend_cached_slots`/`fwd_cached_slots`
-and `_attend_paged_slots`/`fwd_cached_slots_paged`, and the training
+and `_attend_paged_slots`/`fwd_cached_slots_paged`, their window forms
+`_attend_cached_slots_verify`/`fwd_cached_slots_verify` and
+`_attend_paged_slots_verify`/`fwd_cached_slots_paged_verify`
+(speculative verify and chunked prefill), and the training
 forms `_local_attn_train`/`fwd_train`) at tensor-parallel size 1, for the
 modes "flash" (the CUDA kernels) and "xla" (the plain PyTorch versions,
 the JAX package's oracle mode). The packed weight
 layout is kept: w_qkv is [D, (Hq + 2*Hkv) * hd] = [q | k | v]. The KV
 cache tensors and page pools are updated in place; the per-row writes
 of the slot forms are plain torch indexing, as the JAX `.at[].set`
-was plain jnp.
+was plain jnp. The JAX window forms scatter their padding rows out of
+bounds, where XLA drops them; torch has no dropping scatter, so a
+padding row writes back the value already held at a position no valid
+row of its slot writes in that call (`_window_positions`), never at a
+clamped index, which could race a valid write to the last position.
 """
 
 from __future__ import annotations
@@ -132,22 +139,29 @@ class TP_Attn:
                                     kv_start, impl)
         return self._o_proj(o), kv
 
-    def _slot_qkv(self, qkv, cos, sin, pos):
-        """One token per slot: split the packed rows, QK-norm, and RoPE
-        row b at its own position pos[b]. qkv: [B, qkv_cols]. Returns q
-        [B, 1, Hq, hd], k and v [B, Hkv, hd]."""
+    def _window_qkv(self, qkv, cos, sin, batch: int, pos):
+        """A window of S tokens per slot: split the packed rows, QK-norm,
+        and RoPE slot b's rows at positions pos[b] .. pos[b] + S - 1.
+        qkv: [B*S, qkv_cols]. Returns q [B, S, Hq, hd], k and v
+        [B, S, Hkv, hd]."""
         hq, hkv, hd = self.n_heads, self.n_kv_heads, self.head_dim
-        B = qkv.shape[0]
-        q = qkv[:, :hq * hd].reshape(B, 1, hq, hd)
-        k = qkv[:, hq * hd:(hq + hkv) * hd].reshape(B, 1, hkv, hd)
-        v = qkv[:, (hq + hkv) * hd:].reshape(B, hkv, hd)
+        S = qkv.shape[0] // batch
+        q = qkv[:, :hq * hd].reshape(batch, S, hq, hd)
+        k = qkv[:, hq * hd:(hq + hkv) * hd].reshape(batch, S, hkv, hd)
+        v = qkv[:, (hq + hkv) * hd:].reshape(batch, S, hkv, hd)
         if self.q_norm is not None:
             q = rms_norm(q, self.q_norm)
         if self.k_norm is not None:
             k = rms_norm(k, self.k_norm)
         q = apply_rope_slots(q, cos, sin, pos)
         k = apply_rope_slots(k, cos, sin, pos)
-        return q, k[:, 0], v
+        return q, k, v
+
+    def _slot_qkv(self, qkv, cos, sin, pos):
+        """One token per slot (_window_qkv at S = 1). qkv: [B, qkv_cols].
+        Returns q [B, 1, Hq, hd], k and v [B, Hkv, hd]."""
+        q, k, v = self._window_qkv(qkv, cos, sin, qkv.shape[0], pos)
+        return q, k[:, 0], v[:, 0]
 
     def _attend_cached_slots(self, qkv, cos, sin, batch: int, kv, pos,
                              impl: str = "flash"):
@@ -229,6 +243,52 @@ class TP_Attn:
                                        v_scale=sv)
         return o.reshape(batch, hq * hd).to(qkv.dtype), kv
 
+    def _attend_cached_slots_verify(self, qkv, cos, sin, batch: int, kv, pos, q_lens,
+                                    impl: str = "flash"):
+        """Window form of _attend_cached_slots (speculative verify and
+        chunked prefill): slot b's q_lens[b] valid window rows sit at
+        positions pos[b] .. pos[b] + q_lens[b] - 1 (RoPE-rotated there),
+        write their K/V at those columns of the slot's cache row (in place;
+        padding rows and rows past the capacity write nothing) and attend
+        causally within the window (flash_decode q_lens). qkv: [B*S,
+        qkv_cols]; pos, q_lens: [B] int32 on the cache's device. Returns
+        (o [B*S, Hq*hd], kv)."""
+        hq, hd = self.n_heads, self.head_dim
+        q, k, v = self._window_qkv(qkv, cos, sin, batch, pos)
+        S = q.shape[1]
+        cols, valid = _window_positions(pos, q_lens, S, kv[0].shape[2])
+        _write_window(kv, (torch.arange(batch, device=qkv.device)[:, None], slice(None),
+                           cols), k, v, valid)
+        attend = flash_decode if impl == "flash" else flash_decode_ref
+        o = attend(_window_q(q, kv, impl), kv[0], kv[1], scale=hd ** -0.5,
+                   kv_lens=pos + q_lens, q_lens=q_lens, **_scales(kv))
+        return o.reshape(batch * S, hq * hd).to(qkv.dtype), kv
+
+    def _attend_paged_slots_verify(self, qkv, cos, sin, batch: int, kv, table, pos,
+                                   q_lens, impl: str = "flash"):
+        """Paged form of _attend_cached_slots_verify: slot b's valid window
+        rows land in the pages its table rows map for their positions
+        (row p % page; int8 scales at the same (page, row)); padding rows
+        and rows past the table write nothing, so they never touch a live
+        or cached page. Attention walks the pool with per-slot kv_lens and
+        q_lens (flash_decode_paged). kv: one layer's pools (plane 0 is
+        used); table [B*Hkv, max_pages] int32. Returns (o [B*S, Hq*hd],
+        kv)."""
+        hq, hkv, hd = self.n_heads, self.n_kv_heads, self.head_dim
+        q, k, v = self._window_qkv(qkv, cos, sin, batch, pos)
+        S = q.shape[1]
+        planes = tuple(t[:, 0] for t in kv)                  # plane 0 views
+        page = planes[0].shape[1]
+        wpos, valid = _window_positions(pos, q_lens, S, table.shape[1] * page)
+        streams = (torch.arange(batch, device=qkv.device) * hkv)[:, None, None] \
+            + torch.arange(hkv, device=qkv.device)[None, None, :]        # [B, 1, Hkv]
+        pidx = table[streams, (wpos // page)[:, :, None]].long()         # [B, S, Hkv]
+        _write_window(planes, (pidx, (wpos % page)[:, :, None]), k, v, valid)
+        attend = flash_decode_paged if impl == "flash" else flash_decode_paged_ref
+        o = attend(_window_q(q, planes, impl), planes[0], planes[1], table,
+                   scale=hd ** -0.5, kv_lens=pos + q_lens, q_lens=q_lens, **_scales(planes))
+        return o.reshape(batch * S, hq * hd).to(qkv.dtype), kv
+
     def fwd_cached_slots(self, x, cos, sin, batch: int, kv, pos,
                          mode: str = "flash"):
         """Slot-masked decode attention block (continuous batching): one
@@ -250,6 +310,27 @@ class TP_Attn:
         impl = "ref" if mode == "xla" else "flash"
         o, kv = self._attend_paged_slots(self._qkv_proj(x), cos, sin, batch, kv,
                                          table, pos, impl)
+        return self._o_proj(o), kv
+
+    def fwd_cached_slots_verify(self, x, cos, sin, batch: int, kv, pos, q_lens,
+                                mode: str = "flash"):
+        """Window attention block (speculative verify, chunked prefill): B
+        slots x S window positions in one forward. x: [B*S, D]; pos,
+        q_lens: [B] int32. Returns (y [B*S, D], kv)."""
+        check_mode(mode)
+        impl = "ref" if mode == "xla" else "flash"
+        o, kv = self._attend_cached_slots_verify(self._qkv_proj(x), cos, sin, batch, kv,
+                                                 pos, q_lens, impl)
+        return self._o_proj(o), kv
+
+    def fwd_cached_slots_paged_verify(self, x, cos, sin, batch: int, kv, table, pos,
+                                      q_lens, mode: str = "flash"):
+        """fwd_cached_slots_verify over the paged pool. Returns (y [B*S, D],
+        kv)."""
+        check_mode(mode)
+        impl = "ref" if mode == "xla" else "flash"
+        o, kv = self._attend_paged_slots_verify(self._qkv_proj(x), cos, sin, batch, kv,
+                                                table, pos, q_lens, impl)
         return self._o_proj(o), kv
 
     def _local_attn_train(self, qkv, cos, sin, batch: int, impl: str = "flash"):
@@ -285,3 +366,53 @@ class TP_Attn:
             return gemm_rs_grad()(self._local_attn_train(qkv, cos, sin, batch, "flash"),
                                   self.w_o)
         return self._local_attn_train(x @ self.w_qkv, cos, sin, batch, "ref") @ self.w_o
+
+
+def _window_positions(pos, q_lens, S: int, cap: int):
+    """Where a window's K/V rows write in a slot's `cap` positions:
+    (positions [B, S] long, valid [B, S] bool). Row (b, s) is valid when
+    s < q_lens[b] and p = pos[b] + s < cap, and writes at p. Any other row
+    is given a position that no valid row of its slot writes in this call
+    (one past the window, or the one before it when the window reaches
+    cap; with S <= cap one of the two exists whenever a row is invalid),
+    where _put_valid writes back what is already there."""
+    if S > cap:
+        raise ValueError(f"a window of {S} positions exceeds the slot's {cap}")
+    p0, ql = pos.long()[:, None], q_lens.long()[:, None]
+    p = p0 + torch.arange(S, device=pos.device)[None]
+    valid = (p - p0 < ql) & (p < cap)
+    hi = torch.clamp(p0 + ql, max=cap)
+    spare = torch.where(hi < cap, hi, p0 - 1).clamp(min=0)
+    return torch.where(valid, p, spare), valid
+
+
+def _write_window(bufs, idx, k, v, valid) -> None:
+    """Write a window's K/V rows [B, S, Hkv, hd] into (k, v) or, quantized
+    per position, into (k, v, k scales, v scales) at idx where valid."""
+    if len(bufs) == 4:
+        (k8, ks), (v8, vs) = quantize_kv_int8(k), quantize_kv_int8(v)
+        news = (k8, v8, ks, vs)
+    else:
+        news = (k, v)
+    for buf, new in zip(bufs, news):
+        _put_valid(buf, idx, new, valid)
+
+
+def _window_q(q, bufs, impl: str):
+    """The query in the attention's dtype: bf16 for the int8 kernel, f32
+    for its plain version, else the cache's dtype."""
+    if len(bufs) == 4:
+        return q.to(torch.bfloat16) if impl == "flash" else q.float()
+    return q.to(bufs[0].dtype)
+
+
+def _scales(bufs) -> dict:
+    return dict(k_scale=bufs[2], v_scale=bufs[3]) if len(bufs) == 4 else {}
+
+
+def _put_valid(buf, idx, new, valid) -> None:
+    """buf[idx] = new where valid[b, s], in place; elsewhere buf[idx] keeps
+    its value (gathered before the write). new: [B, S, ...] matching
+    buf[idx]."""
+    keep = valid.reshape(valid.shape + (1,) * (new.dim() - 2))
+    buf[idx] = torch.where(keep, new.to(buf.dtype), buf[idx])

@@ -1,7 +1,8 @@
 """Dense Qwen3-family LLM: counterpart of triton_dist_tpu/models/dense.py
 (`random_init`, `from_hf`, `quantize_int8`, `forward_tokens`,
-`forward_tokens_slots`, `forward_tokens_slots_paged`, `forward_train`,
-`make_cache`) at tensor-parallel size 1.
+`forward_tokens_slots`, `forward_tokens_slots_paged`, their window forms
+`forward_tokens_slots_verify` and `forward_tokens_slots_paged_verify`,
+`forward_train`, `make_cache`) at tensor-parallel size 1.
 
 The model is a dataclass of tensors on one device (the JAX pytree's
 leaves); `forward_tokens` fills the cache in place. `forward_train` runs
@@ -257,16 +258,42 @@ class DenseLLM:
         return self._slots_forward(ids, self._paged_attend(pcache, pos, mode),
                                    mode)[0], pcache
 
-    def _slot_attend(self, cache: KVCache, pos, mode: str):
-        """The slot attention block of forward_tokens_slots, as
-        attend(attn, h, layer index)."""
-        return lambda attn, h, li: attn.fwd_cached_slots(
-            h, self.cos, self.sin, h.shape[0], cache.layer(li), pos, mode)
+    def forward_tokens_slots_verify(self, ids: torch.Tensor, cache: KVCache, pos, q_lens,
+                                    mode: str = "flash"):
+        """Window forward (speculative verify, chunked prefill): row b's
+        first q_lens[b] tokens of ids [B, S] sit at positions pos[b] ..
+        pos[b] + q_lens[b] - 1 (pos, q_lens: [B] int32 on the device); their
+        K/V is written at those columns of the slot's cache row and they
+        attend causally within the window. Padding tokens are computed and
+        discarded. Returns (per-position logits [B, S, V] f32, cache)."""
+        return self._slots_forward(ids, self._slot_attend(cache, pos, mode, q_lens), mode,
+                                   window=True)[0], cache
 
-    def _paged_attend(self, pcache, pos, mode: str):
-        """The paged slot attention block of forward_tokens_slots_paged."""
-        return lambda attn, h, li: attn.fwd_cached_slots_paged(
-            h, self.cos, self.sin, h.shape[0], pcache.layer(li), pcache.table, pos, mode)
+    def forward_tokens_slots_paged_verify(self, ids: torch.Tensor, pcache, pos, q_lens,
+                                          mode: str = "flash"):
+        """forward_tokens_slots_verify over the paged pool: the window's
+        K/V goes through the page table. Returns (per-position logits
+        [B, S, V] f32, pcache)."""
+        return self._slots_forward(ids, self._paged_attend(pcache, pos, mode, q_lens), mode,
+                                   window=True)[0], pcache
+
+    def _slot_attend(self, cache: KVCache, pos, mode: str, q_lens=None):
+        """The slot attention block of forward_tokens_slots (with q_lens:
+        of its window form), as attend(attn, h, layer index, batch)."""
+        if q_lens is None:
+            return lambda attn, h, li, b: attn.fwd_cached_slots(
+                h, self.cos, self.sin, b, cache.layer(li), pos, mode)
+        return lambda attn, h, li, b: attn.fwd_cached_slots_verify(
+            h, self.cos, self.sin, b, cache.layer(li), pos, q_lens, mode)
+
+    def _paged_attend(self, pcache, pos, mode: str, q_lens=None):
+        """The paged slot attention block of forward_tokens_slots_paged
+        (with q_lens: of its window form)."""
+        if q_lens is None:
+            return lambda attn, h, li, b: attn.fwd_cached_slots_paged(
+                h, self.cos, self.sin, b, pcache.layer(li), pcache.table, pos, mode)
+        return lambda attn, h, li, b: attn.fwd_cached_slots_paged_verify(
+            h, self.cos, self.sin, b, pcache.layer(li), pcache.table, pos, q_lens, mode)
 
     def _ffn(self, layer, h, mode: str, load):
         """The layer's FFN on the normed rows h: (output, load). `load` is
@@ -274,23 +301,24 @@ class DenseLLM:
         passed through here."""
         return layer.mlp(h, mode), load
 
-    def _slots_forward(self, ids, attend, mode: str, load=None):
+    def _slots_forward(self, ids, attend, mode: str, load=None, window: bool = False):
         """The layer loop of the slot forwards; attend(attn, h, layer
-        index) runs the layer's slot attention block on the cache.
-        Returns (logits [B, V] f32, load)."""
+        index, batch) runs the layer's slot attention block on the cache.
+        Returns (logits [B, V] f32, or [B, S, V] for a window, load)."""
         B, S = ids.shape
-        if S != 1:
+        if S != 1 and not window:
             raise ValueError(f"slot decode feeds one token per slot, got S={S}")
         cfg = self.config
-        x = self.embed[ids].reshape(B, cfg.hidden_size)
+        x = self.embed[ids].reshape(B * S, cfg.hidden_size)
         for li, layer in enumerate(self.layers):
-            a, _ = attend(layer.attn, rms_norm(x, layer.ln_attn, cfg.rms_norm_eps), li)
+            a, _ = attend(layer.attn, rms_norm(x, layer.ln_attn, cfg.rms_norm_eps), li, B)
             x = x + a
             y, load = self._ffn(layer, rms_norm(x, layer.ln_mlp, cfg.rms_norm_eps), mode,
                                 load)
             x = x + y
         x = rms_norm(x, self.final_norm, cfg.rms_norm_eps)
-        return qmm(x, self.lm_head, out_dtype=torch.float32), load
+        logits = qmm(x, self.lm_head, out_dtype=torch.float32)
+        return (logits.reshape(B, S, -1) if window else logits), load
 
     def make_cache(self, batch: int, max_seq: int, dtype=None) -> KVCache:
         cfg = self.config

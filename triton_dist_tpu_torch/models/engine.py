@@ -1,9 +1,12 @@
 """Inference engine: counterpart of triton_dist_tpu/models/engine.py
 (`Engine.__init__` gates, `prefill`, `decode`, `serve`, the contiguous
 slot entry points `make_slot_cache`, `prefill_into_slot`, `slot_chunk`,
-and the paged ones `make_paged_slot_cache`, `admit_slot_paged`,
-`paged_slot_chunk`, `retire_slot_paged`) for greedy decode on one
-device.
+the paged ones `make_paged_slot_cache`, `admit_slot_paged`,
+`paged_slot_chunk`, `retire_slot_paged`, and the window programs of
+speculative decoding and chunked prefill: `slot_verify_chunk`,
+`paged_slot_verify_chunk`, `slot_mixed_chunk`, `paged_slot_mixed_chunk`,
+`slot_mixed_verify_chunk`, `paged_slot_mixed_verify_chunk` and
+`install_slot_paged`) for greedy decode on one device.
 
 Backends: "flash" runs the CUDA kernels (flash-decode, the paged
 flash-decode, kv_update, SwiGLU, and for a Qwen3MoE model the grouped
@@ -18,6 +21,15 @@ Python loop over steps here, and every buffer the JAX programs donated
 programs return device tensors and never synchronise; host arrays
 (page-table rows, admission indices) go to the card as asynchronous
 copies from pinned memory.
+
+The window programs run one forward over a [B, S] window per tick
+(models/dense.py forward_tokens_slots_verify and its paged form, through
+the q_lens forms of flash_decode and flash_decode_paged); their greedy
+acceptance (models/spec_decode.py accept_greedy) runs on the device, and
+the host's window arrays (tokens, q_lens, the prefilling mask) go to the
+card as asynchronous copies. On "mega" the verify programs and the
+contiguous mixed ticks refuse with a ValueError, as in the JAX engine;
+the paged mixed ticks run the per-op "flash" program.
 
 On "mega" the per-layer weight dicts (norms in f32, absent QK-norms as
 ones, the bf16 panels as they are) are built once per Engine, where the
@@ -46,6 +58,7 @@ from triton_dist_tpu_torch.kernels.quant import QuantW, qmm
 from triton_dist_tpu_torch.layers.common import rms_norm
 from triton_dist_tpu_torch.mega import MegaDecodeLayer, MegaPagedDecodeLayer
 from triton_dist_tpu_torch.models.kv_cache import KVCache, PagedSlotCache
+from triton_dist_tpu_torch.models.spec_decode import accept_greedy
 from triton_dist_tpu_torch.models.utils import sample_greedy
 from triton_dist_tpu_torch.runtime.device import resolve_device
 
@@ -246,15 +259,8 @@ class Engine:
         rows = np.asarray(rows, np.int32)
         Hkv = rows.shape[0]
         page = pcache.page
-        pools = list(zip(pcache.pages_k + pcache.scales_k,
-                         pcache.pages_v + pcache.scales_v))
-        rows_d = self._h2d(rows, torch.int32)
-        pcache.table[slot * Hkv:(slot + 1) * Hkv] = rows_d
-        if cow_rows:
-            src, dst = self._h2d(cow_src), self._h2d(cow_dst)
-            for pk, pv in pools:
-                pk[dst, :, :cow_rows] = pk[src, :, :cow_rows]
-                pv[dst, :, :cow_rows] = pv[src, :, :cow_rows]
+        pools = _pools(pcache)
+        rows_d = self._install(pcache, slot, rows, cow_src, cow_dst, cow_rows)
         scratch = self._paged_scratch
         if scratch is None or scratch.k[0].shape[2] != pcache.capacity:
             scratch = self._paged_scratch = self.model.make_cache(
@@ -277,6 +283,31 @@ class Engine:
             pv[:, 0][dest, ri] = sv[0, :, m:n]
         return logits[0], pcache
 
+    def install_slot_paged(self, pcache: PagedSlotCache, slot: int, rows, cow_src,
+                           cow_dst, cow_rows: int) -> PagedSlotCache:
+        """Chunk 0 of a chunked paged admission: install the slot's table
+        block and copy-on-write the partly matched boundary page (payload
+        and scales), the half of admit_slot_paged that runs before any
+        forward; the suffix prefill is left to the mixed ticks, which write
+        their KV through the table just installed. Same rows and cow
+        contract as admit_slot_paged."""
+        self._install(pcache, slot, np.asarray(rows, np.int32), cow_src, cow_dst, cow_rows)
+        return pcache
+
+    def _install(self, pcache: PagedSlotCache, slot: int, rows, cow_src, cow_dst,
+                 cow_rows: int) -> torch.Tensor:
+        """Write the slot's table block and run the boundary-page
+        copy-on-write; returns the block on the device."""
+        Hkv = rows.shape[0]
+        rows_d = self._h2d(rows, torch.int32)
+        pcache.table[slot * Hkv:(slot + 1) * Hkv] = rows_d
+        if cow_rows:
+            src, dst = self._h2d(cow_src), self._h2d(cow_dst)
+            for pk, pv in _pools(pcache):
+                pk[dst, :, :cow_rows] = pk[src, :, :cow_rows]
+                pv[dst, :, :cow_rows] = pv[src, :, :cow_rows]
+        return rows_d
+
     def paged_slot_chunk(self, logits, pcache: PagedSlotCache, pos, active, *,
                          chunk: int):
         """slot_chunk over the paged pool: the same contract, with each
@@ -291,6 +322,124 @@ class Engine:
             self.model.forward_tokens_slots_paged, self.backend, logits, pcache, pos,
             active, cap=pcache.capacity, gen_len=chunk, load=self._load0())
 
+    # ------------------------------------------------------------------
+    # window programs: speculative verify and the chunked-prefill mixed
+    # ticks, one [B, S] window forward each (the JAX engine's slot_verify,
+    # slot_mixed and their paged and _verify twins)
+    # ------------------------------------------------------------------
+
+    def _window(self, tokens, q_lens, prefilling=None):
+        """The host window arrays on the device: tokens [B, S] long, q_lens
+        [B] int32 (and the prefilling mask [B] bool)."""
+        out = (self._h2d(tokens), self._h2d(q_lens, torch.int32))
+        return out if prefilling is None else out + (self._h2d(prefilling, torch.bool),)
+
+    def _refuse_mega(self, what: str) -> None:
+        if self.backend == "mega":
+            raise ValueError(
+                f"backend='mega' does not fuse {what} (the fused tick is the greedy "
+                "S == 1 paged step); serve it on the per-op backends")
+
+    def _forwards(self, paged: bool):
+        """(the window forward, its capacity getter) of the slot cache or
+        the paged pool."""
+        if paged:
+            return self.model.forward_tokens_slots_paged_verify, lambda c: c.capacity
+        return self.model.forward_tokens_slots_verify, lambda c: c.k[0].shape[2]
+
+    def slot_verify_chunk(self, cache: KVCache, pos, active, tokens, q_lens):
+        """One speculative verify step over the contiguous slot cache:
+        score every slot's window (tokens [B, S]: the pending seed at column
+        0, up to S - 1 drafts after, padded; q_lens [B] valid lengths; host
+        arrays) in one forward at per-slot positions pos, keep each slot's
+        longest argmax-matching prefix, and advance each slot by its kept
+        count (the rejected suffix stays as dead rows past the rewound
+        length). Returns (n_emit [B], t0_next [B] the next seed, cache, pos)
+        on the device, and a MoE model's routing load fifth."""
+        self._refuse_mega("the spec-decode verify window")
+        return self._verify(False, cache, pos, active, *self._window(tokens, q_lens))
+
+    def paged_slot_verify_chunk(self, pcache: PagedSlotCache, pos, active, tokens, q_lens):
+        """slot_verify_chunk over the paged pool (window KV and attention
+        through the page table; padding rows write nothing)."""
+        self._refuse_mega("the spec-decode verify window")
+        return self._verify(True, pcache, pos, active, *self._window(tokens, q_lens))
+
+    def _verify(self, paged: bool, cache, pos, active, tokens, q_lens):
+        forward, cap = self._forwards(paged)
+        logits_all, cache, load = _verify_forward(forward, self.prefill_backend, cache, pos,
+                                                  tokens, q_lens, self.moe_family)
+        n_emit, t0n, pos = _verify_accept(logits_all, tokens, q_lens, active, pos, cap(cache))
+        out = (n_emit, t0n, cache, pos)
+        return out if load is None else out + (load,)
+
+    def slot_mixed_chunk(self, logits, cache: KVCache, pos, active, prefilling, tokens,
+                         q_lens):
+        """One mixed prefill+decode tick over the contiguous slot cache
+        (chunked prefill). tokens [B, S] / q_lens [B] (host arrays): a
+        prefilling row (prefilling [B] bool) holds its next q_lens[b] prompt
+        tokens at positions pos[b] .. (q_lens[b] == 0: starved this tick);
+        a decode row's column 0 is its carry logits' argmax, filled here
+        (one step of the plain slot scan), with q_lens[b] == 1. Returns
+        (tok [B] int32, each decode row's token; sel_logits [B, V], the
+        logits at each row's last valid window position: a decode row's
+        next carry, a final-chunk prefill row's arming logits; cache; pos,
+        advanced by q_lens for prefill rows and 1 for active decode rows),
+        and a MoE model's routing load fifth."""
+        if self.backend == "mega":
+            raise ValueError(
+                "backend='mega' fuses the PAGED decode tick only; contiguous mixed ticks "
+                "run the per-op backends (the paged mixed tick runs the per-op program)")
+        return self._mixed(False, logits, cache, pos, active,
+                           *self._window(tokens, q_lens, prefilling))
+
+    def paged_slot_mixed_chunk(self, logits, pcache: PagedSlotCache, pos, active,
+                               prefilling, tokens, q_lens):
+        """slot_mixed_chunk over the paged pool; on "mega" it runs the
+        per-op "flash" program."""
+        return self._mixed(True, logits, pcache, pos, active,
+                           *self._window(tokens, q_lens, prefilling))
+
+    def _mixed(self, paged: bool, logits0, cache, pos, active, tokens, q_lens, prefilling):
+        forward, cap = self._forwards(paged)
+        tok = torch.where(active, sample_greedy(logits0), 0)
+        tokens = tokens.clone()
+        tokens[:, 0] = torch.where(active, tok, tokens[:, 0])
+        logits_all, cache, load = _verify_forward(forward, self.prefill_backend, cache, pos,
+                                                  tokens, q_lens, self.moe_family)
+        adv = torch.where(prefilling, q_lens, active.to(torch.int32))
+        pos = torch.clamp(pos + adv, max=cap(cache) - 1)
+        out = (tok.to(torch.int32), _last_valid(logits_all, q_lens), cache, pos)
+        return out if load is None else out + (load,)
+
+    def slot_mixed_verify_chunk(self, cache: KVCache, pos, active, prefilling, tokens,
+                                q_lens):
+        """Spec-mode mixed tick over the contiguous slot cache: decode rows
+        carry their draft windows (slot_verify_chunk's contract), prefill
+        rows their prompt chunks, in one forward; acceptance applies to the
+        decode rows, prefill rows advance by their whole chunk. Returns
+        (n_emit [B], t0_next [B], sel_logits [B, V] the arming logits at each
+        row's last valid position, cache, pos), and a MoE model's routing
+        load sixth."""
+        self._refuse_mega("the spec-decode verify window")
+        return self._mixed_verify(False, cache, pos, active,
+                                  *self._window(tokens, q_lens, prefilling))
+
+    def paged_slot_mixed_verify_chunk(self, pcache: PagedSlotCache, pos, active,
+                                      prefilling, tokens, q_lens):
+        """slot_mixed_verify_chunk over the paged pool."""
+        return self._mixed_verify(True, pcache, pos, active,
+                                  *self._window(tokens, q_lens, prefilling))
+
+    def _mixed_verify(self, paged: bool, cache, pos, active, tokens, q_lens, prefilling):
+        forward, cap = self._forwards(paged)
+        logits_all, cache, load = _verify_forward(forward, self.prefill_backend, cache, pos,
+                                                  tokens, q_lens, self.moe_family)
+        n_emit, t0n, pos = _verify_accept(logits_all, tokens, q_lens, active, pos, cap(cache))
+        pos = torch.clamp(pos + torch.where(prefilling, q_lens, 0), max=cap(cache) - 1)
+        out = (n_emit, t0n, _last_valid(logits_all, q_lens), cache, pos)
+        return out if load is None else out + (load,)
+
     def retire_slot_paged(self, pcache: PagedSlotCache, slot: int) -> PagedSlotCache:
         """Point the whole table block of a retired slot at the trash page
         (the write sink): the slot scan keeps stepping masked rows, and
@@ -299,6 +448,38 @@ class Engine:
         Hkv = self.model.config.num_kv_heads
         pcache.table[slot * Hkv:(slot + 1) * Hkv] = pcache.trash
         return pcache
+
+
+def _pools(pcache: PagedSlotCache) -> list:
+    """(k, v) pairs of every layer's payload pools, then the int8 scale
+    pools."""
+    return list(zip(pcache.pages_k + pcache.scales_k, pcache.pages_v + pcache.scales_v))
+
+
+def _verify_forward(forward, backend, cache, pos, tokens, q_lens, moe: bool):
+    """The window forward of the verify and mixed programs: (per-position
+    logits [B, S, V], cache, the routing load of a MoE model or None)."""
+    if moe:
+        return forward(tokens, cache, pos, q_lens, mode=backend, return_moe_stats=True)
+    logits_all, cache = forward(tokens, cache, pos, q_lens, mode=backend)
+    return logits_all, cache, None
+
+
+def _verify_accept(logits_all, tokens, q_lens, active, pos, cap: int):
+    """The greedy acceptance epilogue (the JAX `_verify_accept`): the
+    longest argmax-matching prefix and the corrected next seed; inactive
+    slots report n_emit == 0; pos advances by the kept count, clamped to
+    the capacity. Returns (n_emit, t0_next, pos)."""
+    n_emit, t0n = accept_greedy(tokens, sample_greedy(logits_all), q_lens)
+    n_emit = n_emit * active.to(torch.int32)
+    return n_emit, t0n, torch.clamp(pos + n_emit, max=cap - 1)
+
+
+def _last_valid(logits_all, q_lens):
+    """Each row's logits [B, V] at its last valid window position (position
+    0 for a row with q_len 0)."""
+    sel = torch.clamp(q_lens - 1, min=0).long()
+    return logits_all[torch.arange(sel.shape[0], device=sel.device), sel]
 
 
 def _check_mega(model, kv_dtype, sampling: str) -> None:

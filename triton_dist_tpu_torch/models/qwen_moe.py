@@ -1,7 +1,9 @@
 """Qwen3-MoE: counterpart of triton_dist_tpu/models/qwen_moe.py
 (`MoELayer`, `Qwen3MoE` with moe_impl="tp": `random_init`, `from_hf`,
 `_zero_load`, `forward_tokens`, `forward_tokens_slots`,
-`forward_tokens_slots_paged`, `make_cache`) on one device. The JAX
+`forward_tokens_slots_paged`, the window forms
+`forward_tokens_slots_verify` and `forward_tokens_slots_paged_verify`,
+`make_cache`) on one device. The JAX
 `_moe_modes` / `_moe_ffn` split exists for the expert-parallel modes;
 with those not ported, the FFN hook `_ffn` is one call.
 
@@ -18,11 +20,14 @@ over layers, on the device) that the engine and the scheduler surface as
 `expert_tokens{expert=e}`, `moe_capacity_drops` and
 `expert_load_imbalance`.
 
+The window forms route every row of the window, padding included, as
+the JAX forwards do: padding rows take expert capacity and count in the
+routing load (compute load, not emitted tokens).
+
 Not ported yet, and raising NotImplementedError: expert parallelism
-(moe_impl="ep", the "ep"/"ep_flash" modes), the multi-chip modes, the
-speculative-verify forms (`forward_tokens_slots_verify`,
-`forward_tokens_slots_paged_verify`) and `forward_train`. The JAX
-Qwen3MoE has no int8-weight form, so neither has this one.
+(moe_impl="ep", the "ep"/"ep_flash" modes), the multi-chip modes and
+`forward_train`. The JAX Qwen3MoE has no int8-weight form, so neither
+has this one.
 """
 
 from __future__ import annotations
@@ -189,12 +194,25 @@ class Qwen3MoE(DenseLLM):
                                            load)
         return (logits, pcache, load) if return_moe_stats else (logits, pcache)
 
-    def forward_tokens_slots_verify(self, *args, **kw):
-        raise _not_ported("Qwen3MoE.forward_tokens_slots_verify (speculative decoding)")
+    def forward_tokens_slots_verify(self, ids, cache, pos, q_lens, mode: str = "flash",
+                                    return_moe_stats: bool = False):
+        """DenseLLM.forward_tokens_slots_verify with the routed FFN over
+        the whole window; with return_moe_stats the routing-load vector
+        comes third."""
+        load = self._zero_load() if return_moe_stats else None
+        logits, load = self._slots_forward(ids, self._slot_attend(cache, pos, mode, q_lens),
+                                           mode, load, window=True)
+        return (logits, cache, load) if return_moe_stats else (logits, cache)
 
-    def forward_tokens_slots_paged_verify(self, *args, **kw):
-        raise _not_ported("Qwen3MoE.forward_tokens_slots_paged_verify (speculative "
-                          "decoding, chunked prefill)")
+    def forward_tokens_slots_paged_verify(self, ids, pcache, pos, q_lens,
+                                          mode: str = "flash",
+                                          return_moe_stats: bool = False):
+        """forward_tokens_slots_verify over the paged pool (also the
+        chunked-prefill mixed tick's forward)."""
+        load = self._zero_load() if return_moe_stats else None
+        logits, load = self._slots_forward(
+            ids, self._paged_attend(pcache, pos, mode, q_lens), mode, load, window=True)
+        return (logits, pcache, load) if return_moe_stats else (logits, pcache)
 
     def forward_train(self, *args, **kw):
         raise _not_ported("Qwen3MoE.forward_train (training)")
