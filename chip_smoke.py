@@ -102,7 +102,31 @@ NVIDIA card: the quickest proof that the port still starts on the GPU.
    tokens/s, the share of the bf16 peak, peak memory, a profiled step
    (idle share, top device ops); then TRAIN_STEPS SGD steps on the same
    batch, the loss falling at every step.
-9. MoE phases (Qwen3-30B-A3B, TP-MoE at tensor-parallel size 1, bf16,
+9. GDN, sequence-parallel partial and registry phase. Rows 10a-10e
+   (gdn_fwd, the Gated DeltaNet forward kernel): the JAX report's on-chip
+   shape (B=8, H=16, T=2048, dk=dv=128, C=64, bf16), one
+   Qwen3-Next-80B-A3B GDN layer's prefill (B=1, 32 value heads with the
+   16 q/k heads repeated to them, T=8192, bf16), the registry's shape
+   with S0 (f32), a ragged T=200 with S0 (dk=dv=64, C=32, f32) and the
+   deep-decay span (g in [-3.5, -2.5) a token, f32), each held to its
+   plain version within GDN_LIMIT (tools/fault_margin.py --gdn) and the
+   f32 rows also to the f64 recurrence. Rows 4h-4i
+   (flash_decode_paged_partial): the sequence-parallel paged attend
+   emulated at sp=4 on the serving cell's shape (64 slots, Hq=16, Hkv=8,
+   page 16, kv_lens up to 224), decode and the mixed tick's window
+   (S=64), bf16 and int8 pools: rank r holds pool pages [r*pps,
+   (r+1)*pps), walks them through its local redirected table with its
+   ownership mask, and the four partials, each held to its plain
+   version, LSE-combine to flash_decode_paged over the whole pool; a
+   batch row whose pages all lie on rank 0 is bitwise (0, -1e30, 0) on
+   the other ranks. Then the main path of this slice, its entry points:
+   every kernel_registry() spec built on the card at its canonical shape
+   and run (exact launch counts), each held to the same spec run on the
+   CPU, then perf_report.run_report() (ag_gemm and gemm_rs at world size
+   1, flash_decode, flash_decode_paged, gdn_fwd), each row's op first
+   held to its plain version on the very inputs it times, then timed at
+   a SOL fraction at or below 1.
+10. MoE phases (Qwen3-30B-A3B, TP-MoE at tensor-parallel size 1, bf16,
    after every dense model is freed). Kernel rows 7a-7d (grouped_gemm at
    the decode and prefill capacities of the main path) and a ragged case,
    each x padded past C with 100x rows; flash_decode and
@@ -119,15 +143,15 @@ NVIDIA card: the quickest proof that the port still starts on the GPU.
    "dropless", a teacher-forced check against the plain backend at B=4,
    S=64 with the plain backend's expert selection pinned to the flash
    path's (tools/fault_margin.py RouteTape), and no drop in a slot chunk.
-   The serving phase: the 128 requests through
-   ContinuousScheduler(paged=True) at capacity 2.0 (exact launch counts,
-   the MoE counters, the tick probe), then a dropless arm (8 requests, 4
-   slots, no drop) whose 8 served streams are held to the contiguous
-   flash engine teacher-forced along them, and that engine to the plain
-   one with the routing pinned; the same arm with prefill_budget 32 (a
-   mixed tick routes its whole window, padding too; exact launch counts;
-   4 of its streams held so).
-10. Prints one JSON line of per-kernel results, then, last, the device
+   The serving phase: the first 64 of the 128 requests (one wave of
+   the slots) through ContinuousScheduler(paged=True) at capacity 2.0
+   (exact launch counts, the MoE counters, the tick probe), then a
+   dropless arm (8 requests, 4 slots, no drop) whose 8 served streams
+   are held to the contiguous flash engine teacher-forced along them,
+   and that engine to the plain one with the routing pinned; the same
+   arm with prefill_budget 32 (a mixed tick routes its whole window,
+   padding too; exact launch counts; 4 of its streams held so).
+11. Prints one JSON line of per-kernel results, then, last, the device
    line {"ok": true, "device": {...}}.
 
 Exits non-zero, printing no result, if there is no CUDA device, if the
@@ -177,6 +201,9 @@ N_REQ, N_SYS, SYS_LEN, TF_REQS = 128, 4, 96, 8
 # against the contiguous flash engine
 # (triton_dist_tpu_torch/tools/fault_margin.py --moe)
 MOE_TF_B, MOE_TF_S = 4, 64
+# the capacity-2.0 arm's requests: one wave of the serving slots (its
+# tokens are not teacher-forced; the tick probe takes SERVE_B of them)
+MOE_REQS = SERVE_B
 MOE_DL_REQS, MOE_DL_SLOTS = 8, 4
 # served streams of the dropless prefill_budget arm held, teacher-forced,
 # to the contiguous flash engine with the routing pinned (about 12 s a
@@ -209,6 +236,15 @@ WIN_CASES = (
 # --train)
 TRAIN_B, TRAIN_S, TRAIN_STEPS, TRAIN_LR = 4, 1024, 4, 0.5
 TRAIN_LOSS_LIMIT, TRAIN_GRAD_LIMIT = 1e-4, 0.15
+# GDN: the kernel's limit against its plain version, as the larger of
+# max|d o| / max|o| and max|d S_T| / max|S_T|
+# (triton_dist_tpu_torch/tools/fault_margin.py --gdn), and the f32 rows'
+# tolerance (atol, rtol) against the f64 recurrence (the JAX package's
+# tests/test_gdn_ll.py: 2e-4, and rtol 2e-3 on the deep-decay span)
+GDN_LIMIT = 1e-2
+GDN_F64_TOL = {"10c": (2e-4, 2e-4), "10d": (2e-4, 2e-4), "10e": (2e-4, 2e-3)}
+# the sequence-parallel degree of the paged partial's emulation
+SP_RANKS = 4
 
 
 class CheckFailed(Exception):
@@ -218,6 +254,12 @@ class CheckFailed(Exception):
 def check(ok: bool, what: str) -> None:
     if not ok:
         raise CheckFailed(what)
+
+
+def only_launched(counts: dict, allowed, label: str) -> None:
+    """Every kernel outside `allowed` launched no time (named keys)."""
+    others = {n: c for n, c in counts.items() if n not in allowed and c}
+    check(not others, f"{label}: kernels launched outside {sorted(allowed)}: {others}")
 
 
 def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
@@ -1137,12 +1179,14 @@ def engine_phase(m, k, model, kv_dtype, label, ids, card, backend="flash"):
         check(c_prefill[name] > 0 and (backend == "mega" or c_decode[name] > 0),
               f"{label}: kernel {name} did not run on the main path "
               f"(prefill {c_prefill[name]}, decode {c_decode[name]})")
+    only_launched(c_prefill, per_op, f"{label} prefill")
+    only_launched(c_decode, ("mega_decode",) if backend == "mega" else per_op,
+                  f"{label} decode")
     if backend == "mega":
         # decode is the megakernel alone: one launch per layer per step
-        check(c_decode["mega_decode"] == N_LAYERS * GEN
-              and all(c_decode[n] == 0 for n in per_op + ("flash_decode_paged",)),
+        check(c_decode["mega_decode"] == N_LAYERS * GEN,
               f"{label}: decode launches {c_decode}, want mega_decode == "
-              f"{N_LAYERS * GEN} and no per-op kernel")
+              f"{N_LAYERS * GEN}")
     check(tuple(toks.shape) == (B, GEN), f"{label}: tokens {tuple(toks.shape)}")
     check(bool(torch.isfinite(logits).all()), f"{label}: non-finite logits")
     print(f"engine {label} on {card}: prefill {prefill_s * 1e3:.1f} ms (B={B}, S={S}), "
@@ -1265,18 +1309,20 @@ def serving_phase(m, k, model, kv_dtype, label, paged, reqs, card, backend="flas
         # ticks: 28 megakernel launches per step and nothing else of the
         # per-op decode; admissions: one batch-1 flash forward each
         check(counts["mega_paged_decode"] == N_LAYERS * steps
-              and counts["flash_decode_paged"] == 0
               and counts["flash_decode"] == N_LAYERS * admits
               and counts["kv_update"] == 2 * N_LAYERS * admits
               and counts["swiglu"] == N_LAYERS * admits,
               f"{label}: launches {counts} for {steps} tick steps and {admits} "
               "admissions")
+        only_launched(counts, ("mega_paged_decode", "flash_decode", "kv_update", "swiglu"),
+                      label)
     else:
         path = (("flash_decode_paged",) if paged else ()) + ("flash_decode",
                                                              "kv_update", "swiglu")
         for name in path:
             check(counts[name] > 0, f"{label}: kernel {name} did not run on the "
                                     f"serving path ({counts})")
+        only_launched(counts, path, label)
     check(not sched.rejected, f"{label}: rejected {sched.rejected}")
     check(all(len(out[r.rid]) == r.gen_len for r in reqs),
           f"{label}: a request did not get its budget")
@@ -2195,6 +2241,290 @@ def train_phase(m, k, card):
     return counts
 
 
+def gdn_partial_phase(k, gen):
+    """Rows 10a-10e (gdn_fwd) and 4h-4i (flash_decode_paged_partial), each
+    held against its plain version and timed beside its bound; no one
+    PyTorch call computes either function (library null)."""
+    from triton_dist_tpu_torch.tools import fault_margin as fm
+    rows = []
+    key = ("registry", "drive")
+    gdn_src = "triton_dist_tpu_torch/kernels/csrc/gdn.cu"
+    for case in fm.GDN_CASES:
+        name, B_, H, T, dk, dv, C, dt, _, decay = case
+        kw = fm.gdn_case(name)
+        k.reset_launch_counts()
+        out = k.gdn_fwd(**kw)
+        torch.cuda.synchronize()
+        c = k.launch_counts()
+        check(c["gdn_fwd"] == 1, f"gdn {name}: {c['gdn_fwd']} gdn_fwd launches, want 1")
+        only_launched(c, ("gdn_fwd",), f"gdn {name}")
+        ref = k.gdn_chunk_ref(**kw)
+        err = fm.gdn_gap(out, ref)
+        check(all(bool(torch.isfinite(t).all()) for t in out), f"gdn {name}: non-finite output")
+        check(err <= GDN_LIMIT, f"gdn_fwd {name}: gap {err} to the plain version > "
+                                f"{GDN_LIMIT}")
+        f64 = ""
+        if name in GDN_F64_TOL:
+            atol, rtol = GDN_F64_TOL[name]
+            ro, rS = k.gdn_fwd_ref(kw["q"], kw["k"], kw["v"], kw["g"], kw["beta"], kw["S0"])
+            over = max(((a.double() - b).abs() - rtol * b.abs()).max().item()
+                       for a, b in ((out[0], ro), (out[1], rS)))
+            check(over <= atol, f"gdn_fwd {name}: |d| - {rtol} |ref| = {over} > {atol} "
+                                "against the f64 recurrence")
+            f64 = f"; f64 recurrence within {atol} + {rtol} |ref|"
+            del ro, rS
+        isz = torch.finfo(dt).bits // 8
+        heads_t = B_ * H * T
+        nbytes = (heads_t * ((2 * dk + 2 * dv) * isz + 8)
+                  + B_ * H * dk * dv * 4 * (2 if kw["S0"] is not None else 1))
+        # per token and head: K K^T and Q K^T over the chunk's lower
+        # triangle, the solve and N U (2 C (dk + dv) together), K S, Q S and
+        # the state update (6 dk dv)
+        flops = heads_t * (2 * C * (dk + dv) + 6 * dk * dv)
+        b_ms, b_by = bound(nbytes, flops, BF16_FLOPS_PER_S if dt == torch.bfloat16
+                           else F32_FLOPS_PER_S)
+        big = T * H * B_ >= 2 ** 18
+        r = dict(name="gdn_fwd", case=f"{name} B={B_} H={H} T={T} dk={dk} dv={dv} C={C} "
+                 f"{'bf16' if dt == torch.bfloat16 else 'f32'}"
+                 f"{' S0' if kw['S0'] is not None else ''} {decay} decay{f64}",
+                 route="cuda", source=gdn_src, replaces="triton_dist_tpu/kernels/gdn.py:222",
+                 launches=None, max_abs_err=err, tol=GDN_LIMIT,
+                 ms=cuda_ms(lambda: k.gdn_fwd(**kw), reps=10 if big else 20),
+                 plain_ms=cuda_ms(lambda: k.gdn_chunk_ref(**kw), reps=2 if big else 5,
+                                  warmup=1),
+                 bound_ms=b_ms, bound_by=b_by, library_ms=None)
+        rows.append((r, key))
+        print(f"kernel gdn_fwd [{r['case']}]: gap {err:.3g} (limit {GDN_LIMIT}) ms "
+              f"{r['ms']:.4f} plain_ms {r['plain_ms']:.4f} bound_ms {b_ms:.4f} ({b_by})",
+              flush=True)
+        del kw, out, ref
+    torch.cuda.empty_cache()
+    rows += sp_partial_rows(k, gen)
+    return rows
+
+
+def sp_partial_rows(k, gen):
+    """Rows 4h (decode) and 4i (the mixed tick's window): the
+    sequence-parallel paged attend at SP_RANKS ranks on the serving cell's
+    shape, bf16 and int8 pools. The pool's pages are a random permutation
+    over the streams; rank r holds pages [r*pps, (r+1)*pps) and walks them
+    through its local table (table - r*pps where it owns the page, else
+    its last owned page before, as layers/tp_attn.py:990-1006 of the JAX
+    package redirects) with its ownership mask. Batch row SOLO's pages all
+    lie on rank 0. Every pool row no stream reads holds 100x values."""
+    dev = torch.device("cuda")
+    Hq, Hkv, d, Bs, T = 16, 8, 128, SERVE_B, SERVE_MAX_SEQ
+    rep, X, maxp = Hq // Hkv, SERVE_B * Hkv, SERVE_MAX_SEQ // PAGE
+    pps = X * maxp // SP_RANKS
+    solo = 1
+    rows = []
+    src = "triton_dist_tpu_torch/kernels/csrc/flash_decode_paged.cu"
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev, dtype=torch.bfloat16)
+
+    def ints(lo, hi, n):
+        return torch.randint(lo, hi, (n,), generator=gen, device=dev, dtype=torch.int32)
+
+    mine = torch.randperm(pps, generator=gen, device=dev)[:Hkv * maxp]
+    rest = torch.ones(X * maxp, dtype=torch.bool, device=dev)
+    rest[mine] = False
+    others = rest.nonzero()[:, 0]
+    others = others[torch.randperm(others.numel(), generator=gen, device=dev)]
+    table = torch.empty(X, maxp, dtype=torch.int32, device=dev)
+    table[solo * Hkv:(solo + 1) * Hkv] = mine.reshape(Hkv, maxp).to(torch.int32)
+    keep = torch.ones(X, dtype=torch.bool, device=dev)
+    keep[solo * Hkv:(solo + 1) * Hkv] = False
+    table[keep] = others.reshape(-1, maxp).to(torch.int32)
+    ti = torch.arange(maxp, device=dev)
+    locals_ = []
+    for me in range(SP_RANKS):
+        owned = (table // pps == me)
+        last = torch.cummax(torch.where(owned, ti, -1), dim=1).values.clamp_min(0)
+        tbl = torch.gather(torch.where(owned, table - me * pps, 0), 1, last).to(torch.int32)
+        locals_.append((owned.to(torch.int32).contiguous(), tbl.contiguous()))
+
+    for case, S in (("4h", 1), ("4i", SERVE_BUDGET)):
+        if S == 1:
+            ql = None
+            kl = ints(1, T + 1, Bs)
+            kl[:2] = torch.tensor([T, 37], dtype=torch.int32)
+            live = torch.ones(Bs, 1, dtype=torch.bool, device=dev)
+            front = kl[:, None] - 1
+        else:
+            # the mixed tick of 4f: windows in [0, S], a row with no key
+            ql = ints(0, S + 1, Bs)
+            ql[:3] = torch.tensor([0, 1, S], dtype=torch.int32)
+            kl = (ql + ints(0, T - S + 1, Bs)).to(torch.int32)
+            kl[0], kl[2] = 0, T
+            s_idx = torch.arange(S, device=dev)
+            live = s_idx[None, :] < ql[:, None]
+            front = kl[:, None] - ql[:, None] + torch.minimum(s_idx[None], ql[:, None] - 1)
+        qkw = {} if ql is None else dict(q_lens=ql)
+        q = randn(Bs, S, Hq, d)
+        kl_x = kl.repeat_interleave(Hkv)
+        tpos = torch.arange(maxp * PAGE, device=dev)
+        valid = tpos[None, :] < kl_x[:, None]                          # [X, T]
+        used = torch.zeros(X * maxp * PAGE, dtype=torch.bool, device=dev)
+        used[(table.long()[:, tpos // PAGE] * PAGE + tpos % PAGE)[valid]] = True
+        pk, pv = randn(X * maxp, PAGE, d), randn(X * maxp, PAGE, d)
+        pk[~used.reshape(-1, PAGE)] *= 100
+        pv[~used.reshape(-1, PAGE)] *= 100
+        for kvt in ("bf16", "int8"):
+            if kvt == "bf16":
+                kk, vv, ks, vs = pk, pv, None, None
+            else:
+                kk, ks = k.quantize_kv_int8(pk)
+                vv, vs = k.quantize_kv_int8(pv)
+            full = k.flash_decode_paged(q, kk, vv, table, kv_lens=kl, k_scale=ks,
+                                        v_scale=vs, **qkw)
+            parts, calls = [], []
+            for me, (owned, tbl) in enumerate(locals_):
+                sl = slice(me * pps, (me + 1) * pps)
+                kw = dict(kv_lens=kl, tile_owned=owned, **qkw)
+                if ks is not None:
+                    kw.update(k_scale=ks[sl], v_scale=vs[sl])
+                args = (q, kk[sl], vv[sl], tbl)
+                calls.append((args, kw))
+                got = k.flash_decode_paged_partial(*args, **kw)
+                ref = k.flash_decode_paged_partial_ref(*args, **kw)
+                torch.cuda.synchronize()
+                m_err = max_err(got[1][live], ref[1][live])
+                l_err = max_err(got[2][live], ref[2][live]) / max(
+                    ref[2][live].abs().max().item(), 1e-30)
+                acc_err = max_err(got[0][live], ref[0][live])
+                acc_tol = 1e-2 * (1 + ref[0][live].abs().max().item())
+                label = f"{case} sp={SP_RANKS} rank {me} {kvt}"
+                check(m_err <= 1e-3 and l_err <= 1e-4 and acc_err <= acc_tol,
+                      f"flash_decode_paged_partial {label}: m error {m_err} (tol 1e-3), "
+                      f"l error {l_err} of max (tol 1e-4), acc error {acc_err} "
+                      f"(tol {acc_tol})")
+                if me:
+                    a, m_, l_ = (t[solo] for t in got)
+                    check(bool((a == 0).all() and (m_ == -1e30).all() and (l_ == 0).all()),
+                          f"flash_decode_paged_partial {label}: batch row {solo} owns no "
+                          "page here, but its rows are not (0, -1e30, 0)")
+                parts.append(got)
+            out = k.lse_combine(*(torch.stack([p[i] for p in parts]) for i in range(3)))
+            comb_err = max_err(out[live], full[live])
+            comb_tol = 1e-2 * (1 + full[live].float().abs().max().item())
+            check(comb_err <= comb_tol, f"flash_decode_paged_partial {case} {kvt}: the "
+                                        f"{SP_RANKS} partials' combine differs from "
+                                        f"flash_decode_paged by {comb_err} > {comb_tol}")
+            # the row: rank 1's call, its own keys' bytes and pairs
+            (args, kw), me = calls[1], 1
+            owned = locals_[me][0]
+            own_key = owned.bool().repeat_interleave(PAGE, dim=1) & valid   # [X, T]
+            n_keys = int(own_key.sum())
+            pairs = 0
+            for x0 in range(0, X, 64):       # (live query, owned key) pairs, in slices
+                xs = torch.arange(x0, min(x0 + 64, X), device=dev)
+                fr = front[xs // Hkv]                                    # [64, S]
+                pairs += int(((tpos[None, None, :] <= fr[..., None])
+                              & live[xs // Hkv][..., None] & own_key[xs, None, :]).sum())
+            key_bytes = 2 * d * (2 if kvt == "bf16" else 1) + (0 if kvt == "bf16" else 8)
+            n_pages = int(((kl_x + PAGE - 1) // PAGE).sum())
+            nbytes = (2 * q.numel() + n_keys * key_bytes + 8 * n_pages
+                      + 4 * Bs * (1 if ql is None else 2) + X * S * rep * (d + 2) * 4)
+            b_ms, b_by = bound(nbytes, 4 * d * rep * pairs)
+            r = dict(name="flash_decode_paged_partial",
+                     case=f"{case} {'decode' if S == 1 else 'window'} sp={SP_RANKS} rank 1 of "
+                          f"B={Bs} S={S} kv_lens <= {int(kl.max())} page={PAGE} Hq={Hq} "
+                          f"Hkv={Hkv} {kvt} (combine err {comb_err:.3g}, tol "
+                          f"{comb_tol:.3g})",
+                     route="cuda", source=src, replaces="triton_dist_tpu/kernels/paged_kv.py:411",
+                     launches=None, max_abs_err=acc_err, tol=acc_tol,
+                     ms=cuda_ms(lambda: k.flash_decode_paged_partial(*args, **kw)),
+                     plain_ms=cuda_ms(lambda: k.flash_decode_paged_partial_ref(*args, **kw),
+                                      reps=5),
+                     bound_ms=b_ms, bound_by=b_by, library_ms=None)
+            rows.append((r, ("registry", "drive")))
+            print(f"kernel flash_decode_paged_partial [{r['case']}]: acc err {acc_err:.3g} "
+                  f"(tol {acc_tol:.3g}) ms {r['ms']:.4f} plain_ms {r['plain_ms']:.4f} "
+                  f"bound_ms {b_ms:.4f} ({b_by}); rank 1 owns {n_keys} of "
+                  f"{int(valid.sum())} keys", flush=True)
+        del pk, pv, kk, vv
+    torch.cuda.empty_cache()
+    return rows
+
+
+# the registry's canonical calls against their CPU runs: the largest
+# difference as a share of (1 + the largest CPU value); bf16 grouped_gemm
+# rounds its output, kv_update copies
+REGISTRY_TOL = {"grouped_gemm": 1e-2, "kv_update": 0.0}
+# the registry's launches: one of each kernel, flash_attention's forward
+# through flash_decode's partial form
+REGISTRY_LAUNCHES = {"flash_decode": 1, "flash_decode_paged": 1,
+                     "flash_decode_paged_partial": 1, "kv_update": 1, "grouped_gemm": 1,
+                     "swiglu": 1, "gdn_fwd": 1, "flash_decode_partial": 1}
+REPORT_KERNELS = ("gemm", "flash_decode", "flash_decode_paged", "gdn_fwd")
+REPORT_ROWS = ("ag_gemm", "gemm_rs", "flash_decode", "flash_decode_paged", "gdn_fwd(pallas)")
+
+
+def registry_phase(k, card):
+    """This slice's main path, through its entry points: every
+    kernel_registry() spec built on the card and run, held to the same
+    spec on the CPU, then perf_report.run_report() on rows whose outputs
+    were first held to their plain versions. Returns the launch counts of
+    both."""
+    from triton_dist_tpu_torch.tools import perf_report
+    reg = k.kernel_registry()
+    k.reset_launch_counts()
+    outs = {}
+    for name, spec in reg.items():
+        fn, args = spec.build("cuda")
+        outs[name] = fn(*args)
+    torch.cuda.synchronize()
+    c_reg = k.launch_counts()
+    check(all(c_reg[n] == REGISTRY_LAUNCHES.get(n, 0) for n in c_reg),
+          f"registry: launches {c_reg}, want {REGISTRY_LAUNCHES} and no other")
+    for name, spec in reg.items():
+        fn, args = spec.build("cpu")
+        want = fn(*args)
+        got = outs[name]
+        got, want = (list(t) if isinstance(t, tuple) else [t] for t in (got, want))
+        err = max(max_err(a.cpu(), b) / (1 + b.float().abs().max().item())
+                  for a, b in zip(got, want))
+        tol = REGISTRY_TOL.get(name, 1e-3)
+        check(err <= tol, f"registry {name}: card against CPU {err} > {tol}")
+        print(f"registry {name} ({spec.module}, {spec.kind}): card against its CPU run "
+              f"{err:.3g} of 1 + max (tol {tol})", flush=True)
+    # each report row's op once at its timed shape, on the very inputs the
+    # report times, against its plain version at the tolerances of rows
+    # 1c and 4c (flash_decode, paged), 14a (gemm) and 10a (gdn); these
+    # launches compare and are not counted
+    from triton_dist_tpu_torch.tools import fault_margin as fm
+    from triton_dist_tpu_torch.tools.perf_model import chip_specs
+    rep_rows = perf_report.report_rows(chip_specs())
+    for r in rep_rows:
+        out, ref = r.fn(*r.args), r.plain(*r.args)
+        torch.cuda.synchronize()
+        if r.op.startswith("gdn_fwd"):
+            err, tol = fm.gdn_gap(out, ref), GDN_LIMIT
+        elif r.op.startswith("flash_decode"):
+            err, tol = max_err(out, ref), 1e-2 * (1 + ref.float().abs().max().item())
+        else:
+            err, tol = max_err(out, ref), 2 ** -7 * ref.float().abs().max().item()
+        check(err <= tol, f"perf_report row {r.op}: error {err} to its plain version > {tol}")
+        print(f"perf_report row {r.op}: error {err:.3g} to its plain version (tol {tol:.3g})",
+              flush=True)
+        del out, ref
+    k.reset_launch_counts()
+    report = perf_report.run_report(rows=rep_rows)
+    del rep_rows
+    torch.cuda.synchronize()
+    c_rep = k.launch_counts()
+    for n in REPORT_KERNELS:
+        check(c_rep[n] > 0, f"perf_report: kernel {n} did not run ({c_rep})")
+    only_launched(c_rep, REPORT_KERNELS, "perf_report")
+    ops = {r["op"]: r for r in report["ops"]}
+    for n in REPORT_ROWS:
+        check(n in ops and ops[n]["achieved_us"] > 0 and 0 < ops[n]["sol_frac"] <= 1.0,
+              f"perf_report: row {n} {ops.get(n)}")
+    print(f"perf_report on {card}: {json.dumps(report)}", flush=True)
+    return {n: c_reg[n] + c_rep[n] for n in c_reg}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -2293,6 +2623,12 @@ def main() -> int:
     counts["train"] = {"step": train_phase(m, k, card)}
     stamp("training steps")
 
+    # GDN, the sequence-parallel paged partial, the registry and perf_report
+    rows += gdn_partial_phase(k, torch.Generator(device="cuda").manual_seed(7))
+    stamp("gdn and partial kernel rows")
+    counts["registry"] = {"drive": registry_phase(k, card)}
+    stamp("registry and perf_report")
+
     # MoE: Qwen3-30B-A3B, about 61 GB of bf16 weights, built once every
     # dense model is gone
     gc.collect()
@@ -2310,8 +2646,8 @@ def main() -> int:
           f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated", flush=True)
     counts["moe"] = moe_engine_phase(m, k, model, ids, card)
     stamp("engine moe bf16")
-    counts["moe"]["paged"] = serving_phase(m, k, model, None, "moe paged bf16", True, reqs,
-                                           card, tf_reqs=0)
+    counts["moe"]["paged"] = serving_phase(m, k, model, None, "moe paged bf16", True,
+                                           reqs[:MOE_REQS], card, tf_reqs=0)
     stamp("serving moe paged bf16")
     set_capacity(model, "dropless")
     serving_phase(m, k, model, None, "moe paged bf16 dropless", True, reqs[:MOE_DL_REQS],

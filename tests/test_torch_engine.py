@@ -25,7 +25,7 @@ import torch
 from triton_dist_tpu.models import DenseLLM as JaxDenseLLM
 from triton_dist_tpu.models import Engine as JaxEngine
 from triton_dist_tpu.models.config import tiny_qwen3 as jax_tiny_qwen3
-from triton_dist_tpu_torch.kernels import flash_decode_paged
+from triton_dist_tpu_torch.kernels import gdn_fwd
 from triton_dist_tpu_torch.models import (AutoLLM, ContinuousScheduler, DenseLLM, Engine,
                                           ModelConfig, Request, tiny_qwen3)
 from triton_dist_tpu_torch.models.convert import from_jax_arrays
@@ -231,10 +231,8 @@ def _gate_cases():
     def submit(**kw):
         sched().submit(Request(rid=0, ids=np.zeros(4, np.int32), gen_len=2, **kw))
 
-    q = torch.zeros(1, 1, 2, 32)
-    pool = torch.zeros(3, 8, 32)
-    table = torch.zeros(1, 2, dtype=torch.int32)
-    lens = torch.ones(1, dtype=torch.int32)
+    x = torch.zeros(1, 1, 4, 64)
+    g = torch.zeros(1, 1, 4)
     return {
         "moe": lambda: AutoLLM.from_config(ModelConfig(num_experts=4), device="cpu",
                                            moe_impl="ep"),
@@ -252,8 +250,7 @@ def _gate_cases():
         "request_deadline_ms": lambda: submit(deadline_ms=100.0),
         "request_n": lambda: submit(n=2),
         "request_grammar": lambda: submit(grammar=object()),
-        "flash_decode_paged_partial": lambda: flash_decode_paged(
-            q, pool, pool, table, kv_lens=lens, tile_owned=table),
+        "gdn_ablate": lambda: gdn_fwd(x, x, x, g, g, ablate=frozenset({"exps"})),
         "spec_accept_sampled": lambda: accept_sampled(None, None, None, None),
         "spec_target_probs": lambda: target_probs(None, "top_k", {}),
     }

@@ -21,14 +21,15 @@ import torch
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_ext"
 # kernel sources (csrc/{name}.cu)
-SOURCES = ("flash_attn_bwd", "flash_decode", "flash_decode_paged", "gemm", "grouped_gemm",
-           "kv_update", "mega_decode", "mega_paged_decode", "swiglu")
-# launch counts, one per kernel: flash_decode.cu holds two launchers
-# (flash_decode and its partial form), flash_attn_bwd.cu two kernels (dq,
-# dk/dv); gemm counts the launches of ag_gemm and gemm_rs together
+SOURCES = ("flash_attn_bwd", "flash_decode", "flash_decode_paged", "gdn", "gemm",
+           "grouped_gemm", "kv_update", "mega_decode", "mega_paged_decode", "swiglu")
+# launch counts, one per kernel: flash_decode.cu and flash_decode_paged.cu
+# each hold two launchers (the kernel and its partial form),
+# flash_attn_bwd.cu two kernels (dq, dk/dv); gemm counts the launches of
+# ag_gemm and gemm_rs together
 KERNELS = ("flash_attn_bwd_dkdv", "flash_attn_bwd_dq", "flash_decode", "flash_decode_paged",
-           "flash_decode_partial", "gemm", "grouped_gemm", "kv_update", "mega_decode",
-           "mega_paged_decode", "swiglu")
+           "flash_decode_paged_partial", "flash_decode_partial", "gdn_fwd", "gemm",
+           "grouped_gemm", "kv_update", "mega_decode", "mega_paged_decode", "swiglu")
 CUDA_FLAGS = ["-gencode=arch=compute_90a,code=sm_90a", "-O3", "-lineinfo"]
 # dtype codes of csrc/launchers.h (tdt::Dtype)
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}

@@ -83,6 +83,30 @@ void flash_decode_paged(int q_dtype, int kv_dtype, int64_t q, int64_t k, int64_t
       page, HD, static_cast<float>(scale), s, stream(st)));
 }
 
+void flash_decode_paged_partial(int q_dtype, int kv_dtype, int64_t q, int64_t k, int64_t v,
+                                int64_t ks, int64_t vs, int64_t table, int64_t kv_lens,
+                                int64_t q_lens, int64_t owned, int64_t acc, int64_t m,
+                                int64_t l, int B, int S, int Hq, int Hkv, int maxp, int page,
+                                int HD, double scale, int64_t q_sb, int64_t q_ss,
+                                int64_t q_sh, int64_t pg_st, int64_t row_st, int64_t spg_st,
+                                int64_t st) {
+  const long long s[6] = {q_sb, q_ss, q_sh, pg_st, row_st, spg_st};
+  C10_CUDA_CHECK(tdt::flash_decode_paged_partial(
+      q_dtype, kv_dtype, ptr<const void>(q), ptr<const void>(k), ptr<const void>(v),
+      ptr<const void>(ks), ptr<const void>(vs), ptr<const int>(table),
+      ptr<const int>(kv_lens), ptr<const int>(q_lens), ptr<const int>(owned),
+      ptr<float>(acc), ptr<float>(m), ptr<float>(l), B, S, Hq, Hkv, maxp, page, HD,
+      static_cast<float>(scale), s, stream(st)));
+}
+
+void gdn_fwd(int dtype, int64_t q, int64_t k, int64_t v, int64_t g, int64_t beta, int64_t s0,
+             int64_t o, int64_t sT, int BH, int T, int DK, int DV, int C, int64_t st) {
+  C10_CUDA_CHECK(tdt::gdn_fwd(dtype, ptr<const void>(q), ptr<const void>(k),
+                              ptr<const void>(v), ptr<const float>(g), ptr<const float>(beta),
+                              ptr<const float>(s0), ptr<void>(o), ptr<float>(sT), BH, T, DK,
+                              DV, C, stream(st)));
+}
+
 void grouped_gemm(int64_t x, int64_t x_es, int64_t w, int64_t out, int E, int C, int D,
                   int F, int64_t st) {
   C10_CUDA_CHECK(tdt::grouped_gemm(ptr<const void>(x), x_es, ptr<const void>(w),
@@ -183,6 +207,8 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("flash_attn_bwd_dq", &flash_attn_bwd_dq);
   m.def("flash_attn_bwd_dkdv", &flash_attn_bwd_dkdv);
   m.def("flash_decode_paged", &flash_decode_paged);
+  m.def("flash_decode_paged_partial", &flash_decode_paged_partial);
+  m.def("gdn_fwd", &gdn_fwd);
   m.def("gemm", &gemm);
   m.def("grouped_gemm", &grouped_gemm);
   m.def("kv_update", &kv_update);

@@ -67,8 +67,8 @@ cudaError_t launch_partial(int HD, const void* q, const void* k, const void* v,
   const tdt_flash::ContigKV<T> A{static_cast<const T*>(k), static_cast<const T*>(v), nullptr,
                                  nullptr, nullptr, nullptr, kv_len, T_, st[3], st[4], st[5],
                                  0, 0};
-  return tdt_flash::launch<T, T, false, true>(HD, q, nullptr, A, B, S, Hq, Hkv, scale, st[0],
-                                              st[1], st[2], stream, P);
+  return tdt_flash::launch<T, T, false, tdt_flash::kPartialOff>(
+      HD, q, nullptr, A, B, S, Hq, Hkv, scale, st[0], st[1], st[2], stream, P);
 }
 
 }  // namespace

@@ -30,12 +30,20 @@
 // is discarded by the caller and stays finite). Without q_lens every row
 // has q_len = S, the plain causal frontier kv_len - S + s.
 //
-// The partial form (PARTIAL, flash_decode.cu's flash_decode_partial, the
-// training forward) takes the causal frontier q_off from the caller
-// instead of kv_len - S and stores the unnormalised f32 acc and the
-// running (m, l) of each row in the folded layout [B*Hkv, S*rep], as the
-// TPU kernel's partial=True outputs; rows that see no key keep m = -1e30,
-// l = 0 and acc = 0.
+// The partial forms store the unnormalised f32 acc and the running (m, l)
+// of each row in the folded layout [B*Hkv, S*rep], as the TPU kernels'
+// partial=True outputs; rows that see no key keep m = -1e30, l = 0 and
+// acc = 0, the neutral element of the LSE combine. kPartialOff
+// (flash_decode.cu's flash_decode_partial, the training forward) takes
+// the causal frontier q_off from the caller instead of kv_len - S.
+// kPartialOwned (flash_decode_paged.cu's flash_decode_paged_partial, the
+// sequence-parallel split-KV walk over one rank's pool shard) keeps each
+// stream's own frontier (kv_lens, q_lens) and reads an ownership row per
+// stream (PagedKV::owned): a key on a page the rank does not own is never
+// loaded and contributes nothing, and a 32-key tile with no owned key is
+// skipped, so the accumulators stay bitwise as they were. Ownership is
+// per key, not per tile: a tile spans two 16-row serving pages, which
+// two ranks may own.
 #pragma once
 
 #include "common.cuh"
@@ -75,8 +83,11 @@ template <typename KT> struct ContigKV {
 // row_st, in elements), int8 scale pages (page stride spg_st), one
 // int32 table [B*Hkv, maxp] mapping logical tile t/page of stream
 // b*Hkv+g to its physical page, per-batch-row lengths lens [B] and query
-// windows qlens [B] (or null). Only tiles below the stream's length are
-// ever looked up.
+// windows qlens [B] (or null), and for kPartialOwned an ownership row per
+// stream, owned [B*Hkv, maxp] int32 (non-zero: this rank holds the page of
+// logical tile t/page; null otherwise). Only tiles below the stream's
+// length are ever looked up, and of a partial walk only owned ones are
+// read.
 template <typename KT> struct PagedKV {
   const KT* k;
   const KT* v;
@@ -85,6 +96,7 @@ template <typename KT> struct PagedKV {
   const int* table;
   const int* lens;
   const int* qlens;
+  const int* owned;
   int Hkv, maxp, page;
   long long pg_st, row_st, spg_st;
 
@@ -99,11 +111,19 @@ template <typename KT> struct PagedKV {
   __device__ long long srow(int b, int g, int t) const {
     return page_of(b, g, t) * spg_st + t % page;
   }
+  __device__ bool owns(int b, int g, int t) const {
+    return owned[static_cast<long long>(b * Hkv + g) * maxp + t / page] != 0;
+  }
 };
 
-// Outputs of the partial form: acc [X, rows, HD], m and l [X, rows] f32
-// (X = B * Hkv streams; row r of stream x at x * rows + r); q_off is the
-// position of query row 0 relative to key 0 (may be negative or past T).
+// What the tile loop stores, and where each query row's frontier comes
+// from (see the header comment).
+enum Form { kOut, kPartialOff, kPartialOwned };
+
+// Outputs of the partial forms: acc [X, rows, HD], m and l [X, rows] f32
+// (X = B * Hkv streams; row r of stream x at x * rows + r); q_off (read by
+// kPartialOff only) is the position of query row 0 relative to key 0 (may
+// be negative or past T).
 struct Partial {
   float* acc;
   float* m;
@@ -111,7 +131,7 @@ struct Partial {
   int q_off;
 };
 
-template <typename QT, typename KT, bool QUANT, bool PARTIAL, int HD, int RPW, typename KV>
+template <typename QT, typename KT, bool QUANT, Form F, int HD, int RPW, typename KV>
 __global__ void __launch_bounds__(kThreads)
 flash_tile_kernel(const QT* __restrict__ q, QT* __restrict__ o, const KV A, int S,
                   int Hq, int Hkv, float scale, long long q_sb, long long q_ss,
@@ -133,9 +153,16 @@ flash_tile_kernel(const QT* __restrict__ q, QT* __restrict__ o, const KV A, int 
   const int kv_len = A.len(b);
   // query position s attends keys <= q_off + min(s, s_max): the window's
   // frontier (s_max = q_len - 1 clamps the padding positions), the plain
-  // causal one (q_len = S), or the partial form's q_off
+  // causal one (q_len = S), or kPartialOff's q_off
   const int q_len = A.qlens ? A.qlens[b] : S;
-  const int q_off = PARTIAL ? P.q_off : kv_len - q_len;
+  const int q_off = F == kPartialOff ? P.q_off : kv_len - q_len;
+  // key t is read and used: always, or if this rank owns its page
+  auto use = [&](int t) {
+    if constexpr (F == kPartialOwned)
+      return A.owns(b, g, t);
+    else
+      return true;
+  };
   const int s_max = q_len - 1;
   const int kv_end = min(kv_len, A.cap());
   // the block's last row has its furthest frontier
@@ -167,11 +194,17 @@ flash_tile_kernel(const QT* __restrict__ q, QT* __restrict__ o, const KV A, int 
   }
 
   for (int t0 = 0; t0 < walk_end; t0 += kBT) {
-    __syncthreads();  // the previous tile is consumed (and q_s is staged)
+    // the previous tile is consumed (and q_s is staged); a partial walk
+    // skips a tile with no owned key, block-uniformly
+    if constexpr (F == kPartialOwned) {
+      if (!__syncthreads_or(tid < kBT && t0 + tid < walk_end && use(t0 + tid))) continue;
+    } else {
+      __syncthreads();
+    }
     for (int idx = tid; idx < kBT * (HD / VN); idx += kThreads) {
       const int j = idx / (HD / VN), c0 = (idx % (HD / VN)) * VN;
       float kf[VN], vf[VN];
-      if (t0 + j < walk_end) {
+      if (t0 + j < walk_end && use(t0 + j)) {
         const long long off = A.row(b, g, t0 + j);
         load16<KT>(A.k + off + c0, kf);
         load16<KT>(A.v + off + c0, vf);
@@ -191,8 +224,9 @@ flash_tile_kernel(const QT* __restrict__ q, QT* __restrict__ o, const KV A, int 
     if (t0 > w_front) continue;
 
     const int j = t0 + lane;  // this lane's key
+    const bool own_j = j < walk_end && use(j);
     float ksj = 1.f, vsj = 1.f;
-    if (QUANT && j < walk_end) {
+    if (QUANT && own_j) {
       const long long so = A.srow(b, g, j);
       ksj = A.ks[so];
       vsj = A.vs[so];
@@ -217,7 +251,7 @@ flash_tile_kernel(const QT* __restrict__ q, QT* __restrict__ o, const KV A, int 
 #pragma unroll
     for (int i = 0; i < RPW; ++i) {
       const int r = wr0 + i;
-      const bool valid = r < rows && j <= q_off + min(r / rep, s_max) && j < kv_end;
+      const bool valid = own_j && r < rows && j <= q_off + min(r / rep, s_max) && j < kv_end;
       float s = dot[i] * scale;
       if (QUANT) s *= ksj;
       const float m_new = fmaxf(m[i], warp_max(valid ? s : -1e30f));
@@ -248,7 +282,7 @@ flash_tile_kernel(const QT* __restrict__ q, QT* __restrict__ o, const KV A, int 
   for (int i = 0; i < RPW; ++i) {
     const int r = wr0 + i;
     if (r >= rows) break;
-    if (PARTIAL) {
+    if (F != kOut) {
       const long long xr = static_cast<long long>(x) * rows + r;
 #pragma unroll
       for (int e = 0; e < DPL; ++e) P.acc[xr * HD + lane + 32 * e] = acc[i][e];
@@ -269,7 +303,7 @@ flash_tile_kernel(const QT* __restrict__ q, QT* __restrict__ o, const KV A, int 
 // Launch the tile kernel for head dim HD over B*Hkv streams of S query
 // positions; q strides (elements) q_sb, q_ss, q_sh; output [B, S, Hq, HD]
 // contiguous. Returns cudaGetLastError() after the launch.
-template <typename QT, typename KT, bool QUANT, bool PARTIAL, int HD, typename KV>
+template <typename QT, typename KT, bool QUANT, Form F, int HD, typename KV>
 cudaError_t launch_hd(const void* q, void* o, const KV& A, int B, int S, int Hq, int Hkv,
                       float scale, long long q_sb, long long q_ss, long long q_sh,
                       cudaStream_t stream, const Partial& P) {
@@ -283,22 +317,22 @@ cudaError_t launch_hd(const void* q, void* o, const KV& A, int B, int S, int Hq,
                                           A, S, Hq, Hkv, scale, q_sb, q_ss, q_sh, P);
   };
   if (wide)
-    run(flash_tile_kernel<QT, KT, QUANT, PARTIAL, HD, 4, KV>);
+    run(flash_tile_kernel<QT, KT, QUANT, F, HD, 4, KV>);
   else
-    run(flash_tile_kernel<QT, KT, QUANT, PARTIAL, HD, 1, KV>);
+    run(flash_tile_kernel<QT, KT, QUANT, F, HD, 1, KV>);
   return cudaGetLastError();
 }
 
-// PARTIAL: o is unused and P receives the partial outputs.
-template <typename QT, typename KT, bool QUANT, bool PARTIAL = false, typename KV>
+// A partial form: o is unused and P receives the partial outputs.
+template <typename QT, typename KT, bool QUANT, Form F = kOut, typename KV>
 cudaError_t launch(int HD, const void* q, void* o, const KV& A, int B, int S, int Hq,
                    int Hkv, float scale, long long q_sb, long long q_ss, long long q_sh,
                    cudaStream_t stream, const Partial& P = Partial{}) {
   if (HD == 128)
-    return launch_hd<QT, KT, QUANT, PARTIAL, 128>(q, o, A, B, S, Hq, Hkv, scale, q_sb, q_ss,
+    return launch_hd<QT, KT, QUANT, F, 128>(q, o, A, B, S, Hq, Hkv, scale, q_sb, q_ss,
                                                   q_sh, stream, P);
   if (HD == 64)
-    return launch_hd<QT, KT, QUANT, PARTIAL, 64>(q, o, A, B, S, Hq, Hkv, scale, q_sb, q_ss,
+    return launch_hd<QT, KT, QUANT, F, 64>(q, o, A, B, S, Hq, Hkv, scale, q_sb, q_ss,
                                                  q_sh, stream, P);
   return cudaErrorInvalidValue;
 }

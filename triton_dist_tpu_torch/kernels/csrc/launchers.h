@@ -71,6 +71,28 @@ cudaError_t flash_decode_paged(int q_dtype, int kv_dtype, const void* q, const v
                                int HD, float scale, const long long* st,
                                cudaStream_t stream);
 
+// csrc/flash_decode_paged.cu, the partial form (the sequence-parallel
+// split-KV walk over one rank's pool shard). Arguments as
+// flash_decode_paged, with the rank's pool and its local table, plus
+// owned [B*Hkv, maxp] int32 on the device (non-zero: the rank holds that
+// logical page); outputs acc [B*Hkv, S*rep, HD], m and l [B*Hkv, S*rep]
+// f32, contiguous.
+cudaError_t flash_decode_paged_partial(int q_dtype, int kv_dtype, const void* q, const void* k,
+                                       const void* v, const void* ks, const void* vs,
+                                       const int* table, const int* kv_lens,
+                                       const int* q_lens, const int* owned, float* acc,
+                                       float* m, float* l, int B, int S, int Hq, int Hkv,
+                                       int maxp, int page, int HD, float scale,
+                                       const long long* st, cudaStream_t stream);
+
+// csrc/gdn.cu. q, k [BH, T, DK], v [BH, T, DV] contiguous, of one dtype (bf16
+// or f32); g, beta [BH, T] f32; s0 [BH, DK, DV] f32 or null (zeros); outputs
+// o [BH, T, DV] in q's dtype and sT [BH, DK, DV] f32. DK and DV in {64, 128},
+// chunk C in {32, 64}.
+cudaError_t gdn_fwd(int dtype, const void* q, const void* k, const void* v, const float* g,
+                    const float* beta, const float* s0, void* o, float* sT, int BH, int T,
+                    int DK, int DV, int C, cudaStream_t stream);
+
 // csrc/kv_update.cu. cache: [B, H, T, row_bytes] contiguous bytes; src
 // strides in bytes.
 cudaError_t kv_update(void* cache, const void* src, int pos, int B, int H, int T, int S,

@@ -2,7 +2,7 @@
 
 Counterpart of triton_dist_tpu/kernels/paged_kv.py (`flash_decode_paged`
 in its per-slot `kv_lens` decode form and its `q_lens` window form,
-`PageAllocator`), same layouts:
+`flash_decode_paged_partial`, `PageAllocator`), same layouts:
     q [B, S, Hq, d]; page pools k, v [NP, page, d] (one page = `page`
     consecutive positions of ONE (slot, kv-head) stream); page table
     [B*Hkv, max_pages] int32 (row b*Hkv + h is stream (b, h)); int8
@@ -11,9 +11,16 @@ The serving cache keeps its pools as [NP, 1, page, d] (models/kv_cache.py
 `PagedSlotCache`, the JAX head-group layout at tensor-parallel size 1);
 the layer hands plane 0 (`pool[:, 0]`, a strided view) to this function.
 
-`flash_decode_paged` launches the hand-written CUDA kernel
-(csrc/flash_decode_paged.cu) for CUDA tensors and takes the plain
-PyTorch version, `flash_decode_paged_ref`, only for CPU tensors.
+`flash_decode_paged_partial` is the split-KV partial of the
+sequence-parallel paged attend: one rank's walk over its shard of the
+pool, through its local table, over the logical pages it owns; the
+ranks' (acc, m, l) merge with `flash_attn.lse_combine` into the whole
+pool's attention.
+
+`flash_decode_paged` and `flash_decode_paged_partial` launch the
+hand-written CUDA kernel (csrc/flash_decode_paged.cu) for CUDA tensors
+and take the plain PyTorch versions, `flash_decode_paged_ref` and
+`flash_decode_paged_partial_ref`, only for CPU tensors.
 """
 
 from __future__ import annotations
@@ -23,8 +30,9 @@ from typing import List, Optional
 import torch
 
 from triton_dist_tpu_torch.kernels import _build
-from triton_dist_tpu_torch.kernels.flash_attn import (_HEAD_DIMS, _check_windows,
-                                                      flash_decode_ref)
+from triton_dist_tpu_torch.kernels.flash_attn import (_HEAD_DIMS, _check_windows, _fold_q,
+                                                      _unfold_q, flash_decode_ref)
+from triton_dist_tpu_torch.kernels.quant import dequantize_kv_int8
 
 
 def flash_decode_paged_ref(q, pages_k, pages_v, page_table, *, kv_lens,
@@ -52,9 +60,21 @@ def flash_decode_paged_ref(q, pages_k, pages_v, page_table, *, kv_lens,
                             k_scale=ks, v_scale=vs, kv_lens=kv_lens, q_lens=q_lens)
 
 
+def _check_args(q, page_table, kv_lens, q_lens, who: str) -> None:
+    B, S = q.shape[:2]
+    X = page_table.shape[0]
+    if (S != 1 and q_lens is None) or X % B:
+        raise ValueError(f"{who}: q {tuple(q.shape)} and table {tuple(page_table.shape)}: "
+                         "want S == 1 (or q_lens) and B*Hkv rows")
+    if kv_lens.shape != (B,) or kv_lens.dtype != torch.int32:
+        raise ValueError(f"{who}: kv_lens must be int32 [B={B}], got "
+                         f"{tuple(kv_lens.shape)} {kv_lens.dtype}")
+    _check_windows(q_lens, kv_lens, B, who)
+
+
 def flash_decode_paged(q, pages_k, pages_v, page_table, *, kv_lens,
                        scale: Optional[float] = None, q_lens=None,
-                       k_scale=None, v_scale=None, tile_owned=None):
+                       k_scale=None, v_scale=None):
     """Cached GQA decode attention through a page table.
 
     q: [B, S, Hq, d] (last dim contiguous); pages_k/v: [NP, page, d] of
@@ -68,23 +88,13 @@ def flash_decode_paged(q, pages_k, pages_v, page_table, *, kv_lens,
     windows) makes row b's first q_lens[b] positions a window ending at
     kv_lens[b] - 1, causal within it (flash_decode's contract). Returns
     [B, S, Hq, d] in q's dtype."""
-    if tile_owned is not None:
-        raise NotImplementedError("flash_decode_paged_partial (the sequence-"
-                                  "parallel split-KV form): not yet ported")
-    B, S, Hq, d = q.shape
-    X, maxp = page_table.shape
-    if (S != 1 and q_lens is None) or X % B:
-        raise ValueError(f"flash_decode_paged: q {tuple(q.shape)} and table "
-                         f"{tuple(page_table.shape)}: want S == 1 (or q_lens) and "
-                         "B*Hkv rows")
-    if kv_lens.shape != (B,) or kv_lens.dtype != torch.int32:
-        raise ValueError(f"flash_decode_paged: kv_lens must be int32 [B={B}], got "
-                         f"{tuple(kv_lens.shape)} {kv_lens.dtype}")
-    _check_windows(q_lens, kv_lens, B, "flash_decode_paged")
+    _check_args(q, page_table, kv_lens, q_lens, "flash_decode_paged")
     if q.device.type == "cpu":
         return flash_decode_paged_ref(q, pages_k, pages_v, page_table, scale=scale,
                                       kv_lens=kv_lens, q_lens=q_lens, k_scale=k_scale,
                                       v_scale=v_scale)
+    B, S, Hq, d = q.shape
+    X, maxp = page_table.shape
     Hkv = X // B
     page = pages_k.shape[1]
     if scale is None:
@@ -103,6 +113,100 @@ def flash_decode_paged(q, pages_k, pages_v, page_table, *, kv_lens,
         _build.stream_ptr(q.device))
     _build.count("flash_decode_paged")
     return out
+
+
+def flash_decode_paged_partial_ref(q, pages_k, pages_v, page_table, *, kv_lens, tile_owned,
+                                   scale: Optional[float] = None, q_lens=None,
+                                   k_scale=None, v_scale=None):
+    """Plain version of flash_decode_paged_partial: gather every stream's
+    pages through the (local) table, drop the keys of logical pages the
+    rank does not own, then the partial math of flash_attn._partial_ref
+    with each row's own frontier (kv_lens, q_lens) in f32. Returns (acc
+    [B, S, Hq, d], m [B, S, Hq], l [B, S, Hq]); a row with no owned key
+    gives (0, -1e30, 0)."""
+    B, S, Hq, d = q.shape
+    X, maxp = page_table.shape
+    Hkv = X // B
+    rep = Hq // Hkv
+    page = pages_k.shape[1]
+    if scale is None:
+        scale = d ** -0.5
+    tbl = page_table.long()
+
+    def gather(pool):
+        return pool[tbl].reshape((X, maxp * page) + pool.shape[2:])
+
+    if k_scale is not None:
+        kf = dequantize_kv_int8(gather(pages_k), gather(k_scale))
+        vf = dequantize_kv_int8(gather(pages_v), gather(v_scale))
+    else:
+        kf, vf = gather(pages_k).float(), gather(pages_v).float()
+    s = torch.bmm(_fold_q(q, Hkv).float(), kf.transpose(1, 2)) * scale    # [X, R, T]
+    row = torch.arange(S * rep, device=q.device)[None, :, None] // rep
+    col = torch.arange(maxp * page, device=q.device)[None, None, :]
+    kvl = kv_lens.to(q.device, torch.long).repeat_interleave(Hkv)[:, None, None]
+    ql = (torch.ones_like(kvl) if q_lens is None
+          else q_lens.to(q.device, torch.long).repeat_interleave(Hkv)[:, None, None])
+    own = tile_owned.to(q.device).bool().repeat_interleave(page, dim=1)[:, None, :]
+    mask = (col <= kvl - ql + torch.minimum(row, ql - 1)) & (col < kvl) & own
+    m = torch.where(mask, s, torch.full_like(s, -1e30)).amax(-1)
+    p = torch.where(mask, torch.exp(s - m[..., None]), torch.zeros_like(s))
+    acc, l = torch.bmm(p, vf), p.sum(-1)
+    return _unfold_q(acc, B, S, Hkv), _unfold_q(m, B, S, Hkv), _unfold_q(l, B, S, Hkv)
+
+
+def flash_decode_paged_partial(q, pages_k, pages_v, page_table, *, kv_lens, tile_owned,
+                               scale: Optional[float] = None, q_lens=None, k_scale=None,
+                               v_scale=None):
+    """Split-KV partial of the paged walk: the sequence-parallel paged
+    attend's per-rank kernel.
+
+    Same per-stream contract as flash_decode_paged(kv_lens=..,
+    q_lens=..), with two changes for a pool sharded over ranks: pages_k/v
+    (and the int8 scale planes) are this rank's shard of the pool and
+    page_table is the rank's LOCAL table, whose entries for logical pages
+    the rank does not own point at some page of the shard (they are never
+    read); tile_owned [B*Hkv, max_pages] int32 on q's device marks the
+    logical pages this rank owns (non-zero). Keys on pages not owned
+    contribute nothing. Returns (acc [B, S, Hq, d] unnormalised, m
+    [B, S, Hq], l [B, S, Hq]), all f32, which flash_attn.lse_combine
+    merges across ranks into the whole pool's attention; a row that owns
+    no key returns (0, -1e30, 0), the combine's neutral element."""
+    who = "flash_decode_paged_partial"
+    _check_args(q, page_table, kv_lens, q_lens, who)
+    if (tile_owned.shape != page_table.shape or tile_owned.dtype != torch.int32
+            or tile_owned.device != q.device or not tile_owned.is_contiguous()):
+        raise ValueError(f"{who}: tile_owned must be contiguous int32 "
+                         f"{tuple(page_table.shape)} on q's device, got "
+                         f"{tuple(tile_owned.shape)} {tile_owned.dtype} on {tile_owned.device}")
+    if q.device.type == "cpu":
+        return flash_decode_paged_partial_ref(q, pages_k, pages_v, page_table,
+                                              kv_lens=kv_lens, tile_owned=tile_owned,
+                                              scale=scale, q_lens=q_lens, k_scale=k_scale,
+                                              v_scale=v_scale)
+    B, S, Hq, d = q.shape
+    X, maxp = page_table.shape
+    Hkv = X // B
+    R = S * (Hq // Hkv)
+    page = pages_k.shape[1]
+    if scale is None:
+        scale = d ** -0.5
+    quant = k_scale is not None
+    _validate_paged(q, pages_k, pages_v, page_table, kv_lens, k_scale, v_scale, quant)
+    acc = torch.empty((X, R, d), dtype=torch.float32, device=q.device)
+    m = torch.empty((X, R), dtype=torch.float32, device=q.device)
+    l = torch.empty((X, R), dtype=torch.float32, device=q.device)
+    _build.ext().flash_decode_paged_partial(
+        _build.DTYPE_CODES[q.dtype], _build.DTYPE_CODES[pages_k.dtype],
+        q.data_ptr(), pages_k.data_ptr(), pages_v.data_ptr(),
+        k_scale.data_ptr() if quant else 0, v_scale.data_ptr() if quant else 0,
+        page_table.data_ptr(), kv_lens.data_ptr(),
+        0 if q_lens is None else q_lens.data_ptr(), tile_owned.data_ptr(), acc.data_ptr(),
+        m.data_ptr(), l.data_ptr(), B, S, Hq, Hkv, maxp, page, d, float(scale),
+        q.stride(0), q.stride(1), q.stride(2), pages_k.stride(0), pages_k.stride(1),
+        k_scale.stride(0) if quant else 0, _build.stream_ptr(q.device))
+    _build.count("flash_decode_paged_partial")
+    return _unfold_q(acc, B, S, Hkv), _unfold_q(m, B, S, Hkv), _unfold_q(l, B, S, Hkv)
 
 
 def _validate_paged(q, pk, pv, table, lens, k_scale, v_scale, quant: bool) -> None:

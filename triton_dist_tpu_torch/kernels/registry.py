@@ -1,0 +1,147 @@
+"""The kernel registry: one canonical call for each single-card kernel.
+
+Counterpart of the single-card half of triton_dist_tpu/kernels/__init__.py
+(`KernelSpec`, `kernel_registry` and the build functions `_b_flash_decode`,
+`_b_flash_decode_paged`, `_b_kv_update`, `_b_grouped_gemm`, `_b_swiglu`,
+`_b_gdn`, `_b_flash_attention`): the eight specs whose `min_devices` is 1.
+Each build function draws its inputs from the same
+`np.random.RandomState(seed)`, in the same order and shapes, as its JAX
+counterpart, so that both registries' canonical calls see equal inputs.
+The one difference is grouped_gemm's: its kernel takes bf16, so the
+drawn values are rounded to bf16.
+
+`KernelSpec` keeps the fields the port reads (name, module, kind, build,
+min_devices, inplace); the JAX spec's protocol, vmem_budget,
+ablation_phases, tunables, tune_dims and variants feed tools the port
+does not have yet (tdcheck, kprof, tune, sweep). The registry is read by
+`tools/perf_report.py` (`registry_coverage`) and by chip_smoke.py, which
+runs every spec on the card and holds it to the same spec run on the CPU.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import functools
+from typing import Callable, Tuple
+
+import numpy as np
+import torch
+
+
+@dataclasses.dataclass(frozen=True)
+class KernelSpec:
+    """One registered kernel. build(device) -> (fn, args): fn(*args) is
+    the public op at small canonical shapes, its tensors on `device`.
+    kind: "compute" or "paged" (the JAX spec's category). inplace: the
+    positions in args that the call updates in place (the JAX spec's
+    input/output aliasing)."""
+
+    name: str
+    module: str
+    kind: str
+    build: Callable
+    min_devices: int = 1
+    inplace: Tuple[int, ...] = ()
+
+
+def _f32(rng, *shape):
+    return torch.from_numpy(rng.randn(*shape).astype(np.float32)) * 0.1
+
+
+def _on(device, *ts):
+    return tuple(t.to(device) for t in ts)
+
+
+def _b_flash_decode(device):
+    from triton_dist_tpu_torch.kernels.flash_attn import flash_decode
+    rng = np.random.RandomState(13)
+    B, Hq, Hkv, T, d = 2, 4, 2, 256, 128
+    q = _f32(rng, B, 1, Hq, d)
+    k = _f32(rng, B, Hkv, T, d)
+    v = _f32(rng, B, Hkv, T, d)
+    return (lambda q_, k_, v_: flash_decode(q_, k_, v_, T)), _on(device, q, k, v)
+
+
+def _b_flash_decode_paged(partial: bool):
+    def build(device):
+        from triton_dist_tpu_torch.kernels.paged_kv import (flash_decode_paged,
+                                                            flash_decode_paged_partial)
+        rng = np.random.RandomState(14)
+        B, Hq, Hkv, d, page, maxp = 2, 4, 2, 128, 128, 4
+        NP = B * Hkv * maxp
+        q = _f32(rng, B, 1, Hq, d)
+        pages = _f32(rng, NP, page, d)
+        table = torch.arange(NP, dtype=torch.int32).reshape(B * Hkv, maxp)
+        kv_lens = torch.tensor([page * maxp, page], dtype=torch.int32, device=device)
+        args = _on(device, q, pages, pages, table)
+        if partial:
+            owned = torch.ones(B * Hkv, maxp, dtype=torch.int32, device=device)
+            return (lambda q_, pk, pv, t_: flash_decode_paged_partial(
+                q_, pk, pv, t_, kv_lens=kv_lens, tile_owned=owned)), args
+        return (lambda q_, pk, pv, t_: flash_decode_paged(q_, pk, pv, t_,
+                                                          kv_lens=kv_lens)), args
+    return build
+
+
+def _b_kv_update(device):
+    from triton_dist_tpu_torch.kernels.flash_attn import kv_update
+    rng = np.random.RandomState(15)
+    B, H, T, d, S = 1, 2, 256, 128, 8
+    cache = _f32(rng, B, H, T, d)
+    new = _f32(rng, B, H, S, d)
+    return (lambda c, n_: kv_update(c, n_, 0)), _on(device, cache, new)
+
+
+def _b_grouped_gemm(device):
+    from triton_dist_tpu_torch.kernels.group_gemm import grouped_gemm
+    rng = np.random.RandomState(16)
+    x = _f32(rng, 2, 64, 128)
+    w = _f32(rng, 2, 128, 128)
+    return grouped_gemm, _on(device, x.to(torch.bfloat16), w.to(torch.bfloat16))
+
+
+def _b_swiglu(device):
+    from triton_dist_tpu_torch.kernels.swiglu import swiglu
+    rng = np.random.RandomState(17)
+    return swiglu, _on(device, _f32(rng, 64, 256))
+
+
+def _b_gdn(device):
+    from triton_dist_tpu_torch.kernels.gdn import gdn_fwd
+    rng = np.random.RandomState(18)
+    B, H, T, d = 1, 2, 128, 128
+    q = _f32(rng, B, H, T, d)
+    k = _f32(rng, B, H, T, d)
+    v = _f32(rng, B, H, T, d)
+    g = torch.from_numpy((-np.abs(rng.rand(B, H, T)) * 0.1).astype(np.float32))
+    b = torch.from_numpy(rng.rand(B, H, T).astype(np.float32))
+    return gdn_fwd, _on(device, q, k, v, g, b)
+
+
+def _b_flash_attention(device):
+    from triton_dist_tpu_torch.kernels.flash_attn_train import flash_attention
+    rng = np.random.RandomState(19)
+    B, S, Hq, Hkv, d = 1, 128, 2, 2, 128
+    q = _f32(rng, B, S, Hq, d)
+    k = _f32(rng, B, Hkv, S, d)
+    v = _f32(rng, B, Hkv, S, d)
+    return flash_attention, _on(device, q, k, v)
+
+
+@functools.lru_cache(maxsize=None)
+def kernel_registry() -> dict:
+    """The canonical enumeration of the port's kernels: name -> KernelSpec."""
+    specs = [
+        KernelSpec("flash_decode", "kernels.flash_attn", "compute", _b_flash_decode),
+        KernelSpec("flash_decode_paged", "kernels.paged_kv", "paged",
+                   _b_flash_decode_paged(False)),
+        KernelSpec("flash_decode_paged_partial", "kernels.paged_kv", "paged",
+                   _b_flash_decode_paged(True)),
+        KernelSpec("kv_update", "kernels.flash_attn", "compute", _b_kv_update, inplace=(0,)),
+        KernelSpec("grouped_gemm", "kernels.group_gemm", "compute", _b_grouped_gemm),
+        KernelSpec("swiglu", "kernels.swiglu", "compute", _b_swiglu),
+        KernelSpec("gdn_fwd", "kernels.gdn", "compute", _b_gdn),
+        KernelSpec("flash_attention", "kernels.flash_attn_train", "compute",
+                   _b_flash_attention),
+    ]
+    return {s.name: s for s in specs}

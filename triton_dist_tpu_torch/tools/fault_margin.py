@@ -77,6 +77,22 @@ parameters against TRAIN_GRAD_LIMIT (chip_smoke.py's):
     gemm skips a K panel          every GEMM launch of ag_gemm and gemm_rs
                                   reads A's first 32 columns as zero
 
+    python3 -m triton_dist_tpu_torch.tools.fault_margin --gdn
+
+holds the GDN forward instead: the gdn_fwd kernel (mode "pallas") at
+chip_smoke.py's rows 10a-10e (GDN_CASES, built by gdn_case) against its
+plain version gdn_chunk_ref on the same inputs. The gap of a row is the
+larger of max|d o| / max|o| and max|d S_T| / max|S_T|. Each fault is
+planted by wrapping the plain version's inputs (the kernel is
+unchanged), and its gap is that of the faulted plain run against the
+clean one, the gap a kernel with that fault would show:
+
+    gdn drop one beta       token T/2 is not written (beta = 0)
+    gdn g shifted a token   each token takes the previous token's decay
+    gdn drop S0             the initial state is left out (rows with S0)
+
+The limit is GDN_LIMIT (chip_smoke.py's).
+
 Prints one line per configuration and case with the largest relative gap
 over the steps and whether a limit of LIMIT times the largest logit
 catches it; needs one card.
@@ -99,6 +115,20 @@ MOE_DL_REQS, MOE_DL_SLOTS, SERVE_MAX_SEQ = 8, 4, 224
 SERVE_GRID = (0.01, 0.02, 0.03, 0.05, 0.07, 0.1)
 TRAIN_B, TRAIN_S = 4, 1024      # chip_smoke.py's training step
 TRAIN_LOSS_LIMIT, TRAIN_GRAD_LIMIT = 1e-4, 0.15    # chip_smoke.py's
+GDN_LIMIT = 1e-2                # chip_smoke.py's
+# chip_smoke.py's GDN rows: (case, B, H, T, dk, dv, chunk, dtype, S0, decay):
+# 10a the JAX report's on-chip shape; 10b one Qwen3-Next-80B-A3B GDN
+# layer's prefill (32 value heads, the 16 q/k heads repeated to them,
+# head dims 128) at 8192 tokens; 10c the registry's shape with S0; 10d a
+# ragged T; 10e the deep-decay span (g in [-3.5, -2.5) a token). decay
+# "mild": g in [-0.1, 0)
+GDN_CASES = (
+    ("10a", 8, 16, 2048, 128, 128, 64, torch.bfloat16, False, "mild"),
+    ("10b", 1, 32, 8192, 128, 128, 64, torch.bfloat16, False, "mild"),
+    ("10c", 1, 2, 128, 128, 128, 64, torch.float32, True, "mild"),
+    ("10d", 2, 8, 200, 64, 64, 32, torch.float32, True, "mild"),
+    ("10e", 1, 2, 128, 128, 128, 64, torch.float32, False, "deep"),
+)
 
 
 def _faults(real, int8: bool):
@@ -496,6 +526,70 @@ def _train_fault(case: str):
         allgather_gemm.gemm = gemm_reduce_scatter.gemm = real
 
 
+def gdn_case(case, device="cuda", seed=0) -> dict:
+    """The inputs of GDN_CASES row `case`, made on `device` from `seed`:
+    q and k rows of unit norm (as the model normalises them, which keeps
+    the delta rule a contraction) but in 10e (the JAX deep-decay test's
+    0.3 randn); v 0.3 randn; beta in [0, 1); S0 0.05 randn. Returns the
+    gdn_fwd keyword arguments (q, k, v, g, beta, S0, chunk)."""
+    name, B, H, T, dk, dv, chunk, dt, s0, decay = next(c for c in GDN_CASES if c[0] == case)
+    gen = torch.Generator(device=device).manual_seed(seed)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=device)
+
+    def unit(x):
+        return x if decay == "deep" else x / x.norm(dim=-1, keepdim=True)
+    Hqk = 16 if name == "10b" else H       # 10b: 16 q/k heads for 32 value heads
+    q = unit(randn(B, Hqk, T, dk) * 0.3)
+    k = unit(randn(B, Hqk, T, dk) * 0.3)
+    if Hqk != H:
+        q, k = q.repeat_interleave(H // Hqk, 1), k.repeat_interleave(H // Hqk, 1)
+    v = randn(B, H, T, dv) * 0.3
+    u = torch.rand((B, H, T), generator=gen, device=device)
+    g = -(2.5 + u) if decay == "deep" else -0.1 * u
+    beta = torch.rand((B, H, T), generator=gen, device=device)
+    return dict(q=q.to(dt).contiguous(), k=k.to(dt).contiguous(), v=v.to(dt), g=g,
+                beta=beta, S0=randn(B, H, dk, dv) * 0.05 if s0 else None, chunk=chunk)
+
+
+def gdn_gap(got, ref) -> float:
+    """max over (o, S_T) of max|got - ref| / max|ref|."""
+    return max(_rel(a.float(), b.float()) for a, b in zip(got, ref))
+
+
+def gdn_faults(kw: dict) -> dict:
+    """The planted faults of GDN_CASES rows, as wrapped inputs of the
+    plain version: name -> gdn_fwd keyword arguments."""
+    T = kw["q"].shape[2]
+    beta = kw["beta"].clone()
+    beta[..., T // 2] = 0
+    out = {"gdn drop one beta": dict(kw, beta=beta),
+           "gdn g shifted a token": dict(kw, g=torch.roll(kw["g"], 1, -1))}
+    if kw["S0"] is not None:
+        out["gdn drop S0"] = dict(kw, S0=None)
+    return out
+
+
+def run_gdn():
+    """Each GDN_CASES row: the kernel against its plain version, clean,
+    beside each planted fault's gap."""
+    from triton_dist_tpu_torch.kernels import gdn_chunk_ref, gdn_fwd
+    results = {}
+    for case in GDN_CASES:
+        kw = gdn_case(case[0])
+        ref = gdn_chunk_ref(**kw)
+        res = {"gdn clean": gdn_gap(gdn_fwd(**kw), ref)}
+        for name, fkw in gdn_faults(kw).items():
+            res[name] = gdn_gap(gdn_chunk_ref(**fkw), ref)
+        torch.cuda.synchronize()
+        results[case[0]] = res
+        print(f"gdn {case[0]}: " + "; ".join(
+            f"{n} {g:.3g} ({_caught(g, GDN_LIMIT)})" for n, g in res.items()), flush=True)
+        del kw, ref
+    return results
+
+
 def run_train(m):
     """The training step, plain against the kernels clean and with each
     planted fault."""
@@ -526,6 +620,9 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("fault_margin: needs an NVIDIA card", file=sys.stderr)
         return 2
+    if "--gdn" in sys.argv[1:]:
+        print(json.dumps({"limit": GDN_LIMIT, "gdn": run_gdn()}), flush=True)
+        return 0
     import triton_dist_tpu_torch.models as m
     from triton_dist_tpu_torch.layers import tp_attn
     if "--train" in sys.argv[1:]:

@@ -1,0 +1,221 @@
+"""Per-op roofline report: each ported kernel's time on the card against
+the least time the card could take (its SOL, tools/perf_model.py).
+
+    python3 -m triton_dist_tpu_torch.tools.perf_report [--json PATH]
+
+Counterpart of triton_dist_tpu/tools/perf_report.py (`_time`, `chain`,
+`_ROW_OF`, `registry_coverage`, `sol_frac_rows`, `run_report`) for the
+rows one card runs in the port, at the JAX report's on-chip shapes, bf16:
+ag_gemm and gemm_rs at world size 1 (M=256, K=N=4096), flash_decode (B=8,
+16 query and 8 kv heads, T=2048, d=128), flash_decode_paged (the same
+keys in 128-row pages) and gdn_fwd(pallas) (B=8, H=16, T=2048,
+dk=dv=128, C=64). The collective rows and the rows of kernels not yet
+ported are listed under `not_ported`. Each row carries its plain version,
+so that a caller can hold the op's output at the timed shape against it
+(chip_smoke.py does). It needs a card and raises without one: no row is
+ever timed on the CPU.
+"""
+
+from __future__ import annotations
+
+import argparse
+import datetime
+import functools
+import json
+import os
+import subprocess
+from typing import Callable, NamedTuple
+
+import torch
+
+from triton_dist_tpu_torch.tools.perf_model import chip_specs, gemm_sol_us, sol_report
+
+_REPO = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+# the JAX report's rows that need more than one card or a kernel not yet
+# ported
+NOT_PORTED = ("all_gather(one_shot)", "all_gather(ring)", "all_reduce(one_shot)",
+              "all_reduce(two_shot)", "reduce_scatter", "gemm_allreduce", "ag_group_gemm",
+              "moe_reduce_rs", "moe_reduce_ar", "ep_fused", "ulysses_qkv_gemm_a2a",
+              "ulysses_o_a2a_gemm", "pp_gpipe_fwd", "sp_ring(ring_shmem)", "sp_ring(ring)")
+
+# registry name -> this report's row name, where they differ
+_ROW_OF = {"gdn_fwd": "gdn_fwd(pallas)"}
+
+
+def chain(op):
+    """A step that threads a data dependence through the timed loop: the
+    op's output nudges one element of its input by a negligible amount
+    (two tiny launches), so launch i+1 reads what launch i wrote."""
+    def step(v):
+        out = op(v)
+        out = out[0] if isinstance(out, tuple) else out
+        v.view(-1)[:1].add_(out.reshape(-1)[:1].to(v.dtype), alpha=1e-30)
+        return v
+    return step
+
+
+def _time(step, x0, *, k1: int = 8, k2: int = 40, reps: int = 3, slopes: int = 3) -> float:
+    """Two-point timing: the per-op time is the slope between k1 and k2
+    chained launches, each run bracketed by CUDA events, which cancels
+    the fixed cost of a run; the best of `reps` runs at each point, and
+    one slope from the minima over `slopes` rounds (the JAX harness's
+    rule). Returns microseconds."""
+    def run(k):
+        v = x0
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(k):
+            v = step(v)
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end)
+
+    run(k1)                                  # warm-up
+    t1s, t2s = [], []
+    for _ in range(slopes):
+        t1s.append(min(run(k1) for _ in range(reps)))
+        t2s.append(min(run(k2) for _ in range(reps)))
+    return max((min(t2s) - min(t1s)) / (k2 - k1), 1e-6) * 1e3
+
+
+def registry_coverage(measured_ops):
+    """The report's rows against the port's kernel registry: a registered
+    kernel with no row here is listed under `uncovered`."""
+    from triton_dist_tpu_torch.kernels import kernel_registry
+    measured = set(measured_ops)
+    reg = kernel_registry()
+    return {"kernels_registered": len(reg),
+            "uncovered": sorted(n for n in reg if _ROW_OF.get(n, n) not in measured)}
+
+
+def sol_frac_rows(report):
+    """One `{op}_sol_frac` row per measured op of a run_report() dict."""
+    env = report.get("env", {})
+    return [{"metric": f"{r['op']}_sol_frac", "value": round(float(r["sol_frac"]), 5),
+             "unit": "frac of SOL", "achieved_us": round(float(r["achieved_us"]), 3),
+             "sol_us": round(float(r["sol_us"]), 3), "device": env.get("device")}
+            for r in report.get("ops", [])]
+
+
+def _env(spec) -> dict:
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True, text=True,
+                          check=True).stdout.strip().splitlines()[0]
+    try:
+        git = subprocess.run(["git", "-C", _REPO, "rev-parse", "--short", "HEAD"],
+                             capture_output=True, text=True, timeout=10).stdout.strip()
+        dirty = bool(subprocess.run(["git", "-C", _REPO, "status", "--porcelain"],
+                                    capture_output=True, text=True,
+                                    timeout=10).stdout.strip())
+    except (OSError, subprocess.SubprocessError):
+        git, dirty = "", False
+    return {"device": torch.cuda.get_device_name(0), "card": card,
+            "ndev": torch.cuda.device_count(), "chip": spec.name,
+            "git": (git + ("+dirty" if dirty else "")) if git else "unknown",
+            "date": datetime.datetime.now(datetime.timezone.utc).isoformat(
+                timespec="seconds")}
+
+
+class Row(NamedTuple):
+    """One row of the report: `fn(*args)` is one launch of the op at the
+    timed shape and `plain(*args)` its plain version on the same inputs;
+    the timed loop chains through args[0]."""
+    op: str
+    fn: Callable
+    plain: Callable
+    args: tuple
+    sol_us: float
+    note: str = ""
+
+
+def report_rows(spec) -> list:
+    """The report's rows at the JAX report's on-chip shapes, bf16, their
+    inputs drawn on the card from seed 0."""
+    from triton_dist_tpu_torch.kernels import (ag_gemm, ag_gemm_ref, flash_decode,
+                                               flash_decode_paged, flash_decode_paged_ref,
+                                               flash_decode_ref, gdn_chunk_ref, gdn_fwd,
+                                               gemm_rs, gemm_rs_ref)
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    dt = torch.bfloat16
+    rows = []
+
+    def randn(*shape, sc=1.0):
+        return (torch.randn(shape, generator=gen, device=dev) * sc).to(dt)
+
+    M, K, N = 256, 4096, 4096
+    a, b = randn(M, K), randn(K, N)
+    rows.append(Row("ag_gemm", functools.partial(ag_gemm, world_size=1), ag_gemm_ref, (a, b),
+                    gemm_sol_us(M, K, N, spec=spec), "world size 1"))
+    rows.append(Row("gemm_rs", functools.partial(gemm_rs, world_size=1), gemm_rs_ref, (a, b),
+                    gemm_sol_us(M, K, N, spec=spec), "world size 1"))
+
+    B, Hq, Hkv, T, d = 8, 16, 8, 2048, 128
+    q = randn(B, 1, Hq, d)
+    k, v = randn(B, Hkv, T, d), randn(B, Hkv, T, d)
+    kv_us = 2 * B * Hkv * T * d * 2 / (spec.hbm_gbps * 1e9) * 1e6
+    rows.append(Row("flash_decode", flash_decode, flash_decode_ref, (q, k, v, T), kv_us))
+    pg = 128
+    maxp = T // pg
+    pk, pv = k.reshape(B * Hkv * maxp, pg, d), v.reshape(B * Hkv * maxp, pg, d)
+    table = torch.arange(B * Hkv * maxp, dtype=torch.int32, device=dev).reshape(-1, maxp)
+    lens = torch.full((B,), T, dtype=torch.int32, device=dev)
+    rows.append(Row("flash_decode_paged",
+                    lambda u, pk, pv, t, n: flash_decode_paged(u, pk, pv, t, kv_lens=n),
+                    lambda u, pk, pv, t, n: flash_decode_paged_ref(u, pk, pv, t, kv_lens=n),
+                    (q, pk, pv, table, lens), kv_us,
+                    "same bytes as flash_decode; gap = page-walk overhead"))
+
+    # GDN: q and k rows of unit norm (as the model normalises them), so
+    # the delta rule stays a contraction; the JAX report's roofline, data
+    # traffic against the chunk products
+    Bg, Hg, Tg, dk, dv, C = 8, 16, 2048, 128, 128, 64
+    unit = lambda x: (x.float() / x.float().norm(dim=-1, keepdim=True)).to(dt)  # noqa: E731
+    qg, kg = unit(randn(Bg, Hg, Tg, dk)), unit(randn(Bg, Hg, Tg, dk))
+    vg = randn(Bg, Hg, Tg, dv, sc=0.3)
+    gg = -torch.rand(Bg, Hg, Tg, generator=gen, device=dev) * 0.1
+    bg = torch.rand(Bg, Hg, Tg, generator=gen, device=dev)
+    gdn_bytes = Bg * Hg * Tg * (2 * dk + 2 * dv) * 2
+    gdn_flops = 2 * Bg * Hg * Tg * (2 * C * dk + 2 * C * dv + 2 * dk * dv)
+    gdn_sol = max(gdn_bytes / (spec.hbm_gbps * 1e9),
+                  gdn_flops / (spec.bf16_tflops * 1e12)) * 1e6
+    rows.append(Row("gdn_fwd(pallas)", functools.partial(gdn_fwd, chunk=C),
+                    functools.partial(gdn_chunk_ref, chunk=C), (qg, kg, vg, gg, bg), gdn_sol))
+    return rows
+
+
+def run_report(write_json=None, rows=None) -> dict:
+    """Time every row of `rows` (by default report_rows()) on the card;
+    returns {"env", "ops", "not_ported", "registry"}."""
+    if not torch.cuda.is_available():
+        raise RuntimeError("perf_report: needs an NVIDIA card (no CPU rows)")
+    spec = chip_specs()
+    env = _env(spec)
+    out_rows = []
+    for r in report_rows(spec) if rows is None else rows:
+        t = _time(chain(lambda u, r=r: r.fn(u, *r.args[1:])), r.args[0].clone())
+        out_rows.append({"op": r.op, "achieved_us": t, "sol_us": r.sol_us,
+                         "sol_frac": r.sol_us / t, "note": r.note})
+        print(sol_report(r.op, t, r.sol_us) + (f"  [{r.note}]" if r.note else ""), flush=True)
+
+    out = {"env": env, "ops": out_rows, "not_ported": list(NOT_PORTED),
+           "registry": registry_coverage([r["op"] for r in out_rows])}
+    if write_json:
+        with open(write_json, "w") as f:
+            json.dump(out, f, indent=1)
+        print(f"wrote {write_json}", flush=True)
+    return out
+
+
+def main():
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--json", default=None)
+    args = ap.parse_args()
+    report = run_report(args.json)
+    print(json.dumps(report["env"]), flush=True)
+
+
+if __name__ == "__main__":
+    main()
