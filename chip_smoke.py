@@ -120,7 +120,7 @@ NVIDIA card: the quickest proof that the port still starts on the GPU.
    version, LSE-combine to flash_decode_paged over the whole pool; a
    batch row whose pages all lie on rank 0 is bitwise (0, -1e30, 0) on
    the other ranks. Then the main path of this slice, its entry points:
-   every kernel_registry() spec built on the card at its canonical shape
+   every single-card kernel_registry() spec built on the card at its canonical shape
    and run (exact launch counts), each held to the same spec run on the
    CPU, then perf_report.run_report() (ag_gemm and gemm_rs at world size
    1, flash_decode, flash_decode_paged, gdn_fwd), each row's op first
@@ -146,12 +146,35 @@ NVIDIA card: the quickest proof that the port still starts on the GPU.
    The serving phase: the first 64 of the 128 requests (one wave of
    the slots) through ContinuousScheduler(paged=True) at capacity 2.0
    (exact launch counts, the MoE counters, the tick probe), then a
-   dropless arm (8 requests, 4 slots, no drop) whose 8 served streams
-   are held to the contiguous flash engine teacher-forced along them,
+   dropless arm (8 requests, 4 slots, no drop) whose first
+   MOE_DL_TF_REQS served streams are held to the contiguous flash engine
+   teacher-forced along them,
    and that engine to the plain one with the routing pinned; the same
    arm with prefill_budget 32 (a mixed tick routes its whole window,
-   padding too; exact launch counts; 4 of its streams held so).
-11. Prints one JSON line of per-kernel results, then, last, the device
+   padding too; exact launch counts; MOE_TF_REQS of its streams held so).
+11. Tensor-parallel phase (tools/tp_check.py `run`, Qwen3-1.7B at its
+   28 layers), over four ranks emulated on the one card
+   (`make_mesh(4, devices=["cuda:0"] * 4)`: the same device code as on
+   four cards, every rank's CTAs resident on this one, peers reached by
+   plain pointers; it proves the collectives' arithmetic, signalling and
+   epochs, not NVLink peer access nor the ordering of stores across
+   cards, which `python3 -m triton_dist_tpu_torch.tools.tp_check --cards
+   4` checks). The registry's comm specs on the mesh, held bitwise (their
+   gemm_ar within GEMM_AR_LIMIT) to the same specs on a CPU mesh, with
+   all_gather and reduce_scatter launched by them; the kernel rows of
+   all_reduce, all_gather, reduce_scatter (bitwise to their plain
+   versions, every rank equal, CALLS calls on fresh inputs) and
+   gemm_allreduce (bf16 and int8 panels, within GEMM_AR_LIMIT); Engine
+   "ar" and "gemm_ar" over the mesh, B=128 after a 128-token prompt
+   (prefill on "xla" launching no kernel; decode launching the
+   per-layer kernels and the comm kernel, all_reduce two-shot at 128
+   rows and no one-shot), teacher-forced against the one-rank "xla"
+   engine by the margin rule of 4.; paged serving at 64 slots on
+   "gemm_ar" and "ar" (the all_reduce one-shot at 64 rows and no
+   two-shot) over the serving traffic's first tp_check.N_REQ (16)
+   requests, admissions launching no comm kernel, ticks doing, every
+   served stream of both backends held to the one-rank plain engine.
+12. Prints one JSON line of per-kernel results, then, last, the device
    line {"ok": true, "device": {...}}.
 
 Exits non-zero, printing no result, if there is no CUDA device, if the
@@ -162,7 +185,6 @@ from __future__ import annotations
 
 import gc
 import json
-import os
 import statistics
 import subprocess
 import sys
@@ -170,6 +192,14 @@ import time
 
 import numpy as np
 import torch
+
+try:
+    from triton_dist_tpu_torch.tools.checks import (
+        check, distinct, margin_gate, only_launched, serving_requests, tf_gate)
+except ImportError as e:          # main() reports it
+    PACKAGE_MISSING = e
+else:
+    PACKAGE_MISSING = None
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM, NVIDIA data sheet
 BF16_FLOPS_PER_S = 989e12      # dense bf16 tensor-core peak, same source
@@ -190,11 +220,11 @@ CL_LIVE, CL_PLEN, CL_GEN, CL_LONG, CL_BUDGET = 6, 16, 192, 384, 32
 SERVE_BUDGET = 64
 # the first-poll ms of each serving phase's tick probe, by label
 FIRST_POLL_MS = {}
-# serving: slots, chunk, slot capacity (prompt <= 144 + gen <= 64 plus the
-# paged pool's chunk margin of 15), requests, system prompts and their
-# length, requests teacher-forced against the plain engine
+# serving (its traffic: tools/checks.py serving_requests): slots, chunk,
+# slot capacity (prompt <= 144 + gen <= 64 plus the paged pool's chunk
+# margin of 15), requests teacher-forced against the plain engine
 SERVE_B, SERVE_CHUNK, SERVE_MAX_SEQ = 64, 16, 224
-N_REQ, N_SYS, SYS_LEN, TF_REQS = 128, 4, 96, 8
+TF_REQS = 8
 # MoE: the teacher-forced arm's batch and prompt, the dropless serving
 # arm's requests and slots, the logit limit of flash against the plain
 # backend with the routing pinned, and the margin limit of served tokens
@@ -205,10 +235,11 @@ MOE_TF_B, MOE_TF_S = 4, 64
 # tokens are not teacher-forced; the tick probe takes SERVE_B of them)
 MOE_REQS = SERVE_B
 MOE_DL_REQS, MOE_DL_SLOTS = 8, 4
-# served streams of the dropless prefill_budget arm held, teacher-forced,
-# to the contiguous flash engine with the routing pinned (about 12 s a
-# request; the monolithic arm holds all MOE_DL_REQS)
-MOE_TF_REQS = 4
+# served streams held, teacher-forced, to the contiguous flash engine with
+# the routing pinned (about 12-16 s a request): of the monolithic dropless
+# arm MOE_DL_TF_REQS (all 8 before the tensor-parallel phase came), of the
+# prefill_budget arm MOE_TF_REQS (4 before)
+MOE_DL_TF_REQS, MOE_TF_REQS = 4, 2
 MOE_LIMIT = 3e-2
 MOE_SERVE_LIMIT = 2e-2
 MOE_BUDGET = 32                # the MoE arm's prefill_budget
@@ -245,21 +276,6 @@ GDN_LIMIT = 1e-2
 GDN_F64_TOL = {"10c": (2e-4, 2e-4), "10d": (2e-4, 2e-4), "10e": (2e-4, 2e-3)}
 # the sequence-parallel degree of the paged partial's emulation
 SP_RANKS = 4
-
-
-class CheckFailed(Exception):
-    pass
-
-
-def check(ok: bool, what: str) -> None:
-    if not ok:
-        raise CheckFailed(what)
-
-
-def only_launched(counts: dict, allowed, label: str) -> None:
-    """Every kernel outside `allowed` launched no time (named keys)."""
-    others = {n: c for n, c in counts.items() if n not in allowed and c}
-    check(not others, f"{label}: kernels launched outside {sorted(allowed)}: {others}")
 
 
 def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
@@ -1097,16 +1113,9 @@ def moe_engine_phase(m, k, model, ids, card):
         for t in range(TF_STEPS + 1):
             check(tape.done(), f"moe dropless: step {t} replayed {tape.used} of "
                                f"{len(tape.calls)} routing calls")
-            tol = MOE_LIMIT * lr.abs().max().item()
-            err = (lf - lr).abs().max().item()
+            err, _, n_sure = margin_gate(lf, lr, f"moe dropless: step {t}", MOE_LIMIT)
             errs.append(round(err / lr.abs().max().item(), 5))
-            check(err <= tol, f"moe dropless: step {t} logits max|d| {err} > tol {tol}")
-            top2 = lr.topk(2, dim=-1).values
-            sure = (top2[:, 0] - top2[:, 1]) > 2 * tol
-            check(bool((torch.argmax(lf, -1) == torch.argmax(lr, -1))[sure].all()),
-                  f"moe dropless: step {t} greedy token differs where the margin "
-                  "exceeds the tolerance")
-            forced += int(sure.sum())
+            forced += n_sure
             if t < TF_STEPS:
                 tok = torch.argmax(lr, -1)
                 with tape.record():
@@ -1212,17 +1221,10 @@ def engine_phase(m, k, model, kv_dtype, label, ids, card, backend="flash"):
         # (triton_dist_tpu_torch/tools/fault_margin.py); a
         # read one key past kv_len stays within the clean gap here and is
         # caught by the kernel phase's cache-tail check instead.
-        tol = 5e-2 * lr.abs().max().item()
-        err = (lf - lr).abs().max().item()
+        err, tol, n_sure = margin_gate(lf, lr, f"{label}: step {t}")
         errs.append(err)
         tols.append(tol)
-        check(err <= tol, f"{label}: step {t} logits max|d| {err} > tol {tol}")
-        top2 = lr.topk(2, dim=-1).values
-        sure = (top2[:, 0] - top2[:, 1]) > 2 * tol
-        agree = torch.argmax(lf, -1) == torch.argmax(lr, -1)
-        check(bool(agree[sure].all()), f"{label}: step {t} greedy token differs "
-                                       "where the margin exceeds the tolerance")
-        forced += int(sure.sum())
+        forced += n_sure
         if t == TF_STEPS:
             break
         lf = eng.decode_step(toks[:, t], cf)
@@ -1233,20 +1235,6 @@ def engine_phase(m, k, model, kv_dtype, label, ids, card, backend="flash"):
           f"{[round(e, 4) for e in errs]} (tol {[round(x, 4) for x in tols]}), "
           f"{forced} greedy tokens checked", flush=True)
     return dict(prefill=c_prefill, decode=c_decode)
-
-
-def serving_requests(m, vocab: int):
-    """The serving traffic, seeded: N_SYS system prompts of SYS_LEN
-    tokens, each shared by N_REQ / N_SYS requests in a shuffled order,
-    each request adding a distinct 16-48-token tail and asking for 32-64
-    tokens."""
-    rng = np.random.RandomState(1)
-    prompts = [rng.randint(0, vocab, SYS_LEN) for _ in range(N_SYS)]
-    which = rng.permutation(np.arange(N_REQ) % N_SYS)
-    return [m.Request(rid=i, ids=np.concatenate(
-                [prompts[w], rng.randint(0, vocab, rng.randint(16, 49))]).astype(np.int32),
-                gen_len=int(rng.randint(32, 65)))
-            for i, w in enumerate(which)]
 
 
 def serving_phase(m, k, model, kv_dtype, label, paged, reqs, card, backend="flash",
@@ -1264,8 +1252,9 @@ def serving_phase(m, k, model, kv_dtype, label, paged, reqs, card, backend="flas
         return m.ContinuousScheduler(eng, batch=batch, chunk=SERVE_CHUNK,
                                      paged=paged, page=PAGE, prefill_budget=prefill_budget)
 
-    # warm-up (cuBLAS handles and heuristics, allocator), not counted
-    scheduler().run(reqs[:2])
+    # warm-up (cuBLAS handles and heuristics, allocator), not counted: two
+    # requests cut to one chunk still admit, tick and retire
+    scheduler().run([m.Request(r.rid, r.ids, SERVE_CHUNK) for r in reqs[:2]])
     sched = scheduler()
     ticks, mixed = count_ticks(sched)
     torch.cuda.synchronize()
@@ -1355,27 +1344,13 @@ def serving_phase(m, k, model, kv_dtype, label, paged, reqs, card, backend="flas
         check(st["moe_capacity_drops"] == 0, f"{label}: capacity drops while dropless")
 
     if moe:
-        ref, forced, worst = moe_served_check(m, model, reqs, out, tf_reqs, label)
+        forced, worst = moe_served_check(m, model, reqs, out, tf_reqs, label)
     else:
-        # teacher-forced: the plain engine over prompt + emitted tokens;
-        # each emitted token must be its argmax wherever its top-2 margin
-        # exceeds twice 5e-2 of the largest logit (the engine phase's rule)
-        ref = m.Engine(model, max_seq=SERVE_MAX_SEQ, backend="xla", kv_dtype=kv_dtype)
-        forced = 0
-        for i in np.random.RandomState(2).choice(len(reqs), tf_reqs, replace=False):
-            r = reqs[i]
-            toks = out[r.rid]
-            logits, cache = ref.prefill(r.ids[None])
-            for t in range(r.gen_len):
-                tol = 5e-2 * logits.abs().max().item()
-                top2 = logits[0].topk(2).values
-                if (top2[0] - top2[1]).item() > 2 * tol:
-                    check(int(logits[0].argmax()) == int(toks[t]),
-                          f"{label}: request {r.rid} token {t} differs from the plain "
-                          "engine where the margin exceeds the tolerance")
-                    forced += 1
-                tok = torch.tensor([[int(toks[t])]], device=model.device)
-                logits, cache = model.forward_tokens(tok, cache, mode="xla")
+        # teacher-forced: the plain engine over prompt + emitted tokens of
+        # tf_reqs seeded requests, by the engine phase's margin rule
+        held = np.random.RandomState(2).choice(len(reqs), tf_reqs, replace=False)
+        forced, _ = tf_gate(m, model, kv_dtype, [(reqs[i].ids, out[reqs[i].rid]) for i in held],
+                            label, SERVE_MAX_SEQ)
     check(forced > 0 or not tf_reqs, f"{label}: no token passed the margin rule")
     print(f"serving {label}: teacher-forced vs plain contiguous engine, "
           f"{tf_reqs} requests, {forced} tokens checked"
@@ -1384,7 +1359,7 @@ def serving_phase(m, k, model, kv_dtype, label, paged, reqs, card, backend="flas
                                 f"are within {worst:.5f} of the largest plain logit with "
                                 f"the routing pinned (limit {MOE_LIMIT})"),
           flush=True)
-    del sched, eng, ref
+    del sched, eng
     torch.cuda.empty_cache()
     return counts
 
@@ -1789,52 +1764,6 @@ def count_ticks(sched):
     return ticks, mixed
 
 
-def distinct(pairs):
-    """The distinct (prompt, stream) pairs among `pairs`, as int arrays: a
-    stream served by several runs (spec on and off, chunked and
-    monolithic) is checked once."""
-    out = {}
-    for p, st in pairs:
-        p, st = np.asarray(p, np.int32), np.asarray(st, np.int64)
-        out.setdefault((p.tobytes(), st.tobytes()), (p, st))
-    return list(out.values())
-
-
-def tf_gate(m, model, kv_dtype, pairs, label, max_seq, limit=5e-2):
-    """The distinct served streams among `pairs` [(prompt, stream)] against
-    the plain contiguous engine (backend "xla"), teacher-forced along each
-    stream: each token must be the plain argmax wherever the plain top-2
-    margin exceeds twice `limit` of that row's largest logit (the engine
-    phase's rule), and at least one token must be so checked. Streams of
-    one prompt length and length run as one batch. Returns (tokens
-    checked, distinct streams)."""
-    ref = m.Engine(model, max_seq=max_seq, backend="xla", kv_dtype=kv_dtype)
-    pairs = distinct(pairs)
-    groups = {}
-    for p, st in pairs:
-        groups.setdefault((len(p), len(st)), []).append((p, st))
-    forced = 0
-    for (_, gen), rows in groups.items():
-        ids = np.stack([p for p, _ in rows])
-        toks = torch.tensor(np.stack([st for _, st in rows]), device=model.device)
-        logits, cache = ref.prefill(ids)
-        for t in range(gen):
-            tol = limit * logits.abs().amax(-1)
-            top2 = logits.topk(2, dim=-1).values
-            sure = (top2[:, 0] - top2[:, 1]) > 2 * tol
-            agree = torch.argmax(logits, -1) == toks[:, t]
-            check(bool(agree[sure].all()), f"{label}: step {t} of {len(rows)} streams of "
-                  "this length: a token differs from the plain engine where the margin "
-                  "exceeds the tolerance")
-            forced += int(sure.sum())
-            if t + 1 < gen:
-                logits = ref.decode_step(toks[:, t], cache)
-        del cache
-    check(forced > 0, f"{label}: no token of {len(pairs)} streams passed the margin rule")
-    del ref
-    return forced, len(pairs)
-
-
 def moe_served_check(m, model, reqs, out, n, label):
     """The first n requests of a MoE serving run, teacher-forced: the
     contiguous flash engine along prompt + served tokens, and the plain
@@ -1846,36 +1775,56 @@ def moe_served_check(m, model, reqs, out, n, label):
     that differ from that argmax do so at margins up to 2.9%, those of a
     planted grouped_gemm fault up to 6.7-6.9% (tools/fault_margin.py
     --moe). The flash logits must stay within MOE_LIMIT of the plain
-    engine's. Returns (the plain engine, tokens checked, the largest
-    relative logit gap)."""
+    engine's. The n streams step together, each in a contiguous slot of
+    its own. Returns (tokens checked, the largest relative logit gap)."""
     from triton_dist_tpu_torch.tools.fault_margin import RouteTape
-    fl = m.Engine(model, max_seq=SERVE_MAX_SEQ, backend="flash")
-    ref = m.Engine(model, max_seq=SERVE_MAX_SEQ, backend="xla")
-    forced, worst = 0, 0.0
-    for r in reqs[:n]:
-        toks, tape = out[r.rid], RouteTape()
+    if not n:
+        return 0, 0.0
+    dev = model.device
+    fl = m.Engine(model, max_seq=SERVE_MAX_SEQ, backend="flash", device=dev)
+    ref = m.Engine(model, max_seq=SERVE_MAX_SEQ, backend="xla", device=dev)
+    rs = reqs[:n]
+    # every request in a slot of its own, stepped together (dropless: a
+    # row's routing does not depend on the others)
+    cf, cr, tape = fl.make_slot_cache(n), ref.make_slot_cache(n), RouteTape()
+    lf, lr = [], []
+    for b, r in enumerate(rs):
         with tape.record():
-            lf, cf = fl.prefill(r.ids[None])
+            lf.append(fl.prefill_into_slot(cf, b, r.ids)[0])
         with tape.replay():
-            lr, cr = ref.prefill(r.ids[None])
-        for t in range(r.gen_len):
-            gap = (lf - lr).abs().max().item() / lr.abs().max().item()
-            check(tape.done() and gap <= MOE_LIMIT,
-                  f"{label}: request {r.rid} step {t} flash logits max|d| / max|logit| "
-                  f"{gap} > {MOE_LIMIT} (routing pinned)")
-            worst = max(worst, gap)
-            top2 = lf[0].topk(2).values
-            if (top2[0] - top2[1]).item() > 2 * MOE_SERVE_LIMIT * lf.abs().max().item():
-                check(int(lf[0].argmax()) == int(toks[t]),
-                      f"{label}: request {r.rid} token {t} differs from the contiguous "
-                      "flash engine where the margin exceeds the tolerance")
-                forced += 1
-            tok = torch.tensor([[int(toks[t])]], device=model.device)
+            lr.append(ref.prefill_into_slot(cr, b, r.ids)[0])
+        check(tape.done(), f"{label}: request {r.rid}'s prefill replayed {tape.used} of "
+                           f"{len(tape.calls)} routing calls")
+    lf, lr = torch.stack(lf), torch.stack(lr)
+    lens = torch.tensor([r.gen_len for r in rs], device=dev)
+    gen = max(r.gen_len for r in rs)
+    toks = torch.zeros((n, gen), dtype=torch.int64, device=dev)
+    for b, r in enumerate(rs):
+        toks[b, :r.gen_len] = torch.as_tensor(np.asarray(out[r.rid]), device=dev)
+    pos = torch.tensor([len(r.ids) for r in rs], dtype=torch.int32, device=dev)
+    forced, worst = 0, 0.0
+    for t in range(gen):
+        live = t < lens
+        gap = ((lf - lr).abs().amax(-1) / lr.abs().amax(-1))[live].max().item()
+        check(tape.done() and gap <= MOE_LIMIT,
+              f"{label}: step {t} flash logits max|d| / max|logit| {gap} > {MOE_LIMIT} "
+              "(routing pinned)")
+        worst = max(worst, gap)
+        top2 = lf.topk(2, dim=-1).values
+        sure = ((top2[:, 0] - top2[:, 1]) > 2 * MOE_SERVE_LIMIT * lf.abs().amax(-1)) & live
+        check(bool((torch.argmax(lf, -1) == toks[:, t])[sure].all()),
+              f"{label}: step {t}: a served token differs from the contiguous flash engine "
+              "where the margin exceeds the tolerance")
+        forced += int(sure.sum())
+        if t + 1 < gen:
+            # a row past its stream's end steps on, its logits unread
             with tape.record():
-                lf, cf = model.forward_tokens(tok, cf, mode="flash")
+                lf, cf = model.forward_tokens_slots(toks[:, t:t + 1], cf, pos, mode="flash")
             with tape.replay():
-                lr, cr = model.forward_tokens(tok, cr, mode="xla")
-    return ref, forced, worst
+                lr, cr = model.forward_tokens_slots(toks[:, t:t + 1], cr, pos, mode="xla")
+            pos = torch.clamp(pos + 1, max=SERVE_MAX_SEQ - 1)
+    del fl, ref, cf, cr
+    return forced, worst
 
 
 def tick_probe(m, k, eng, paged, reqs, label):
@@ -2468,7 +2417,8 @@ def registry_phase(k, card):
     were first held to their plain versions. Returns the launch counts of
     both."""
     from triton_dist_tpu_torch.tools import perf_report
-    reg = k.kernel_registry()
+    # the single-card specs (the comm specs run in the tensor-parallel phase)
+    reg = {n: s_ for n, s_ in k.kernel_registry().items() if s_.min_devices == 1}
     k.reset_launch_counts()
     outs = {}
     for name, spec in reg.items():
@@ -2525,21 +2475,54 @@ def registry_phase(k, card):
     return {n: c_reg[n] + c_rep[n] for n in c_reg}
 
 
+def tp_phase(k, card):
+    """The tensor-parallel phase (11. above). Returns its kernel rows with
+    their launch-count keys and the counts they read."""
+    from triton_dist_tpu_torch.runtime import make_mesh, symm_mem
+    from triton_dist_tpu_torch.tools import tp_check
+    mesh = make_mesh(4, devices=["cuda:0"] * 4)
+    cpu_mesh = make_mesh(4, devices=["cpu"] * 4)
+    comm = {n: s_ for n, s_ in k.kernel_registry().items() if s_.min_devices > 1}
+    k.reset_launch_counts()
+    outs = {}
+    for name, spec in comm.items():
+        fn, args = spec.build(mesh)
+        outs[name] = fn(*args)
+    torch.cuda.synchronize()
+    c_reg = k.launch_counts()
+    for n in ("all_gather", "reduce_scatter", "all_reduce", "gemm_allreduce"):
+        check(c_reg[n] > 0, f"tp registry: {n} did not run ({c_reg})")
+    only_launched(c_reg, ("all_gather", "reduce_scatter", "all_reduce", "gemm_allreduce"),
+                  "tp registry")
+    for name, spec in comm.items():
+        fn, args = spec.build(cpu_mesh)
+        for r, (got, want) in enumerate(zip(outs[name], fn(*args))):
+            err = max_err(got.cpu(), want) / want.float().abs().max().item()
+            tol = tp_check.GEMM_AR_LIMIT if name == "gemm_ar" else 0.0
+            check(err <= tol, f"tp registry {name} rank {r}: card against CPU {err} > {tol}")
+        print(f"tp registry {name} ({spec.module}): card against its CPU run within "
+              f"{'bitwise' if name != 'gemm_ar' else tp_check.GEMM_AR_LIMIT}", flush=True)
+    res = tp_check.run(mesh, card=card)
+    counts = {"registry": c_reg, "ar decode": res["counts"]["ar"]["decode"],
+              "gemm_ar decode": res["counts"]["gemm_ar"]["decode"]}
+    key = {"all_reduce": "ar decode", "gemm_allreduce": "gemm_ar decode",
+           "all_gather": "registry", "reduce_scatter": "registry"}
+    symm_mem.clear_registry()          # the landing buffers and signal pads
+    return [(r, ("tp", key[r["name"]])) for r in res["rows"]], counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
               "needs an NVIDIA card", file=sys.stderr)
         return 2
-    root = os.path.dirname(os.path.abspath(__file__))
-    sys.path.insert(0, root)
-    try:
-        import triton_dist_tpu_torch.kernels as k
-        import triton_dist_tpu_torch.models as m
-        from triton_dist_tpu_torch.kernels import _build
-    except ImportError as e:
-        print(f"chip_smoke: the port's package is not beside this script: {e}",
-              file=sys.stderr)
+    if PACKAGE_MISSING is not None:
+        print(f"chip_smoke: the port's package is not beside this script: "
+              f"{PACKAGE_MISSING}", file=sys.stderr)
         return 2
+    import triton_dist_tpu_torch.kernels as k
+    import triton_dist_tpu_torch.models as m
+    from triton_dist_tpu_torch.kernels import _build
 
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -2628,6 +2611,11 @@ def main() -> int:
     stamp("gdn and partial kernel rows")
     counts["registry"] = {"drive": registry_phase(k, card)}
     stamp("registry and perf_report")
+    gc.collect()
+    torch.cuda.empty_cache()
+    tp_rows, counts["tp"] = tp_phase(k, card)
+    rows += tp_rows
+    stamp("tensor-parallel phase")
 
     # MoE: Qwen3-30B-A3B, about 61 GB of bf16 weights, built once every
     # dense model is gone
@@ -2651,7 +2639,7 @@ def main() -> int:
     stamp("serving moe paged bf16")
     set_capacity(model, "dropless")
     serving_phase(m, k, model, None, "moe paged bf16 dropless", True, reqs[:MOE_DL_REQS],
-                  card, batch=MOE_DL_SLOTS, tf_reqs=MOE_DL_REQS, probe=False)
+                  card, batch=MOE_DL_SLOTS, tf_reqs=MOE_DL_TF_REQS, probe=False)
     stamp("serving moe paged bf16 dropless")
     counts["moe"]["chunked"] = serving_phase(
         m, k, model, None, f"moe paged bf16 dropless prefill_budget {MOE_BUDGET}", True,

@@ -207,7 +207,7 @@ def test_entry_points_default_to_cuda():
 
 
 @pytest.mark.parametrize("kw,exc", [
-    (dict(backend="gemm_ar"), NotImplementedError),
+    (dict(backend="dist"), NotImplementedError),
     (dict(backend="ep"), NotImplementedError),
     (dict(backend="nonesuch"), ValueError),
     (dict(sampling="top_k"), NotImplementedError),

@@ -22,7 +22,7 @@ from triton_dist_tpu_torch.kernels import (flash_decode_paged, flash_decode_page
                                            lse_combine, quantize_kv_int8)
 from triton_dist_tpu_torch.tools import perf_model, perf_report
 
-NAMES = sorted(kernel_registry())
+NAMES = sorted(n for n, s in kernel_registry().items() if s.min_devices == 1)
 # per spec: the tolerance of the port's plain version against the JAX
 # kernel; grouped_gemm's inputs and output are bf16 (its kernel's type),
 # gdn_fwd sums a 64-token chunk's products in another order
@@ -42,8 +42,8 @@ def _leaves(out):
 def test_registry_names_match_the_single_card_jax_specs():
     jax_specs = {n: s for n, s in jax_kernel_registry().items() if s.min_devices == 1}
     assert NAMES == sorted(jax_specs)
-    for name, spec in kernel_registry().items():
-        assert spec.min_devices == 1
+    for name in NAMES:
+        spec = kernel_registry()[name]
         assert (spec.module, spec.kind) == (jax_specs[name].module, jax_specs[name].kind)
         assert bool(spec.inplace) == bool(jax_specs[name].inplace)
 
@@ -173,9 +173,13 @@ def test_perf_report_tools_without_a_card(monkeypatch):
         0.75 * (4 << 20) / 450e9 * 1e6)
     cov = perf_report.registry_coverage(["flash_decode", "flash_decode_paged",
                                          "gdn_fwd(pallas)"])
-    assert cov["kernels_registered"] == len(NAMES)
-    assert cov["uncovered"] == sorted(set(NAMES) - {"flash_decode", "flash_decode_paged",
-                                                    "gdn_fwd"})
+    assert cov["kernels_registered"] == len(kernel_registry())
+    assert cov["uncovered"] == sorted(set(kernel_registry()) - {"flash_decode",
+                                                                "flash_decode_paged",
+                                                                "gdn_fwd"})
+    cov = perf_report.registry_coverage(["all_reduce(two_shot)", "reduce_scatter"])
+    assert {"allreduce_two_shot", "reduce_scatter_one_shot",
+            "reduce_scatter_ring"}.isdisjoint(cov["uncovered"])
     rows = perf_report.sol_frac_rows({"env": {"device": "d"}, "ops": [
         {"op": "gemm_rs", "achieved_us": 2.0, "sol_us": 1.0, "sol_frac": 0.5}]})
     assert rows == [{"metric": "gemm_rs_sol_frac", "value": 0.5, "unit": "frac of SOL",

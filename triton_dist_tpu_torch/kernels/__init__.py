@@ -1,11 +1,16 @@
 """Kernels of the port: each hand-written CUDA kernel (csrc/) beside its
-plain PyTorch version, the differentiable training ops built on them
+plain PyTorch version (the collectives all_gather, reduce_scatter,
+all_reduce and gemm_allreduce over a mesh of ranks among them), the differentiable training ops built on them
 (flash_attn_train.py, grad.py), plus the int8 quantizers, `qmm`, the
 MoE routing helpers (ep_a2a.py) and the kernel registry (registry.py)."""
 
 from triton_dist_tpu_torch.kernels._build import (  # noqa: F401
-    launch_counts, reset_launch_counts)
+    launch_counts, method_counts, reset_launch_counts)
+from triton_dist_tpu_torch.kernels.allgather import (  # noqa: F401
+    AllGatherMethod, all_gather, all_gather_ref, get_auto_all_gather_method)
 from triton_dist_tpu_torch.kernels.allgather_gemm import ag_gemm, ag_gemm_ref  # noqa: F401
+from triton_dist_tpu_torch.kernels.allreduce import (  # noqa: F401
+    AllReduceMethod, all_reduce, all_reduce_ref, get_auto_allreduce_method)
 from triton_dist_tpu_torch.kernels.flash_attn import (  # noqa: F401
     flash_decode, flash_decode_partial, flash_decode_partial_ref, flash_decode_ref,
     kv_update, kv_update_ref, lse_combine)
@@ -13,6 +18,8 @@ from triton_dist_tpu_torch.kernels.flash_attn_train import (  # noqa: F401
     flash_attention, flash_attention_bwd, flash_attention_bwd_ref, flash_attention_ref)
 from triton_dist_tpu_torch.kernels.gdn import gdn_chunk_ref, gdn_fwd, gdn_fwd_ref  # noqa: F401
 from triton_dist_tpu_torch.kernels.gemm import gemm, gemm_ref  # noqa: F401
+from triton_dist_tpu_torch.kernels.gemm_allreduce import (  # noqa: F401
+    gemm_allreduce, gemm_allreduce_ref)
 from triton_dist_tpu_torch.kernels.gemm_reduce_scatter import gemm_rs, gemm_rs_ref  # noqa: F401
 from triton_dist_tpu_torch.kernels.grad import ag_gemm_grad, gemm_rs_grad  # noqa: F401
 from triton_dist_tpu_torch.kernels.group_gemm import (  # noqa: F401
@@ -22,5 +29,7 @@ from triton_dist_tpu_torch.kernels.paged_kv import (  # noqa: F401
     flash_decode_paged_partial_ref, flash_decode_paged_ref)
 from triton_dist_tpu_torch.kernels.quant import (  # noqa: F401
     QuantW, dequantize_kv_int8, qmm, quantize_int8, quantize_kv_int8)
+from triton_dist_tpu_torch.kernels.reduce_scatter import (  # noqa: F401
+    ReduceScatterMethod, get_auto_reduce_scatter_method, reduce_scatter, reduce_scatter_ref)
 from triton_dist_tpu_torch.kernels.registry import KernelSpec, kernel_registry  # noqa: F401
 from triton_dist_tpu_torch.kernels.swiglu import swiglu, swiglu_ref  # noqa: F401

@@ -10,6 +10,8 @@ a source changes. Nothing here runs at import time.
 Every kernel wrapper adds one to its entry of the launch counts each
 time it launches its kernel, and nowhere else, so a run can show that a
 path went through the kernels (`launch_counts`, `reset_launch_counts`).
+A collective also counts the launch under its method (`method_counts`),
+so a run can show which of its methods it took.
 """
 
 from __future__ import annotations
@@ -21,21 +23,25 @@ import torch
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_ext"
 # kernel sources (csrc/{name}.cu)
-SOURCES = ("flash_attn_bwd", "flash_decode", "flash_decode_paged", "gdn", "gemm",
-           "grouped_gemm", "kv_update", "mega_decode", "mega_paged_decode", "swiglu")
+SOURCES = ("allgather", "allreduce", "flash_attn_bwd", "flash_decode", "flash_decode_paged",
+           "gdn", "gemm", "gemm_allreduce", "grouped_gemm", "kv_update", "mega_decode",
+           "mega_paged_decode", "reduce_scatter", "swiglu")
 # launch counts, one per kernel: flash_decode.cu and flash_decode_paged.cu
 # each hold two launchers (the kernel and its partial form),
 # flash_attn_bwd.cu two kernels (dq, dk/dv); gemm counts the launches of
-# ag_gemm and gemm_rs together
-KERNELS = ("flash_attn_bwd_dkdv", "flash_attn_bwd_dq", "flash_decode", "flash_decode_paged",
-           "flash_decode_paged_partial", "flash_decode_partial", "gdn_fwd", "gemm",
-           "grouped_gemm", "kv_update", "mega_decode", "mega_paged_decode", "swiglu")
+# ag_gemm and gemm_rs together; a collective counts one launch per
+# distinct device of its mesh (one for four ranks emulated on one card)
+KERNELS = ("all_gather", "all_reduce", "flash_attn_bwd_dkdv", "flash_attn_bwd_dq",
+           "flash_decode", "flash_decode_paged", "flash_decode_paged_partial",
+           "flash_decode_partial", "gdn_fwd", "gemm", "gemm_allreduce", "grouped_gemm",
+           "kv_update", "mega_decode", "mega_paged_decode", "reduce_scatter", "swiglu")
 CUDA_FLAGS = ["-gencode=arch=compute_90a,code=sm_90a", "-O3", "-lineinfo"]
 # dtype codes of csrc/launchers.h (tdt::Dtype)
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 
 _ext = None
 _launches = dict.fromkeys(KERNELS, 0)
+_methods: dict[str, int] = {}
 
 
 def launch_counts() -> dict[str, int]:
@@ -43,9 +49,16 @@ def launch_counts() -> dict[str, int]:
     return dict(_launches)
 
 
+def method_counts() -> dict[str, int]:
+    """Launches of each collective by method since the last reset, keyed
+    "all_reduce two_shot" and so on (a method not launched is absent)."""
+    return dict(_methods)
+
+
 def reset_launch_counts() -> None:
     for name in _launches:
         _launches[name] = 0
+    _methods.clear()
 
 
 def ext():
@@ -62,9 +75,13 @@ def ext():
     return _ext
 
 
-def count(name: str) -> None:
-    """Count one launch of kernel `name` (called after the launch)."""
+def count(name: str, method: str | None = None) -> None:
+    """Count one launch of kernel `name` (called after the launch), and
+    of its method where it has one."""
     _launches[name] += 1
+    if method is not None:
+        key = f"{name} {method}"
+        _methods[key] = _methods.get(key, 0) + 1
 
 
 def stream_ptr(device: torch.device) -> int:

@@ -199,6 +199,83 @@ void mega_paged_decode(const std::vector<int64_t>& p, const std::vector<int64_t>
   C10_CUDA_CHECK(tdt::mega_paged_decode(mega_args(p, n, eps, scale, phases), stream(st)));
 }
 
+tdt::CommArgs comm_args(const std::vector<int64_t>& in, const std::vector<int64_t>& in2,
+                        const std::vector<int64_t>& scale, const std::vector<int64_t>& out,
+                        const std::vector<int64_t>& land, const std::vector<int64_t>& sig,
+                        int first_rank, int n_local, int64_t epoch) {
+  const int n = static_cast<int>(sig.size());
+  TORCH_CHECK(n >= 1 && n <= tdt::kMaxRanks, "collectives take 1-", tdt::kMaxRanks, " ranks");
+  TORCH_CHECK(epoch > 0 && epoch < (int64_t(1) << 31), "bad epoch ", epoch);
+  tdt::CommArgs a{};
+  auto check = [n](const std::vector<int64_t>& v, const char* what) {
+    TORCH_CHECK(v.empty() || static_cast<int>(v.size()) == n, what, ": one pointer per rank");
+  };
+  check(in, "in");
+  check(in2, "in2");
+  check(scale, "scale");
+  check(out, "out");
+  check(land, "land");
+  for (size_t r = 0; r < in.size(); ++r) a.in[r] = ptr<const void>(in[r]);
+  for (size_t r = 0; r < in2.size(); ++r) a.in2[r] = ptr<const void>(in2[r]);
+  for (size_t r = 0; r < scale.size(); ++r) a.scale[r] = ptr<const float>(scale[r]);
+  for (size_t r = 0; r < out.size(); ++r) a.out[r] = ptr<void>(out[r]);
+  for (size_t r = 0; r < land.size(); ++r) a.land[r] = ptr<void>(land[r]);
+  for (int r = 0; r < n; ++r) a.sig[r] = ptr<unsigned>(sig[r]);
+  a.n = n;
+  a.first_rank = first_rank;
+  a.n_local = n_local;
+  a.epoch = static_cast<unsigned>(epoch);
+  return a;
+}
+
+using Ptrs = std::vector<int64_t>;
+
+void all_gather(int method, const Ptrs& in, const Ptrs& out, const Ptrs& sig, int first_rank,
+                int n_local, int64_t epoch, int64_t svec, int ctas, int64_t st) {
+  C10_CUDA_CHECK(tdt::all_gather(
+      method, comm_args(in, {}, {}, out, {}, sig, first_rank, n_local, epoch), svec, ctas,
+      stream(st)));
+}
+
+void reduce_scatter(int dtype, int method, const Ptrs& in, const Ptrs& out, const Ptrs& land,
+                    const Ptrs& sig, int first_rank, int n_local, int64_t epoch, int64_t cvec,
+                    int ctas, int64_t st) {
+  C10_CUDA_CHECK(tdt::reduce_scatter(
+      dtype, method, comm_args(in, {}, {}, out, land, sig, first_rank, n_local, epoch), cvec,
+      ctas, stream(st)));
+}
+
+void all_reduce(int dtype, int method, const Ptrs& in, const Ptrs& out, const Ptrs& land,
+                const Ptrs& sig, int first_rank, int n_local, int64_t epoch, int64_t nvec,
+                int ctas, int64_t st) {
+  C10_CUDA_CHECK(tdt::all_reduce(
+      dtype, method, comm_args(in, {}, {}, out, land, sig, first_rank, n_local, epoch), nvec,
+      ctas, stream(st)));
+}
+
+void gemm_allreduce(int a_dtype, int b_dtype, const Ptrs& a, const Ptrs& b, const Ptrs& scale,
+                    const Ptrs& out, const Ptrs& land, const Ptrs& sig, int first_rank,
+                    int n_local, int64_t epoch, int M, int N, int K, int ctas, int64_t st) {
+  C10_CUDA_CHECK(tdt::gemm_allreduce(
+      a_dtype, b_dtype, comm_args(a, b, scale, out, land, sig, first_rank, n_local, epoch), M,
+      N, K, ctas, stream(st)));
+}
+
+// peer access from device `dev` to `peer` (a mesh of distinct cards);
+// enabling it twice is not an error
+void enable_peer_access(int dev, int peer) {
+  int prev = 0;
+  C10_CUDA_CHECK(cudaGetDevice(&prev));
+  C10_CUDA_CHECK(cudaSetDevice(dev));
+  const cudaError_t err = cudaDeviceEnablePeerAccess(peer, 0);
+  if (err == cudaErrorPeerAccessAlreadyEnabled) {
+    (void)cudaGetLastError();
+  } else {
+    C10_CUDA_CHECK(err);
+  }
+  C10_CUDA_CHECK(cudaSetDevice(prev));
+}
+
 }  // namespace
 
 PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
@@ -215,4 +292,9 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("mega_decode", &mega_decode);
   m.def("mega_paged_decode", &mega_paged_decode);
   m.def("swiglu", &swiglu);
+  m.def("all_gather", &all_gather);
+  m.def("reduce_scatter", &reduce_scatter);
+  m.def("all_reduce", &all_reduce);
+  m.def("gemm_allreduce", &gemm_allreduce);
+  m.def("enable_peer_access", &enable_peer_access);
 }

@@ -159,4 +159,43 @@ struct MegaLayerArgs {
 cudaError_t mega_decode(const MegaLayerArgs& a, cudaStream_t stream);
 cudaError_t mega_paged_decode(const MegaLayerArgs& a, cudaStream_t stream);
 
+// The collectives (csrc/shmem.cuh, ring.cuh; allgather.cu, reduce_scatter.cu,
+// allreduce.cu, gemm_allreduce.cu). One launch covers the n_local ranks
+// [first_rank, first_rank + n_local) of one device; every pointer of all n
+// ranks comes by value. in: each rank's input (A for gemm_allreduce);
+// in2/scale: gemm_allreduce's B panels and their per-column f32 scales
+// (null for bf16 panels); out: each rank's output; land: each rank's
+// symmetric landing buffer (unused by all_gather); sig: each rank's signal
+// pad (runtime/symm_mem.py SIGNAL_SLOTS int32 flags); epoch: the call's,
+// from the mesh (never 0, never reused).
+constexpr int kMaxRanks = 8;
+struct CommArgs {
+  const void* in[kMaxRanks];
+  const void* in2[kMaxRanks];
+  const float* scale[kMaxRanks];
+  void* out[kMaxRanks];
+  void* land[kMaxRanks];
+  unsigned* sig[kMaxRanks];
+  int n, first_rank, n_local;
+  unsigned epoch;
+};
+
+// method 0 one-shot, 1 ring; sizes in 16-byte vectors (svec: one rank's
+// shard; cvec: one rank's chunk, the input holding n of them; nvec: the
+// whole tensor, n | nvec for the two-shot); ctas: CTAs per rank, the same
+// on every device (the ranks' CTA g own the same slice). Launched
+// cooperatively; cudaErrorCooperativeLaunchTooLarge where the grid cannot
+// be resident at once.
+cudaError_t all_gather(int method, const CommArgs& a, long long svec, int ctas,
+                       cudaStream_t stream);
+cudaError_t reduce_scatter(int dtype, int method, const CommArgs& a, long long cvec, int ctas,
+                           cudaStream_t stream);
+cudaError_t all_reduce(int dtype, int method, const CommArgs& a, long long nvec, int ctas,
+                       cudaStream_t stream);
+// A [M, K] and B [K, N] row-major contiguous per rank; a_dtype bf16 with a
+// bf16 or int8 B (K, N multiples of 8), or f32 with f32 (N a multiple of 4);
+// out [M, N] and land [n, M, N] in A's dtype.
+cudaError_t gemm_allreduce(int a_dtype, int b_dtype, const CommArgs& a, int M, int N, int K,
+                           int ctas, cudaStream_t stream);
+
 }  // namespace tdt

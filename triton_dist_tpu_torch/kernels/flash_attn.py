@@ -126,14 +126,15 @@ def flash_decode(q, k, v, kv_len: Optional[int] = None, *,
     ks_ptr = k_scale.data_ptr() if quant else 0
     vs_ptr = v_scale.data_ptr() if quant else 0
     sc_strides = (k_scale.stride(0), k_scale.stride(1)) if quant else (0, 0)
-    _build.ext().flash_decode(
-        _build.DTYPE_CODES[q.dtype], _build.DTYPE_CODES[k.dtype],
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), ks_ptr, vs_ptr,
-        0 if kv_lens is None else kv_lens.data_ptr(),
-        0 if q_lens is None else q_lens.data_ptr(), out.data_ptr(),
-        0 if kv_len is None else kv_len, B, S, Hq, Hkv, T, d,
-        float(scale), q.stride(0), q.stride(1), q.stride(2), k.stride(0),
-        k.stride(1), k.stride(2), *sc_strides, _build.stream_ptr(q.device))
+    with torch.cuda.device(q.device):
+        _build.ext().flash_decode(
+            _build.DTYPE_CODES[q.dtype], _build.DTYPE_CODES[k.dtype],
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), ks_ptr, vs_ptr,
+            0 if kv_lens is None else kv_lens.data_ptr(),
+            0 if q_lens is None else q_lens.data_ptr(), out.data_ptr(),
+            0 if kv_len is None else kv_len, B, S, Hq, Hkv, T, d,
+            float(scale), q.stride(0), q.stride(1), q.stride(2), k.stride(0),
+            k.stride(1), k.stride(2), *sc_strides, _build.stream_ptr(q.device))
     _build.count("flash_decode")
     return out
 
@@ -236,11 +237,12 @@ def _partial(q, k, v, kv_len: int, q_offset: int, scale: float):
     acc = torch.empty((X, R, d), dtype=torch.float32, device=q.device)
     m = torch.empty((X, R), dtype=torch.float32, device=q.device)
     l = torch.empty((X, R), dtype=torch.float32, device=q.device)
-    _build.ext().flash_decode_partial(
-        _build.DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        acc.data_ptr(), m.data_ptr(), l.data_ptr(), kv_len, q_offset, B, S, Hq, Hkv, T, d,
-        float(scale), q.stride(0), q.stride(1), q.stride(2), k.stride(0), k.stride(1),
-        k.stride(2), _build.stream_ptr(q.device))
+    with torch.cuda.device(q.device):
+        _build.ext().flash_decode_partial(
+            _build.DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            acc.data_ptr(), m.data_ptr(), l.data_ptr(), kv_len, q_offset, B, S, Hq, Hkv, T, d,
+            float(scale), q.stride(0), q.stride(1), q.stride(2), k.stride(0), k.stride(1),
+            k.stride(2), _build.stream_ptr(q.device))
     _build.count("flash_decode_partial")
     return acc, m, l
 
@@ -311,8 +313,9 @@ def kv_update(cache: torch.Tensor, new: torch.Tensor, pos: int) -> torch.Tensor:
             or cache.data_ptr() % 16 or new.data_ptr() % 16):
         raise ValueError("kv_update: the cache must be contiguous and every row "
                          "16-byte aligned")
-    _build.ext().kv_update(cache.data_ptr(), new.data_ptr(), pos, B, H, T, S,
-                           row_bytes, new.stride(0) * size, new.stride(1) * size,
-                           new.stride(2) * size, _build.stream_ptr(cache.device))
+    with torch.cuda.device(cache.device):
+        _build.ext().kv_update(cache.data_ptr(), new.data_ptr(), pos, B, H, T, S,
+                               row_bytes, new.stride(0) * size, new.stride(1) * size,
+                               new.stride(2) * size, _build.stream_ptr(cache.device))
     _build.count("kv_update")
     return cache

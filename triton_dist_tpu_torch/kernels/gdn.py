@@ -194,10 +194,11 @@ def gdn_fwd(q, k, v, g, beta, *, S0: Optional[torch.Tensor] = None, chunk: int =
     dv = v.shape[-1]
     o = torch.empty((B, H, T, dv), dtype=q.dtype, device=q.device)
     S_T = torch.empty((B, H, dk, dv), dtype=torch.float32, device=q.device)
-    _build.ext().gdn_fwd(_build.DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(),
-                         v.data_ptr(), g.data_ptr(), beta.data_ptr(),
-                         0 if S0 is None else S0.data_ptr(), o.data_ptr(), S_T.data_ptr(),
-                         B * H, T, dk, dv, chunk, _build.stream_ptr(q.device))
+    with torch.cuda.device(q.device):
+        _build.ext().gdn_fwd(_build.DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(),
+                             v.data_ptr(), g.data_ptr(), beta.data_ptr(),
+                             0 if S0 is None else S0.data_ptr(), o.data_ptr(), S_T.data_ptr(),
+                             B * H, T, dk, dv, chunk, _build.stream_ptr(q.device))
     _build.count("gdn_fwd")
     return o, S_T
 

@@ -55,8 +55,9 @@ def gemm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     out = torch.empty((M, N), dtype=a.dtype, device=a.device)
     if out.numel() == 0:
         return out
-    _build.ext().gemm(_build.DTYPE_CODES[a.dtype], a.data_ptr(), a.stride(0), a.stride(1),
-                      b.data_ptr(), b.stride(0), b.stride(1), out.data_ptr(), M, N, K,
-                      _build.stream_ptr(a.device))
+    with torch.cuda.device(a.device):
+        _build.ext().gemm(_build.DTYPE_CODES[a.dtype], a.data_ptr(), a.stride(0), a.stride(1),
+                          b.data_ptr(), b.stride(0), b.stride(1), out.data_ptr(), M, N, K,
+                          _build.stream_ptr(a.device))
     _build.count("gemm")
     return out

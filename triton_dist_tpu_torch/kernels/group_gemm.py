@@ -52,7 +52,8 @@ def grouped_gemm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     out = torch.empty((E, C, F), dtype=x.dtype, device=x.device)
     if out.numel() == 0:
         return out
-    _build.ext().grouped_gemm(x.data_ptr(), x.stride(0), w.data_ptr(), out.data_ptr(),
-                              E, C, D, F, _build.stream_ptr(x.device))
+    with torch.cuda.device(x.device):
+        _build.ext().grouped_gemm(x.data_ptr(), x.stride(0), w.data_ptr(), out.data_ptr(),
+                                  E, C, D, F, _build.stream_ptr(x.device))
     _build.count("grouped_gemm")
     return out

@@ -102,15 +102,16 @@ def flash_decode_paged(q, pages_k, pages_v, page_table, *, kv_lens,
     quant = k_scale is not None
     _validate_paged(q, pages_k, pages_v, page_table, kv_lens, k_scale, v_scale, quant)
     out = torch.empty((B, S, Hq, d), dtype=q.dtype, device=q.device)
-    _build.ext().flash_decode_paged(
-        _build.DTYPE_CODES[q.dtype], _build.DTYPE_CODES[pages_k.dtype],
-        q.data_ptr(), pages_k.data_ptr(), pages_v.data_ptr(),
-        k_scale.data_ptr() if quant else 0, v_scale.data_ptr() if quant else 0,
-        page_table.data_ptr(), kv_lens.data_ptr(),
-        0 if q_lens is None else q_lens.data_ptr(), out.data_ptr(), B, S, Hq, Hkv, maxp,
-        page, d, float(scale), q.stride(0), q.stride(1), q.stride(2), pages_k.stride(0),
-        pages_k.stride(1), k_scale.stride(0) if quant else 0,
-        _build.stream_ptr(q.device))
+    with torch.cuda.device(q.device):
+        _build.ext().flash_decode_paged(
+            _build.DTYPE_CODES[q.dtype], _build.DTYPE_CODES[pages_k.dtype],
+            q.data_ptr(), pages_k.data_ptr(), pages_v.data_ptr(),
+            k_scale.data_ptr() if quant else 0, v_scale.data_ptr() if quant else 0,
+            page_table.data_ptr(), kv_lens.data_ptr(),
+            0 if q_lens is None else q_lens.data_ptr(), out.data_ptr(), B, S, Hq, Hkv, maxp,
+            page, d, float(scale), q.stride(0), q.stride(1), q.stride(2), pages_k.stride(0),
+            pages_k.stride(1), k_scale.stride(0) if quant else 0,
+            _build.stream_ptr(q.device))
     _build.count("flash_decode_paged")
     return out
 
@@ -196,15 +197,16 @@ def flash_decode_paged_partial(q, pages_k, pages_v, page_table, *, kv_lens, tile
     acc = torch.empty((X, R, d), dtype=torch.float32, device=q.device)
     m = torch.empty((X, R), dtype=torch.float32, device=q.device)
     l = torch.empty((X, R), dtype=torch.float32, device=q.device)
-    _build.ext().flash_decode_paged_partial(
-        _build.DTYPE_CODES[q.dtype], _build.DTYPE_CODES[pages_k.dtype],
-        q.data_ptr(), pages_k.data_ptr(), pages_v.data_ptr(),
-        k_scale.data_ptr() if quant else 0, v_scale.data_ptr() if quant else 0,
-        page_table.data_ptr(), kv_lens.data_ptr(),
-        0 if q_lens is None else q_lens.data_ptr(), tile_owned.data_ptr(), acc.data_ptr(),
-        m.data_ptr(), l.data_ptr(), B, S, Hq, Hkv, maxp, page, d, float(scale),
-        q.stride(0), q.stride(1), q.stride(2), pages_k.stride(0), pages_k.stride(1),
-        k_scale.stride(0) if quant else 0, _build.stream_ptr(q.device))
+    with torch.cuda.device(q.device):
+        _build.ext().flash_decode_paged_partial(
+            _build.DTYPE_CODES[q.dtype], _build.DTYPE_CODES[pages_k.dtype],
+            q.data_ptr(), pages_k.data_ptr(), pages_v.data_ptr(),
+            k_scale.data_ptr() if quant else 0, v_scale.data_ptr() if quant else 0,
+            page_table.data_ptr(), kv_lens.data_ptr(),
+            0 if q_lens is None else q_lens.data_ptr(), tile_owned.data_ptr(), acc.data_ptr(),
+            m.data_ptr(), l.data_ptr(), B, S, Hq, Hkv, maxp, page, d, float(scale),
+            q.stride(0), q.stride(1), q.stride(2), pages_k.stride(0), pages_k.stride(1),
+            k_scale.stride(0) if quant else 0, _build.stream_ptr(q.device))
     _build.count("flash_decode_paged_partial")
     return _unfold_q(acc, B, S, Hkv), _unfold_q(m, B, S, Hkv), _unfold_q(l, B, S, Hkv)
 

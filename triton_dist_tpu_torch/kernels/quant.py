@@ -43,6 +43,23 @@ def quantize_int8(w: Weight) -> QuantW:
     return QuantW(q=q, s=s)
 
 
+def quantize_int8_rows(ws) -> list:
+    """quantize_int8 of the weight whose row shards (the contraction axis
+    split over ranks) are ws, one per rank on its device: every shard
+    takes the whole weight's per-column scale (the largest |x| over all
+    rows), so the int8 values equal those of the unsplit weight."""
+    if isinstance(ws[0], QuantW):
+        return list(ws)
+    dev = ws[0].device
+    amax = torch.stack([w.float().abs().amax(dim=0).to(dev) for w in ws]).amax(dim=0)
+    s = torch.clamp_min(amax, 1e-8) / 127.0
+    out = []
+    for w in ws:
+        sw = s.to(w.device)
+        out.append(QuantW(q=torch.round(w.float() / sw).to(torch.int8), s=sw))
+    return out
+
+
 def quantize_kv_int8(x: torch.Tensor):
     """Per-position symmetric int8 KV quantization over the trailing
     head_dim axis: x [..., d] -> (q int8 [..., d], s f32 [...])."""

@@ -1,9 +1,13 @@
-"""The kernel registry: one canonical call for each single-card kernel.
+"""The kernel registry: one canonical call for each ported kernel.
 
-Counterpart of the single-card half of triton_dist_tpu/kernels/__init__.py
-(`KernelSpec`, `kernel_registry` and the build functions `_b_flash_decode`,
+Counterpart of triton_dist_tpu/kernels/__init__.py (`KernelSpec`,
+`kernel_registry` and the build functions `_b_flash_decode`,
 `_b_flash_decode_paged`, `_b_kv_update`, `_b_grouped_gemm`, `_b_swiglu`,
-`_b_gdn`, `_b_flash_attention`): the eight specs whose `min_devices` is 1.
+`_b_gdn`, `_b_flash_attention`, and the collectives' `_b_allgather`,
+`_b_reduce_scatter`, `_b_allreduce`, `_b_gemm_ar`): the eight specs whose
+`min_devices` is 1, whose build takes a device, and the seven of the
+ported collectives (min_devices 2, kind "comm"), whose build takes a
+mesh (runtime/bootstrap.py) and returns one input per rank.
 Each build function draws its inputs from the same
 `np.random.RandomState(seed)`, in the same order and shapes, as its JAX
 counterpart, so that both registries' canonical calls see equal inputs.
@@ -31,10 +35,11 @@ import torch
 @dataclasses.dataclass(frozen=True)
 class KernelSpec:
     """One registered kernel. build(device) -> (fn, args): fn(*args) is
-    the public op at small canonical shapes, its tensors on `device`.
-    kind: "compute" or "paged" (the JAX spec's category). inplace: the
-    positions in args that the call updates in place (the JAX spec's
-    input/output aliasing)."""
+    the public op at small canonical shapes, its tensors on `device`; for
+    min_devices > 1, build(mesh), args holding each rank's tensors.
+    kind: "compute", "paged" or "comm" (the JAX spec's category).
+    inplace: the positions in args that the call updates in place (the
+    JAX spec's input/output aliasing)."""
 
     name: str
     module: str
@@ -128,6 +133,51 @@ def _b_flash_attention(device):
     return flash_attention, _on(device, q, k, v)
 
 
+def _split(x, mesh, dim=0):
+    """x cut into mesh.size blocks along dim, block r on rank r's device."""
+    return [t.contiguous().to(d) for t, d in zip(x.chunk(mesh.size, dim), mesh.devices)]
+
+
+def _b_allgather(method: str):
+    def build(mesh):
+        from triton_dist_tpu_torch.kernels.allgather import AllGatherMethod, all_gather
+        x = _f32(np.random.RandomState(0), 8 * mesh.size, 128)
+        return (lambda *xs: all_gather(list(xs), mesh=mesh, method=AllGatherMethod(method)),
+                tuple(_split(x, mesh)))
+    return build
+
+
+def _b_partials(op: str, method: str):
+    """reduce_scatter and all_reduce: the [n, 8n, 128] partials, rank r's
+    slice r."""
+    def build(mesh):
+        from triton_dist_tpu_torch.kernels.allreduce import AllReduceMethod, all_reduce
+        from triton_dist_tpu_torch.kernels.reduce_scatter import (ReduceScatterMethod,
+                                                                   reduce_scatter)
+        n = mesh.size
+        x = _f32(np.random.RandomState(0), n, 8 * n, 128)
+        if op == "rs":
+            fn = lambda *xs: reduce_scatter(  # noqa: E731
+                list(xs), mesh=mesh, method=ReduceScatterMethod(method))
+        else:
+            fn = lambda *xs: all_reduce(list(xs), mesh=mesh,  # noqa: E731
+                                        method=AllReduceMethod(method))
+        return fn, tuple(t[0] for t in _split(x, mesh))
+    return build
+
+
+def _b_gemm_ar(mesh):
+    """A [8, 128] sharded on columns, B [128, 128] on rows (seed 4, drawn
+    in the JAX order: a, then b); args: the n A shards, then the n B
+    shards."""
+    from triton_dist_tpu_torch.kernels.gemm_allreduce import gemm_allreduce
+    n = mesh.size
+    rng = np.random.RandomState(4)
+    a, b = _f32(rng, 8, 128), _f32(rng, 128, 128)
+    return ((lambda *ab: gemm_allreduce(list(ab[:n]), list(ab[n:]), mesh=mesh)),
+            tuple(_split(a, mesh, 1) + _split(b, mesh, 0)))
+
+
 @functools.lru_cache(maxsize=None)
 def kernel_registry() -> dict:
     """The canonical enumeration of the port's kernels: name -> KernelSpec."""
@@ -143,5 +193,18 @@ def kernel_registry() -> dict:
         KernelSpec("gdn_fwd", "kernels.gdn", "compute", _b_gdn),
         KernelSpec("flash_attention", "kernels.flash_attn_train", "compute",
                    _b_flash_attention),
+        KernelSpec("allgather_one_shot", "kernels.allgather", "comm",
+                   _b_allgather("one_shot"), min_devices=2),
+        KernelSpec("allgather_ring", "kernels.allgather", "comm", _b_allgather("ring"),
+                   min_devices=2),
+        KernelSpec("reduce_scatter_one_shot", "kernels.reduce_scatter", "comm",
+                   _b_partials("rs", "one_shot"), min_devices=2),
+        KernelSpec("reduce_scatter_ring", "kernels.reduce_scatter", "comm",
+                   _b_partials("rs", "ring"), min_devices=2),
+        KernelSpec("allreduce_one_shot", "kernels.allreduce", "comm",
+                   _b_partials("ar", "one_shot"), min_devices=2),
+        KernelSpec("allreduce_two_shot", "kernels.allreduce", "comm",
+                   _b_partials("ar", "two_shot"), min_devices=2),
+        KernelSpec("gemm_ar", "kernels.gemm_allreduce", "comm", _b_gemm_ar, min_devices=2),
     ]
     return {s.name: s for s in specs}

@@ -40,7 +40,8 @@ def swiglu(x2: torch.Tensor) -> torch.Tensor:
             f"halves 16-byte aligned (shape {tuple(x2.shape)}, strides "
             f"{x2.stride()})")
     out = torch.empty((M, I), dtype=x2.dtype, device=x2.device)
-    _build.ext().swiglu(_build.DTYPE_CODES[x2.dtype], x2.data_ptr(), out.data_ptr(),
-                        M, I, x2.stride(0), _build.stream_ptr(x2.device))
+    with torch.cuda.device(x2.device):
+        _build.ext().swiglu(_build.DTYPE_CODES[x2.dtype], x2.data_ptr(), out.data_ptr(),
+                            M, I, x2.stride(0), _build.stream_ptr(x2.device))
     _build.count("swiglu")
     return out

@@ -1,4 +1,5 @@
-"""Layers of the port (tensor-parallel size 1)."""
+"""Layers of the port: attention and MLP at any tensor-parallel size
+(`to_mesh`), the MoE layer at one rank."""
 
 from triton_dist_tpu_torch.layers.common import (  # noqa: F401
     apply_rope, apply_rope_slots, precompute_rope, rms_norm, shard_cols_packed)

@@ -63,3 +63,64 @@ def shard_cols_packed(mats, n: int) -> torch.Tensor:
             cols = m.shape[1] // n
             blocks.append(m[:, r * cols:(r + 1) * cols])
     return torch.cat(blocks, dim=1)
+
+
+# ---------------------------------------------------------------- sharding
+# Weights here are tensors or int8 QuantW (kernels/quant.py): a column
+# slice takes its scales along, a row slice keeps them whole (per-column
+# scales reduce over every row, so the row shards of a quantized weight
+# share the global scales, as the JAX package shards them).
+
+def _cols(w, lo: int, hi: int):
+    from triton_dist_tpu_torch.kernels.quant import QuantW
+    if isinstance(w, QuantW):
+        return QuantW(q=w.q[:, lo:hi], s=w.s[lo:hi])
+    return w[:, lo:hi]
+
+
+def _cat_cols(ws):
+    from triton_dist_tpu_torch.kernels.quant import QuantW
+    if isinstance(ws[0], QuantW):
+        return QuantW(q=torch.cat([w.q for w in ws], dim=1), s=torch.cat([w.s for w in ws]))
+    return torch.cat(ws, dim=1)
+
+
+def weight_to(w, device):
+    """A weight (tensor or QuantW) on `device`, contiguous."""
+    from triton_dist_tpu_torch.kernels.quant import QuantW
+    if isinstance(w, QuantW):
+        return QuantW(q=w.q.to(device).contiguous(), s=w.s.to(device).contiguous())
+    return w.to(device).contiguous()
+
+
+def split_packed(w, widths, n: int) -> list:
+    """The n per-rank blocks of a column-packed weight [m0 | m1 | ...]
+    (widths: each part's columns): rank r's block is [m0_r | m1_r | ...],
+    shard_cols_packed's layout, cut from the one-rank packing."""
+    offs = np.cumsum([0] + list(widths))
+    out = []
+    for r in range(n):
+        out.append(_cat_cols([_cols(w, int(o) + r * wd // n, int(o) + (r + 1) * wd // n)
+                              for o, wd in zip(offs[:-1], widths)]))
+    return out
+
+
+def unpack_cols_packed(w, widths, n: int):
+    """The inverse of shard_cols_packed over n ranks: a weight packed as n
+    blocks [m0_r | m1_r | ...] back to the one-rank packing [m0 | m1 |
+    ...] (widths: each part's whole width)."""
+    blk = sum(widths) // n
+    parts = []
+    for j, wd in enumerate(widths):
+        off = sum(widths[:j]) // n
+        parts += [_cols(w, r * blk + off, r * blk + off + wd // n) for r in range(n)]
+    return _cat_cols(parts)
+
+
+def split_rows(w, n: int) -> list:
+    """The n row shards of a row-parallel weight (QuantW scales whole)."""
+    from triton_dist_tpu_torch.kernels.quant import QuantW
+    rows = (w.q if isinstance(w, QuantW) else w).shape[0] // n
+    if isinstance(w, QuantW):
+        return [QuantW(q=w.q[r * rows:(r + 1) * rows], s=w.s) for r in range(n)]
+    return [w[r * rows:(r + 1) * rows] for r in range(n)]

@@ -7,10 +7,25 @@ and `_attend_paged_slots`/`fwd_cached_slots_paged`, their window forms
 `_attend_cached_slots_verify`/`fwd_cached_slots_verify` and
 `_attend_paged_slots_verify`/`fwd_cached_slots_paged_verify`
 (speculative verify and chunked prefill), and the training
-forms `_local_attn_train`/`fwd_train`) at tensor-parallel size 1, for the
-modes "flash" (the CUDA kernels) and "xla" (the plain PyTorch versions,
-the JAX package's oracle mode). The packed weight
-layout is kept: w_qkv is [D, (Hq + 2*Hkv) * hd] = [q | k | v]. The KV
+forms `_local_attn_train`/`fwd_train`), for the modes "flash" (the CUDA
+kernels), "xla" (the plain PyTorch versions, the JAX package's oracle
+mode), "ar" (the partial O projection, then the all_reduce kernel) and
+"gemm_ar" (the gemm_allreduce kernel). The packed weight layout is kept:
+w_qkv is [D, (Hq + 2*Hkv) * hd] = [q | k | v].
+
+Tensor parallelism (`to_mesh`, or `init(..., mesh=)`): over a mesh of n
+ranks (runtime/bootstrap.py) the layer holds `shards`, one TP_Attn per
+rank with its Hq/n query and Hkv/n kv heads (its block of the packed
+[q_r | k_r | v_r] columns, its rows of w_o) on the rank's device, and
+the forwards take and return lists, one tensor per rank: x replicated,
+the caches, rope tables and positions per rank. Each rank's
+projection and attention run between the collectives; the O projection
+ends in the mode's epilogue (`tp_down`): "ar" all_reduce, "gemm_ar"
+gemm_allreduce, "flash"/"xla" a psum whose counterpart is
+`all_reduce_ref` (XLA's psum is no Pallas kernel). Only the loop over the
+ranks' collective launches is inside one call, so every rank's launch of
+a collective is enqueued back to back. The window and training forms
+stay at one rank. The KV
 cache tensors and page pools are updated in place; the per-row writes
 of the slot forms are plain torch indexing, as the JAX `.at[].set`
 was plain jnp. The JAX window forms scatter their padding rows out of
@@ -27,25 +42,47 @@ from typing import Optional
 
 import torch
 
+from triton_dist_tpu_torch.kernels.allreduce import all_reduce, all_reduce_ref
 from triton_dist_tpu_torch.kernels.flash_attn import (flash_decode,
                                                       flash_decode_ref,
                                                       kv_update, kv_update_ref)
 from triton_dist_tpu_torch.kernels.flash_attn_train import (flash_attention,
                                                             flash_attention_ref)
+from triton_dist_tpu_torch.kernels.gemm_allreduce import gemm_allreduce
 from triton_dist_tpu_torch.kernels.grad import ag_gemm_grad, gemm_rs_grad
 from triton_dist_tpu_torch.kernels.paged_kv import (flash_decode_paged,
                                                    flash_decode_paged_ref)
 from triton_dist_tpu_torch.kernels.quant import Weight, qmm, quantize_kv_int8
 from triton_dist_tpu_torch.layers.common import (apply_rope, apply_rope_slots,
-                                                 rms_norm, shard_cols_packed)
+                                                 rms_norm, shard_cols_packed, split_packed,
+                                                 split_rows, weight_to)
+from triton_dist_tpu_torch.runtime.bootstrap import mesh_of
 
-MODES = ("flash", "xla")
+MODES = ("flash", "xla", "ar", "gemm_ar")
 
 
 def check_mode(mode: str) -> None:
     if mode not in MODES:
         raise NotImplementedError(
             f"forward mode {mode!r}: not yet ported (the port runs {MODES})")
+
+
+def tp_down(mode: str, hs, ws, mesh) -> list:
+    """The row-parallel down projection of every rank (hs[r] @ ws[r]) and
+    its epilogue, replicated: the JAX `_o_proj`/`_down_psum` and the
+    MLPs' fwd_ar/fwd_gemm_ar/psum. "gemm_ar": one gemm_allreduce; "ar":
+    the partials, then all_reduce; "flash"/"xla": the partials, then the
+    psum's plain version (all_reduce_ref, the one-shot order)."""
+    if mode == "gemm_ar":
+        return gemm_allreduce(hs, ws, mesh=mesh)
+    parts = [qmm(h, w) for h, w in zip(hs, ws)]
+    if mode == "ar":
+        return all_reduce(parts, mesh=mesh)
+    return all_reduce_ref(parts) if len(parts) > 1 else parts
+
+
+def _one_rank(what: str) -> NotImplementedError:
+    return NotImplementedError(f"{what} at tensor-parallel size > 1: not yet ported")
 
 
 @dataclasses.dataclass
@@ -60,19 +97,61 @@ class TP_Attn:
     n_heads: int
     n_kv_heads: int
     head_dim: int
+    # tensor parallelism: the mesh and one TP_Attn per rank (its heads, on
+    # its device); the weight fields above are then None
+    mesh: Optional[object] = None
+    shards: Optional[list] = None
 
     @staticmethod
     def init(w_q, w_k, w_v, w_o, *, n_heads: int, n_kv_heads: int,
-             head_dim: int, q_norm=None, k_norm=None) -> "TP_Attn":
-        return TP_Attn(w_qkv=shard_cols_packed([w_q, w_k, w_v], 1), w_o=w_o,
+             head_dim: int, q_norm=None, k_norm=None, mesh=None) -> "TP_Attn":
+        attn = TP_Attn(w_qkv=shard_cols_packed([w_q, w_k, w_v], 1), w_o=w_o,
                        q_norm=q_norm, k_norm=k_norm, n_heads=n_heads,
                        n_kv_heads=n_kv_heads, head_dim=head_dim)
+        return attn if mesh is None or mesh.size == 1 else attn.to_mesh(mesh)
+
+    @property
+    def tp(self) -> int:
+        return 1 if self.shards is None else len(self.shards)
+
+    def to_mesh(self, mesh) -> "TP_Attn":
+        """This one-rank layer split over `mesh`: rank r keeps query heads
+        [r*Hq/n, (r+1)*Hq/n) and kv heads [r*Hkv/n, (r+1)*Hkv/n) (the
+        JAX shard_cols_packed blocks of w_qkv, the matching rows of
+        w_o), on its device."""
+        n = mesh.size
+        hq, hkv, hd = self.n_heads, self.n_kv_heads, self.head_dim
+        if hq % n or hkv % n:
+            raise ValueError(
+                f"tensor parallelism over {n} ranks needs n_heads ({hq}) and n_kv_heads "
+                f"({hkv}) divisible by it: each rank holds whole kv heads (GQA "
+                f"replication factor {hq // max(hkv, 1)})")
+        qkv = split_packed(self.w_qkv, (hq * hd, hkv * hd, hkv * hd), n)
+        wo = split_rows(self.w_o, n)
+        shards = [TP_Attn(w_qkv=weight_to(qkv[r], d), w_o=weight_to(wo[r], d),
+                          q_norm=None if self.q_norm is None else self.q_norm.to(d),
+                          k_norm=None if self.k_norm is None else self.k_norm.to(d),
+                          n_heads=hq // n, n_kv_heads=hkv // n, head_dim=hd)
+                  for r, d in enumerate(mesh.devices)]
+        return TP_Attn(w_qkv=None, w_o=None, q_norm=None, k_norm=None, n_heads=hq,
+                       n_kv_heads=hkv, head_dim=hd, mesh=mesh, shards=shards)
 
     def _qkv_proj(self, x):
-        return qmm(x, self.w_qkv)
+        """The column-parallel QKV projection: each rank's own heads from
+        the replicated x (every mode; "dist" is not ported)."""
+        if self.shards is None:
+            return qmm(x, self.w_qkv)
+        return [qmm(xr, s.w_qkv) for xr, s in zip(x, self.shards)]
 
-    def _o_proj(self, o):
-        return qmm(o, self.w_o)
+    def _o_proj(self, o, mode: str = "flash"):
+        """The O projection and the mode's epilogue (tp_down); at one rank
+        "flash"/"xla" are the plain product and "ar"/"gemm_ar" run their
+        collective over the one-rank mesh."""
+        if self.shards is None:
+            if mode in ("ar", "gemm_ar"):
+                return tp_down(mode, [o], [self.w_o], mesh_of(o.device))[0]
+            return qmm(o, self.w_o)
+        return tp_down(mode, o, [s.w_o for s in self.shards], self.mesh)
 
     def _attend_cached(self, qkv, cos, sin, batch: int, kv, kv_start: int,
                        impl: str = "flash"):
@@ -135,9 +214,13 @@ class TP_Attn:
         Returns (y [B*S, D], kv)."""
         check_mode(mode)
         impl = "ref" if mode == "xla" else "flash"
-        o, kv = self._attend_cached(self._qkv_proj(x), cos, sin, batch, kv,
-                                    kv_start, impl)
-        return self._o_proj(o), kv
+        qkv = self._qkv_proj(x)
+        if self.shards is None:
+            o, kv = self._attend_cached(qkv, cos, sin, batch, kv, kv_start, impl)
+        else:
+            o = [s._attend_cached(q, c, sn, batch, k, kv_start, impl)[0]
+                 for s, q, c, sn, k in zip(self.shards, qkv, cos, sin, kv)]
+        return self._o_proj(o, mode), kv
 
     def _window_qkv(self, qkv, cos, sin, batch: int, pos):
         """A window of S tokens per slot: split the packed rows, QK-norm,
@@ -296,9 +379,13 @@ class TP_Attn:
         kv: the layer's cache tuple. Returns (y [B, D], kv)."""
         check_mode(mode)
         impl = "ref" if mode == "xla" else "flash"
-        o, kv = self._attend_cached_slots(self._qkv_proj(x), cos, sin, batch, kv,
-                                          pos, impl)
-        return self._o_proj(o), kv
+        qkv = self._qkv_proj(x)
+        if self.shards is None:
+            o, kv = self._attend_cached_slots(qkv, cos, sin, batch, kv, pos, impl)
+        else:
+            o = [s._attend_cached_slots(q, c, sn, batch, k, p, impl)[0]
+                 for s, q, c, sn, k, p in zip(self.shards, qkv, cos, sin, kv, pos)]
+        return self._o_proj(o, mode), kv
 
     def fwd_cached_slots_paged(self, x, cos, sin, batch: int, kv, table, pos,
                                mode: str = "flash"):
@@ -308,9 +395,13 @@ class TP_Attn:
         shared prefix). Returns (y [B, D], kv)."""
         check_mode(mode)
         impl = "ref" if mode == "xla" else "flash"
-        o, kv = self._attend_paged_slots(self._qkv_proj(x), cos, sin, batch, kv,
-                                         table, pos, impl)
-        return self._o_proj(o), kv
+        qkv = self._qkv_proj(x)
+        if self.shards is None:
+            o, kv = self._attend_paged_slots(qkv, cos, sin, batch, kv, table, pos, impl)
+        else:
+            o = [s._attend_paged_slots(q, c, sn, batch, k, t, p, impl)[0]
+                 for s, q, c, sn, k, t, p in zip(self.shards, qkv, cos, sin, kv, table, pos)]
+        return self._o_proj(o, mode), kv
 
     def fwd_cached_slots_verify(self, x, cos, sin, batch: int, kv, pos, q_lens,
                                 mode: str = "flash"):
@@ -318,20 +409,24 @@ class TP_Attn:
         slots x S window positions in one forward. x: [B*S, D]; pos,
         q_lens: [B] int32. Returns (y [B*S, D], kv)."""
         check_mode(mode)
+        if self.shards is not None:
+            raise _one_rank("the verify window attention")
         impl = "ref" if mode == "xla" else "flash"
         o, kv = self._attend_cached_slots_verify(self._qkv_proj(x), cos, sin, batch, kv,
                                                  pos, q_lens, impl)
-        return self._o_proj(o), kv
+        return self._o_proj(o, mode), kv
 
     def fwd_cached_slots_paged_verify(self, x, cos, sin, batch: int, kv, table, pos,
                                       q_lens, mode: str = "flash"):
         """fwd_cached_slots_verify over the paged pool. Returns (y [B*S, D],
         kv)."""
         check_mode(mode)
+        if self.shards is not None:
+            raise _one_rank("the paged verify window attention")
         impl = "ref" if mode == "xla" else "flash"
         o, kv = self._attend_paged_slots_verify(self._qkv_proj(x), cos, sin, batch, kv,
                                                 table, pos, q_lens, impl)
-        return self._o_proj(o), kv
+        return self._o_proj(o, mode), kv
 
     def _local_attn_train(self, qkv, cos, sin, batch: int, impl: str = "flash"):
         """Full-causal attention for training: each of `batch` sequences of
@@ -361,6 +456,8 @@ class TP_Attn:
         kernel backward (kernels/grad.py, flash_attn_train.py); "ref": the
         plain oracle (plain products and flash_attention_ref). x: [B*S,
         D]; returns [B*S, D]."""
+        if self.shards is not None:
+            raise _one_rank("the training attention")
         if impl == "flash":
             qkv = ag_gemm_grad()(x, self.w_qkv)
             return gemm_rs_grad()(self._local_attn_train(qkv, cos, sin, batch, "flash"),

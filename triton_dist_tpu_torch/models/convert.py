@@ -12,8 +12,12 @@ where a weight quantized to int8 (QuantW) comes as `{name}.q` and
 `{name}.s`. `to_arrays(model, grads=)` goes the other way for a dense
 model's parameters or their gradients, under the same names. The packed layouts ([q | k | v], [gate | up], per expert
 [gate | up]) are the JAX package's at tensor-parallel size 1, so they
-are copied as they are. This module sees numpy arrays only, never a jax
-object.
+are copied as they are. A JAX model built over a mesh of n > 1 ranks
+packs w_qkv and w_gate_up as n per-rank blocks (shard_cols_packed): give
+its size as `jax_tp`, and they are unpacked to the one-rank layout first
+(a QuantW's scales with its columns). With `mesh`, the port's model is
+then split over it (DenseLLM.to_mesh), whatever the JAX model's size.
+This module sees numpy arrays only, never a jax object.
 """
 
 from __future__ import annotations
@@ -23,6 +27,7 @@ import torch
 
 from triton_dist_tpu_torch.kernels.quant import QuantW
 from triton_dist_tpu_torch.layers import TP_Attn, TP_MLP, TP_MoE, precompute_rope
+from triton_dist_tpu_torch.layers.common import unpack_cols_packed
 from triton_dist_tpu_torch.models.config import ModelConfig
 from triton_dist_tpu_torch.models.dense import DenseLayer, DenseLLM
 from triton_dist_tpu_torch.models.qwen_moe import MoELayer, Qwen3MoE
@@ -42,10 +47,11 @@ def to_torch(a: np.ndarray, device=None) -> torch.Tensor:
 
 
 def from_jax_arrays(cfg: ModelConfig, arrays: dict, device=None,
-                    capacity_factor=2.0) -> DenseLLM:
+                    capacity_factor=2.0, *, mesh=None, jax_tp: int = 1) -> DenseLLM:
     """The port's DenseLLM, or Qwen3MoE for a MoE config (with
-    capacity_factor), holding the given parameters on `device`."""
-    dev = resolve_device(device)
+    capacity_factor), holding the given parameters on `device` (with a
+    mesh, on its rank 0's device, then split over it)."""
+    dev = resolve_device(mesh.devices[0] if mesh is not None else device)
 
     def get(name):
         if f"{name}.q" in arrays:
@@ -56,10 +62,17 @@ def from_jax_arrays(cfg: ModelConfig, arrays: dict, device=None,
     def opt(name):
         return get(name) if name in arrays else None
 
+    hd = cfg.head_dim
+
+    def packed(name, widths):
+        w = get(name)
+        return w if jax_tp == 1 else unpack_cols_packed(w, widths, jax_tp)
+
     layers = []
     for i in range(cfg.num_layers):
         p = f"layers.{i}."
-        attn = TP_Attn(w_qkv=get(p + "attn.w_qkv"), w_o=get(p + "attn.w_o"),
+        qkv = (cfg.num_heads * hd, cfg.num_kv_heads * hd, cfg.num_kv_heads * hd)
+        attn = TP_Attn(w_qkv=packed(p + "attn.w_qkv", qkv), w_o=get(p + "attn.w_o"),
                        q_norm=opt(p + "attn.q_norm"), k_norm=opt(p + "attn.k_norm"),
                        n_heads=cfg.num_heads, n_kv_heads=cfg.num_kv_heads,
                        head_dim=cfg.head_dim)
@@ -70,13 +83,16 @@ def from_jax_arrays(cfg: ModelConfig, arrays: dict, device=None,
                          top_k=cfg.num_experts_per_tok, capacity_factor=capacity_factor)
             layers.append(MoELayer(attn=attn, moe=moe, **norms))
         else:
-            mlp = TP_MLP(w_gate_up=get(p + "mlp.w_gate_up"), w_down=get(p + "mlp.w_down"))
+            I = cfg.intermediate_size
+            mlp = TP_MLP(w_gate_up=packed(p + "mlp.w_gate_up", (I, I)),
+                         w_down=get(p + "mlp.w_down"))
             layers.append(DenseLayer(attn=attn, mlp=mlp, **norms))
     cos, sin = precompute_rope(cfg.head_dim, cfg.max_position_embeddings,
                                cfg.rope_theta, device=dev)
     cls = Qwen3MoE if cfg.is_moe else DenseLLM
-    return cls(embed=get("embed"), layers=layers, final_norm=get("final_norm"),
-               lm_head=get("lm_head"), cos=cos, sin=sin, config=cfg)
+    model = cls(embed=get("embed"), layers=layers, final_norm=get("final_norm"),
+                lm_head=get("lm_head"), cos=cos, sin=sin, config=cfg)
+    return model if mesh is None else model.to_mesh(mesh)
 
 
 def to_arrays(model: DenseLLM, grads: bool = False) -> dict:

@@ -2,23 +2,42 @@
 (`random_init`, `from_hf`, `quantize_int8`, `forward_tokens`,
 `forward_tokens_slots`, `forward_tokens_slots_paged`, their window forms
 `forward_tokens_slots_verify` and `forward_tokens_slots_paged_verify`,
-`forward_train`, `make_cache`) at tensor-parallel size 1.
+`forward_train`, `make_cache`).
 
-The model is a dataclass of tensors on one device (the JAX pytree's
-leaves); `forward_tokens` fills the cache in place. `forward_train` runs
-under torch.autograd on the parameters that `named_parameters` lists and
+The model is a dataclass of tensors (the JAX pytree's leaves);
+`forward_tokens` fills the cache in place. `forward_train` runs under
+torch.autograd on the parameters that `named_parameters` lists and
 `requires_grad_` marks.
+
+Tensor parallelism (`to_mesh`, `random_init(..., mesh=)`): over a mesh of
+n > 1 ranks each layer's attention and MLP hold per-rank shards
+(layers/tp_attn.py, tp_mlp.py) and its norms one copy per rank. The
+residual stream is replicated, one copy per rank: the embedding lookup
+runs on rank 0 and its rows are copied to every rank's device; each
+layer's epilogue (the mode's all-reduce) leaves every rank the same sum;
+the final RMSNorm and the LM head run on rank 0's copy, so the logits,
+the argmax and the next tokens live on rank 0 (the JAX global-view ops
+put them on the replicated array; here rank 0 holds them). The JAX
+random_init draws every weight from one key stream whatever the mesh;
+here the one-rank model is drawn from the seed and then split, so a
+model of n ranks equals the one-rank model of the same seed. Only the
+decode forwards (`forward_tokens`, `forward_tokens_slots`,
+`forward_tokens_slots_paged`) run at n > 1; the window forms, training
+and MoE models stay at one rank.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import os
+from typing import Optional
 
 import torch
 
-from triton_dist_tpu_torch.kernels.quant import QuantW, Weight, _mm_f32, qmm, quantize_int8
+from triton_dist_tpu_torch.kernels.quant import (QuantW, Weight, _mm_f32, qmm, quantize_int8,
+                                                 quantize_int8_rows)
 from triton_dist_tpu_torch.layers import TP_Attn, TP_MLP, precompute_rope, rms_norm
+from triton_dist_tpu_torch.layers.common import weight_to
 from triton_dist_tpu_torch.models.config import ModelConfig
 from triton_dist_tpu_torch.models.kv_cache import KVCache
 from triton_dist_tpu_torch.runtime.device import resolve_device
@@ -59,16 +78,29 @@ class DenseLLM:
     cos: torch.Tensor
     sin: torch.Tensor
     config: ModelConfig
+    # tensor parallelism: the mesh (None: one rank) and each rank's (cos,
+    # sin) on its device
+    mesh: Optional[object] = None
+    rope: Optional[list] = None
 
     @property
     def device(self) -> torch.device:
+        """Rank 0's device: the embedding, the head and the logits'."""
         return self.embed.device
 
+    @property
+    def tp(self) -> int:
+        return 1 if self.mesh is None else self.mesh.size
+
     @staticmethod
-    def random_init(cfg: ModelConfig, device=None, seed: int = 0) -> "DenseLLM":
+    def random_init(cfg: ModelConfig, device=None, seed: int = 0, mesh=None) -> "DenseLLM":
         """Random weights with Qwen3 shapes, drawn on `device` (default
-        "cuda") from a torch.Generator seeded with `seed`. A tied head
-        is a view of the embedding."""
+        "cuda"; with a mesh, its rank 0's) from a torch.Generator seeded
+        with `seed`. A tied head is a view of the embedding. With a mesh
+        of n > 1 ranks the one-rank model is drawn, then split
+        (`to_mesh`)."""
+        if mesh is not None and mesh.size > 1:
+            return DenseLLM.random_init(cfg, mesh.devices[0], seed).to_mesh(mesh)
         dev = resolve_device(device)
         gen = torch.Generator(device=dev).manual_seed(seed)
         D, I = cfg.hidden_size, cfg.intermediate_size
@@ -144,10 +176,43 @@ class DenseLLM:
                         final_norm=t("model.norm.weight"), lm_head=lm_head,
                         cos=cos, sin=sin, config=cfg)
 
+    def to_mesh(self, mesh) -> "DenseLLM":
+        """This one-rank model split over `mesh` (layers/tp_attn.py and
+        tp_mlp.py `to_mesh`; norms, rope tables, embedding and head as
+        the module docstring says); rank 0's device holds the embedding
+        and the head. A mesh of one rank returns the model itself."""
+        if self.mesh is not None:
+            raise ValueError("the model is already split over a mesh")
+        if self.config.is_moe:
+            raise NotImplementedError("MoE models at tensor-parallel size > 1: not yet "
+                                      "ported")
+        if mesh.size == 1:
+            return self
+        d0 = mesh.devices[0]
+        layers = [DenseLayer(attn=ly.attn.to_mesh(mesh), mlp=ly.mlp.to_mesh(mesh),
+                             ln_attn=mesh.replicate(ly.ln_attn),
+                             ln_mlp=mesh.replicate(ly.ln_mlp)) for ly in self.layers]
+        lm_head = self.lm_head
+        if (lm_head.q if isinstance(lm_head, QuantW) else lm_head).device != d0:
+            lm_head = weight_to(lm_head, d0)
+        return DenseLLM(embed=self.embed.to(d0), layers=layers,
+                        final_norm=self.final_norm.to(d0), lm_head=lm_head,
+                        cos=self.cos.to(d0), sin=self.sin.to(d0), config=self.config,
+                        mesh=mesh, rope=[(self.cos.to(d), self.sin.to(d))
+                                         for d in mesh.devices])
+
     def quantize_int8(self) -> "DenseLLM":
         """Weight-only int8 copy: the projection weights and the lm_head
         become QuantW (int8 + per-column f32 scale); the embedding stays
-        in the model dtype (it is a gather, not a product)."""
+        in the model dtype (it is a gather, not a product). Split over a
+        mesh, the row shards of w_o and w_down share the whole weight's
+        column scales (quantize_int8_rows), as the JAX package quantizes
+        the global array."""
+        if self.tp > 1:
+            return dataclasses.replace(self, lm_head=quantize_int8(self.lm_head), layers=[
+                dataclasses.replace(ly, attn=_quantized_shards(ly.attn, "w_qkv", "w_o"),
+                                    mlp=_quantized_shards(ly.mlp, "w_gate_up", "w_down"))
+                for ly in self.layers])
         layers = [
             dataclasses.replace(
                 ly,
@@ -166,6 +231,8 @@ class DenseLLM:
         layers.{i}.mlp.w_gate_up / w_down, layers.{i}.ln_attn / ln_mlp,
         final_norm, lm_head. The rope tables (cos, sin), leaves of the JAX
         pytree too, are constants here."""
+        if self.tp > 1:
+            raise NotImplementedError("training at tensor-parallel size > 1: not yet ported")
         out = [("embed", self.embed)]
         for i, ly in enumerate(self.layers):
             p = f"layers.{i}."
@@ -206,6 +273,8 @@ class DenseLLM:
         if mode not in ("train", "xla"):
             raise NotImplementedError(f"forward_train mode {mode!r}: not yet ported (the "
                                       "port runs 'train' and 'xla')")
+        if self.tp > 1:
+            raise NotImplementedError("training at tensor-parallel size > 1: not yet ported")
         B, S = ids.shape
         cfg = self.config
         attn_impl, mlp_impl = ("flash", "dist") if mode == "train" else ("ref", "xla")
@@ -228,13 +297,18 @@ class DenseLLM:
         cfg = self.config
         x = self.embed[ids].reshape(B * S, cfg.hidden_size)
         kv_start = cache.offset
-        for li, layer in enumerate(self.layers):
-            h = rms_norm(x, layer.ln_attn, cfg.rms_norm_eps)
-            a, _ = layer.attn.fwd_cached(h, self.cos, self.sin, B,
-                                         cache.layer(li), kv_start, mode)
-            x = x + a
-            x = x + self._ffn(layer, rms_norm(x, layer.ln_mlp, cfg.rms_norm_eps), mode,
-                              None)[0]
+        if self.tp > 1:
+            cos, sin = self._ropes()
+            x = self._tp_stack(x, lambda attn, hs, li: attn.fwd_cached(
+                hs, cos, sin, B, cache.layer(li), kv_start, mode), mode)
+        else:
+            for li, layer in enumerate(self.layers):
+                h = rms_norm(x, layer.ln_attn, cfg.rms_norm_eps)
+                a, _ = layer.attn.fwd_cached(h, self.cos, self.sin, B,
+                                             cache.layer(li), kv_start, mode)
+                x = x + a
+                x = x + self._ffn(layer, rms_norm(x, layer.ln_mlp, cfg.rms_norm_eps), mode,
+                                  None)[0]
         cache.advance(S)
         x = rms_norm(x, self.final_norm, cfg.rms_norm_eps)
         last = x.reshape(B, S, -1)[:, S - 1 if last_pos is None else last_pos]
@@ -277,23 +351,53 @@ class DenseLLM:
         return self._slots_forward(ids, self._paged_attend(pcache, pos, mode, q_lens), mode,
                                    window=True)[0], pcache
 
+    def _ropes(self):
+        """The rope tables as the layers take them: (cos, sin), or at n > 1
+        ([each rank's cos], [each rank's sin])."""
+        if self.tp == 1:
+            return self.cos, self.sin
+        return [c for c, _ in self.rope], [s for _, s in self.rope]
+
+    def _slot_args(self, pos):
+        """(cos, sin, pos) for the slot attention blocks: per rank at n > 1
+        (pos copied to every rank's device)."""
+        cos, sin = self._ropes()
+        return cos, sin, (pos if self.tp == 1 else self.mesh.replicate(pos))
+
     def _slot_attend(self, cache: KVCache, pos, mode: str, q_lens=None):
         """The slot attention block of forward_tokens_slots (with q_lens:
         of its window form), as attend(attn, h, layer index, batch)."""
+        cos, sin, pos = self._slot_args(pos)
         if q_lens is None:
             return lambda attn, h, li, b: attn.fwd_cached_slots(
-                h, self.cos, self.sin, b, cache.layer(li), pos, mode)
+                h, cos, sin, b, cache.layer(li), pos, mode)
         return lambda attn, h, li, b: attn.fwd_cached_slots_verify(
-            h, self.cos, self.sin, b, cache.layer(li), pos, q_lens, mode)
+            h, cos, sin, b, cache.layer(li), pos, q_lens, mode)
 
     def _paged_attend(self, pcache, pos, mode: str, q_lens=None):
         """The paged slot attention block of forward_tokens_slots_paged
         (with q_lens: of its window form)."""
+        cos, sin, pos = self._slot_args(pos)
+        table = pcache.table if self.tp == 1 else pcache.tables
         if q_lens is None:
             return lambda attn, h, li, b: attn.fwd_cached_slots_paged(
-                h, self.cos, self.sin, b, pcache.layer(li), pcache.table, pos, mode)
+                h, cos, sin, b, pcache.layer(li), table, pos, mode)
         return lambda attn, h, li, b: attn.fwd_cached_slots_paged_verify(
-            h, self.cos, self.sin, b, pcache.layer(li), pcache.table, pos, q_lens, mode)
+            h, cos, sin, b, pcache.layer(li), table, pos, q_lens, mode)
+
+    def _tp_stack(self, x, attend, mode: str):
+        """The layer stack at n > 1 ranks: x [M, D] (rank 0's embedding
+        rows) copied to every rank, each layer's attention block
+        attend(attn, [h per rank], layer index) and MLP over the ranks'
+        lists; returns rank 0's copy of the residual stream."""
+        eps = self.config.rms_norm_eps
+        xs = self.mesh.replicate(x)
+        for li, ly in enumerate(self.layers):
+            a, _ = attend(ly.attn, [rms_norm(xr, w, eps) for xr, w in zip(xs, ly.ln_attn)], li)
+            xs = [xr + ar for xr, ar in zip(xs, a)]
+            y = ly.mlp([rms_norm(xr, w, eps) for xr, w in zip(xs, ly.ln_mlp)], mode)
+            xs = [xr + yr for xr, yr in zip(xs, y)]
+        return xs[0]
 
     def _ffn(self, layer, h, mode: str, load):
         """The layer's FFN on the normed rows h: (output, load). `load` is
@@ -310,12 +414,15 @@ class DenseLLM:
             raise ValueError(f"slot decode feeds one token per slot, got S={S}")
         cfg = self.config
         x = self.embed[ids].reshape(B * S, cfg.hidden_size)
-        for li, layer in enumerate(self.layers):
-            a, _ = attend(layer.attn, rms_norm(x, layer.ln_attn, cfg.rms_norm_eps), li, B)
-            x = x + a
-            y, load = self._ffn(layer, rms_norm(x, layer.ln_mlp, cfg.rms_norm_eps), mode,
-                                load)
-            x = x + y
+        if self.tp > 1:
+            x = self._tp_stack(x, lambda attn, hs, li: attend(attn, hs, li, B), mode)
+        else:
+            for li, layer in enumerate(self.layers):
+                a, _ = attend(layer.attn, rms_norm(x, layer.ln_attn, cfg.rms_norm_eps), li, B)
+                x = x + a
+                y, load = self._ffn(layer, rms_norm(x, layer.ln_mlp, cfg.rms_norm_eps), mode,
+                                    load)
+                x = x + y
         x = rms_norm(x, self.final_norm, cfg.rms_norm_eps)
         logits = qmm(x, self.lm_head, out_dtype=torch.float32)
         return (logits.reshape(B, S, -1) if window else logits), load
@@ -324,4 +431,14 @@ class DenseLLM:
         cfg = self.config
         return KVCache.create(cfg.num_layers, batch, max_seq, cfg.num_kv_heads,
                               cfg.head_dim, device=self.device,
-                              dtype=dtype or cfg.torch_dtype)
+                              dtype=dtype or cfg.torch_dtype, mesh=self.mesh)
+
+
+def _quantized_shards(layer, col_name: str, row_name: str):
+    """A split layer (TP_Attn or TP_MLP) with its shards' column-parallel
+    weight quantized each on its own (a column's scale lies within one
+    rank) and its row-parallel one through quantize_int8_rows."""
+    rows = quantize_int8_rows([getattr(s, row_name) for s in layer.shards])
+    return dataclasses.replace(layer, shards=[
+        dataclasses.replace(s, **{col_name: quantize_int8(getattr(s, col_name)),
+                                  row_name: r}) for s, r in zip(layer.shards, rows)])

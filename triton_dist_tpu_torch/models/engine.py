@@ -6,13 +6,24 @@ the paged ones `make_paged_slot_cache`, `admit_slot_paged`,
 speculative decoding and chunked prefill: `slot_verify_chunk`,
 `paged_slot_verify_chunk`, `slot_mixed_chunk`, `paged_slot_mixed_chunk`,
 `slot_mixed_verify_chunk`, `paged_slot_mixed_verify_chunk` and
-`install_slot_paged`) for greedy decode on one device.
+`install_slot_paged`) for greedy decode, on one device or over a
+tensor-parallel mesh (runtime/bootstrap.py; the model's `to_mesh`).
 
 Backends: "flash" runs the CUDA kernels (flash-decode, the paged
 flash-decode, kv_update, SwiGLU, and for a Qwen3MoE model the grouped
 GEMM of its expert FFNs); "xla" runs their plain PyTorch versions (the
-JAX package's oracle backend); "mega" (dense models) prefills and admits
-on "flash" and decodes each layer as ONE megakernel launch
+JAX package's oracle backend); "ar" and "gemm_ar" (dense models, any
+tensor-parallel size) end each layer's O and down projections in the
+all_reduce kernel or the gemm_allreduce kernel, and prefill and admit
+on "xla", as in the JAX engine, so the hand collectives run in the
+decode ticks; `comm_kernel_dispatches` counts the slot programs a comm
+backend dispatched (the JAX engine's counter). Over a mesh of n > 1
+ranks, "flash" and "xla" end the projections in the psum's plain
+version, the caches are head-sharded (models/kv_cache.py), the page
+table's host side, allocator and radix tree stay one, and the logits,
+tokens and positions live on rank 0's device; the window programs,
+"mega" and MoE models stay at one rank. "mega" (dense models) prefills
+and admits on "flash" and decodes each layer as ONE megakernel launch
 (mega/decode_layer.py): `decode` over the contiguous cache
 (`_mega_scan_decode_fn`) and `paged_slot_chunk` over the paged pool
 (`_paged_slot_mega_scan_fn`), greedy only. Each JAX `lax.scan` is a
@@ -62,9 +73,11 @@ from triton_dist_tpu_torch.models.spec_decode import accept_greedy
 from triton_dist_tpu_torch.models.utils import sample_greedy
 from triton_dist_tpu_torch.runtime.device import resolve_device
 
-BACKENDS = ("flash", "xla", "mega")
+BACKENDS = ("flash", "xla", "mega", "ar", "gemm_ar")
 # backends of the JAX engine that the port does not run yet
-_JAX_BACKENDS = ("dist", "ar", "gemm_ar", "ep", "ep_flash")
+_JAX_BACKENDS = ("dist", "ep", "ep_flash")
+# the backends whose decode ticks run the TP comm kernels
+COMM_BACKENDS = ("ar", "gemm_ar")
 
 
 def _not_ported(what: str) -> NotImplementedError:
@@ -87,8 +100,14 @@ class Engine:
         if backend not in BACKENDS:
             raise ValueError(f"unknown backend {backend!r}; this engine serves "
                              f"{BACKENDS}")
+        tp = getattr(model, "tp", 1)
         if backend == "mega":
+            if tp > 1:
+                raise _not_ported("backend='mega' at tensor-parallel size > 1 (the TP "
+                                  "megakernel)")
             _check_mega(model, kv_dtype, sampling)
+        if backend in COMM_BACKENDS and model.config.is_moe:
+            raise _not_ported(f"backend={backend!r} for MoE models (TP-MoE comm kernels)")
         if sampling != "greedy":
             raise _not_ported(f"sampling={sampling!r}")
         if kv_dtype not in (None, torch.int8, model.config.torch_dtype):
@@ -99,8 +118,13 @@ class Engine:
         self.backend = backend
         self.kv_dtype = kv_dtype
         self.device = dev
-        # admissions and prefill: mega fuses decode only
-        self.prefill_backend = "flash" if backend == "mega" else backend
+        self.tp = tp
+        # admissions and prefill: mega fuses decode only; the comm backends
+        # prefill on "xla", as the JAX engine's default prefill_backend
+        self.prefill_backend = ("flash" if backend == "mega" else
+                                "xla" if backend in COMM_BACKENDS else backend)
+        # slot programs dispatched through a comm backend
+        self.comm_kernel_dispatches = 0
         self._paged_scratch = None      # admit_slot_paged's 1-row cache
         # backend "mega": the layer weight dicts and the two layer objects
         # (their scratch is allocated once), built at first use
@@ -148,14 +172,23 @@ class Engine:
         logits, cache = self.prefill(input_ids)
         return self.decode(logits, cache, gen_len)
 
-    def _h2d(self, a, dtype=torch.long) -> torch.Tensor:
-        """A host array as a tensor on the engine's device: an
+    def _h2d(self, a, dtype=torch.long, device=None) -> torch.Tensor:
+        """A host array as a tensor on `device` (default the engine's): an
         asynchronous copy from pinned memory on the card (no stream
         synchronisation), the array itself on the CPU."""
+        dev = self.device if device is None else torch.device(device)
         t = torch.as_tensor(np.asarray(a), dtype=dtype)
-        if self.device.type == "cpu":
+        if dev.type == "cpu":
             return t
-        return t.pin_memory().to(self.device, non_blocking=True)
+        return t.pin_memory().to(dev, non_blocking=True)
+
+    def _count_dispatch(self) -> None:
+        if self.backend in COMM_BACKENDS:
+            self.comm_kernel_dispatches += 1
+
+    def _one_rank(self, what: str) -> None:
+        if self.tp > 1:
+            raise _not_ported(f"{what} at tensor-parallel size > 1")
 
     # ------------------------------------------------------------------
     # contiguous slots (continuous batching; models/scheduler.py): each
@@ -182,10 +215,7 @@ class Engine:
         if len(ids) > self.max_seq:
             raise ValueError(f"prompt length {len(ids)} exceeds slot capacity "
                              f"{self.max_seq}")
-        row = KVCache(k=[t[slot:slot + 1] for t in cache.k],
-                      v=[t[slot:slot + 1] for t in cache.v],
-                      ks=[t[slot:slot + 1] for t in cache.ks],
-                      vs=[t[slot:slot + 1] for t in cache.vs])
+        row = cache.rows(slot, slot + 1)
         logits, _ = _prefill_fn(self.model, self._h2d(ids)[None], row,
                                 mode=self.prefill_backend)
         return logits[0], cache
@@ -203,9 +233,10 @@ class Engine:
                 "backend='mega' fuses the PAGED decode tick only (paged_slot_chunk); "
                 "contiguous slot serving runs the per-op backends — use "
                 "ContinuousScheduler(paged=True) or backend='flash'")
+        self._count_dispatch()
         return _slot_scan_decode_fn(
             self.model.forward_tokens_slots, self.backend, logits, cache, pos, active,
-            cap=cache.k[0].shape[2], gen_len=chunk, load=self._load0())
+            cap=cache.capacity, gen_len=chunk, load=self._load0())
 
     # ------------------------------------------------------------------
     # paged slots (shared-prefix serving; models/prefix_cache.py owns the
@@ -225,7 +256,7 @@ class Engine:
         return PagedSlotCache.create(
             cfg.num_layers, batch, self.max_seq, cfg.num_kv_heads, cfg.head_dim,
             page=page, num_pages=num_pages, device=self.device,
-            dtype=self.kv_dtype or cfg.torch_dtype)
+            dtype=self.kv_dtype or cfg.torch_dtype, mesh=self.model.mesh)
 
     def admit_slot_paged(self, pcache: PagedSlotCache, slot: int, ids, rows,
                          kv_start: int, cow_src, cow_dst, cow_rows: int):
@@ -257,30 +288,33 @@ class Engine:
             raise ValueError(f"prompt length {n} exceeds slot capacity "
                              f"{pcache.capacity}")
         rows = np.asarray(rows, np.int32)
-        Hkv = rows.shape[0]
         page = pcache.page
-        pools = _pools(pcache)
-        rows_d = self._install(pcache, slot, rows, cow_src, cow_dst, cow_rows)
+        self._install(pcache, slot, rows, cow_src, cow_dst, cow_rows)
         scratch = self._paged_scratch
-        if scratch is None or scratch.k[0].shape[2] != pcache.capacity:
+        if scratch is None or scratch.capacity != pcache.capacity:
             scratch = self._paged_scratch = self.model.make_cache(
                 1, pcache.capacity, dtype=self.kv_dtype)
         span = -(-m // page) * page               # the prefix's whole pages
-        pre = rows_d[:, :span // page].long()     # [Hkv, pages]
-        bufs = list(zip(scratch.k + scratch.ks, scratch.v + scratch.vs))
-        for (pk, pv), (sk, sv) in zip(pools, bufs if span else []):
-            sk[0, :, :span] = pk[pre, 0].reshape((Hkv, span) + sk.shape[3:])
-            sv[0, :, :span] = pv[pre, 0].reshape((Hkv, span) + sv.shape[3:])
+        ranks = list(zip(pcache.parts(), scratch.parts()))
+        hkv = rows.shape[0] // len(ranks)         # each rank's kv heads
+        for r, (pc, sc) in enumerate(ranks):
+            pre = self._h2d(rows[r * hkv:(r + 1) * hkv, :span // page], device=pc.table.device)
+            bufs = list(zip(sc.k + sc.ks, sc.v + sc.vs))
+            for (pk, pv), (sk, sv) in zip(_pools(pc), bufs if span else []):
+                sk[0, :, :span] = pk[pre, 0].reshape((hkv, span) + sk.shape[3:])
+                sv[0, :, :span] = pv[pre, 0].reshape((hkv, span) + sv.shape[3:])
         scratch.offset = m
         logits, _ = self.model.forward_tokens(self._h2d(ids[m:])[None], scratch,
                                               mode=self.prefill_backend,
                                               last_pos=(n - 1) - m)
         p = np.arange(m, n)
-        dest = self._h2d(rows[:, p // page])      # [Hkv, n - m]
-        ri = self._h2d(p % page)[None]
-        for (pk, pv), (sk, sv) in zip(pools, bufs):
-            pk[:, 0][dest, ri] = sk[0, :, m:n]
-            pv[:, 0][dest, ri] = sv[0, :, m:n]
+        for r, (pc, sc) in enumerate(ranks):
+            dev = pc.table.device
+            dest = self._h2d(rows[r * hkv:(r + 1) * hkv][:, p // page], device=dev)
+            ri = self._h2d(p % page, device=dev)[None]
+            for (pk, pv), (sk, sv) in zip(_pools(pc), zip(sc.k + sc.ks, sc.v + sc.vs)):
+                pk[:, 0][dest, ri] = sk[0, :, m:n]
+                pv[:, 0][dest, ri] = sv[0, :, m:n]
         return logits[0], pcache
 
     def install_slot_paged(self, pcache: PagedSlotCache, slot: int, rows, cow_src,
@@ -295,18 +329,23 @@ class Engine:
         return pcache
 
     def _install(self, pcache: PagedSlotCache, slot: int, rows, cow_src, cow_dst,
-                 cow_rows: int) -> torch.Tensor:
+                 cow_rows: int) -> None:
         """Write the slot's table block and run the boundary-page
-        copy-on-write; returns the block on the device."""
-        Hkv = rows.shape[0]
-        rows_d = self._h2d(rows, torch.int32)
-        pcache.table[slot * Hkv:(slot + 1) * Hkv] = rows_d
-        if cow_rows:
-            src, dst = self._h2d(cow_src), self._h2d(cow_dst)
-            for pk, pv in _pools(pcache):
-                pk[dst, :, :cow_rows] = pk[src, :, :cow_rows]
-                pv[dst, :, :cow_rows] = pv[src, :, :cow_rows]
-        return rows_d
+        copy-on-write, on every rank: rank r's table rows and pools take
+        its kv heads' share of rows, cow_src and cow_dst."""
+        parts = pcache.parts()
+        hkv = rows.shape[0] // len(parts)
+        for r, pc in enumerate(parts):
+            dev = pc.table.device
+            pc.table[slot * hkv:(slot + 1) * hkv] = self._h2d(
+                rows[r * hkv:(r + 1) * hkv], torch.int32, dev)
+            if cow_rows:
+                heads = slice(r * hkv, (r + 1) * hkv)
+                src = self._h2d(np.asarray(cow_src)[heads], device=dev)
+                dst = self._h2d(np.asarray(cow_dst)[heads], device=dev)
+                for pk, pv in _pools(pc):
+                    pk[dst, :, :cow_rows] = pk[src, :, :cow_rows]
+                    pv[dst, :, :cow_rows] = pv[src, :, :cow_rows]
 
     def paged_slot_chunk(self, logits, pcache: PagedSlotCache, pos, active, *,
                          chunk: int):
@@ -318,6 +357,7 @@ class Engine:
         if self.backend == "mega":
             return _paged_slot_mega_scan_fn(self, logits, pcache, pos, active,
                                             gen_len=chunk)
+        self._count_dispatch()
         return _slot_scan_decode_fn(
             self.model.forward_tokens_slots_paged, self.backend, logits, pcache, pos,
             active, cap=pcache.capacity, gen_len=chunk, load=self._load0())
@@ -330,7 +370,10 @@ class Engine:
 
     def _window(self, tokens, q_lens, prefilling=None):
         """The host window arrays on the device: tokens [B, S] long, q_lens
-        [B] int32 (and the prefilling mask [B] bool)."""
+        [B] int32 (and the prefilling mask [B] bool). Counts the window
+        program's dispatch."""
+        self._one_rank("the window programs (spec, prefill_budget)")
+        self._count_dispatch()
         out = (self._h2d(tokens), self._h2d(q_lens, torch.int32))
         return out if prefilling is None else out + (self._h2d(prefilling, torch.bool),)
 
@@ -345,7 +388,7 @@ class Engine:
         the paged pool."""
         if paged:
             return self.model.forward_tokens_slots_paged_verify, lambda c: c.capacity
-        return self.model.forward_tokens_slots_verify, lambda c: c.k[0].shape[2]
+        return self.model.forward_tokens_slots_verify, lambda c: c.capacity
 
     def slot_verify_chunk(self, cache: KVCache, pos, active, tokens, q_lens):
         """One speculative verify step over the contiguous slot cache:
@@ -445,8 +488,9 @@ class Engine:
         (the write sink): the slot scan keeps stepping masked rows, and
         their writes must never land on a page the allocator may hand to
         someone else. A fill on the device, no host copy."""
-        Hkv = self.model.config.num_kv_heads
-        pcache.table[slot * Hkv:(slot + 1) * Hkv] = pcache.trash
+        hkv = self.model.config.num_kv_heads // len(pcache.parts())
+        for pc in pcache.parts():
+            pc.table[slot * hkv:(slot + 1) * hkv] = pcache.trash
         return pcache
 
 

@@ -7,13 +7,34 @@ kernel's read order), plus per-position f32 scales [B, Hkv, T] for an
 int8 cache. Where the JAX cache was donated and rebuilt functionally,
 these tensors are updated in place and `offset` (a host int: the number
 of valid positions) advances in place.
+
+Tensor parallelism (`create(..., mesh=)`): the caches are head-sharded
+as in JAX, rank r holding kv heads [r*Hkv/n, (r+1)*Hkv/n) on its device,
+as one cache of Hkv/n heads per rank in `ranks` (the top-level lists are
+then empty). A paged pool's page ids mean the same on every rank: the
+allocator, the radix tree and the host's table are one, and each rank
+keeps its own pools (NP pages of its heads' streams; a page of another
+rank's head holds garbage there, never read) and its own device copy of
+its streams' rows of the table, [B*Hkv/n, max_pages] (row b*Hkv/n + h is
+slot b's local kv head h).
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import torch
+
+
+def _check_heads(n_kv_heads: int, mesh) -> int:
+    n = mesh.size
+    if n_kv_heads % n:
+        raise ValueError(
+            f"a head-sharded cache needs n_kv_heads ({n_kv_heads}) divisible by the "
+            f"tensor-parallel size ({n}): each rank holds whole kv heads, and GQA "
+            "replication of the query heads does not relax that")
+    return n_kv_heads // n
 
 
 @dataclasses.dataclass
@@ -24,12 +45,21 @@ class KVCache:
     # int8 cache only: L x [B, Hkv, T] f32 scales (empty lists otherwise)
     ks: list = dataclasses.field(default_factory=list)
     vs: list = dataclasses.field(default_factory=list)
+    # tensor parallelism: one KVCache per rank (its kv heads, its device)
+    ranks: Optional[list] = None
 
     @staticmethod
     def create(num_layers: int, batch: int, max_seq: int, n_kv_heads: int,
-               head_dim: int, *, device, dtype=torch.bfloat16) -> "KVCache":
+               head_dim: int, *, device=None, dtype=torch.bfloat16,
+               mesh=None) -> "KVCache":
         """dtype=torch.int8 stores K/V quantized per position, with the
-        scales the flash kernel folds into the logits and P."""
+        scales the flash kernel folds into the logits and P. With a mesh
+        of n > 1 ranks, head-sharded over it (device unused)."""
+        if mesh is not None and mesh.size > 1:
+            hkv = _check_heads(n_kv_heads, mesh)
+            return KVCache(k=[], v=[], ranks=[
+                KVCache.create(num_layers, batch, max_seq, hkv, head_dim, device=d,
+                               dtype=dtype) for d in mesh.devices])
         shape = (batch, n_kv_heads, max_seq, head_dim)
 
         def zeros(shp, dt):
@@ -43,11 +73,29 @@ class KVCache:
 
     @property
     def quantized(self) -> bool:
-        return bool(self.ks)
+        return self.ranks[0].quantized if self.ranks else bool(self.ks)
+
+    @property
+    def capacity(self) -> int:
+        """Positions per batch row (T)."""
+        return self.ranks[0].capacity if self.ranks else self.k[0].shape[2]
+
+    def parts(self) -> list:
+        """The per-rank caches (this cache itself at one rank)."""
+        return self.ranks if self.ranks else [self]
+
+    def rows(self, lo: int, hi: int) -> "KVCache":
+        """Views of batch rows [lo, hi) at offset 0 (every rank's)."""
+        if self.ranks:
+            return KVCache(k=[], v=[], ranks=[c.rows(lo, hi) for c in self.ranks])
+        return KVCache(k=[t[lo:hi] for t in self.k], v=[t[lo:hi] for t in self.v],
+                       ks=[t[lo:hi] for t in self.ks], vs=[t[lo:hi] for t in self.vs])
 
     def layer(self, idx: int):
         """The layer's cache tuple for TP_Attn.fwd_cached: (k, v), or
-        (k, v, ks, vs) when int8."""
+        (k, v, ks, vs) when int8; with ranks, a list of each rank's."""
+        if self.ranks:
+            return [c.layer(idx) for c in self.ranks]
         if self.quantized:
             return self.k[idx], self.v[idx], self.ks[idx], self.vs[idx]
         return self.k[idx], self.v[idx]
@@ -78,11 +126,20 @@ class PagedSlotCache:
     scales_k: list = dataclasses.field(default_factory=list)
     scales_v: list = dataclasses.field(default_factory=list)
     trash: int = 0
+    # tensor parallelism: one pool set per rank (its kv heads' streams, its
+    # rows of the table, its device); table is then None
+    ranks: Optional[list] = None
 
     @staticmethod
     def create(num_layers: int, batch: int, max_seq: int, n_kv_heads: int,
-               head_dim: int, *, page: int, num_pages: int, device,
-               dtype=torch.bfloat16) -> "PagedSlotCache":
+               head_dim: int, *, page: int, num_pages: int, device=None,
+               dtype=torch.bfloat16, mesh=None) -> "PagedSlotCache":
+        if mesh is not None and mesh.size > 1:
+            hkv = _check_heads(n_kv_heads, mesh)
+            return PagedSlotCache(pages_k=[], pages_v=[], table=None, ranks=[
+                PagedSlotCache.create(num_layers, batch, max_seq, hkv, head_dim, page=page,
+                                      num_pages=num_pages, device=d, dtype=dtype)
+                for d in mesh.devices])
         maxp = -(-max_seq // page)
 
         def zeros(shape, dt):
@@ -99,26 +156,43 @@ class PagedSlotCache:
         return PagedSlotCache(pages_k=zeros(shape, dtype), pages_v=zeros(shape, dtype),
                               table=table, scales_k=sk, scales_v=sv)
 
+    def parts(self) -> list:
+        """The per-rank pools (this cache itself at one rank)."""
+        return self.ranks if self.ranks else [self]
+
     @property
     def quantized(self) -> bool:
-        return bool(self.scales_k)
+        return bool(self.parts()[0].scales_k)
 
     @property
     def page(self) -> int:
-        return self.pages_k[0].shape[2]
+        return self.parts()[0].pages_k[0].shape[2]
 
     @property
     def num_pages(self) -> int:
-        return self.pages_k[0].shape[0]
+        return self.parts()[0].pages_k[0].shape[0]
+
+    @property
+    def max_pages(self) -> int:
+        """Table width: pages addressable per (slot, kv head) stream."""
+        return self.parts()[0].table.shape[1]
 
     @property
     def capacity(self) -> int:
         """Logical positions addressable per slot (table width x page)."""
-        return self.table.shape[1] * self.page
+        return self.max_pages * self.page
+
+    @property
+    def tables(self) -> list:
+        """Each rank's table (its streams' rows)."""
+        return [c.table for c in self.parts()]
 
     def layer(self, idx: int):
         """The layer's pool tuple for TP_Attn.fwd_cached_slots_paged:
-        (pages_k, pages_v), or with the scale pools when int8."""
+        (pages_k, pages_v), or with the scale pools when int8; with
+        ranks, a list of each rank's."""
+        if self.ranks:
+            return [c.layer(idx) for c in self.ranks]
         if self.quantized:
             return (self.pages_k[idx], self.pages_v[idx], self.scales_k[idx],
                     self.scales_v[idx])

@@ -257,7 +257,7 @@ class DecodeSlots:
     @property
     def capacity(self) -> int:
         """Admittable prompt + gen budget per slot."""
-        return self.cache.k[0].shape[2]
+        return self.cache.capacity
 
     @property
     def free(self) -> List[int]:
@@ -761,7 +761,7 @@ class PagedDecodeSlots(DecodeSlots):
                 pool.release(g)
             raise
         slot_groups = list(shared[:full]) + fresh
-        Hkv, maxp = pool.n_kv_heads, self.cache.table.shape[1]
+        Hkv, maxp = pool.n_kv_heads, self.cache.max_pages
         rows = np.full((Hkv, maxp), self.cache.trash, np.int32)
         for j, g in enumerate(slot_groups):
             rows[:, j] = g

@@ -93,6 +93,28 @@ clean one, the gap a kernel with that fault would show:
 
 The limit is GDN_LIMIT (chip_smoke.py's).
 
+    python3 -m triton_dist_tpu_torch.tools.fault_margin --tp [--cards 4]
+
+holds the tensor-parallel path over four ranks (emulated on one card, or
+four cards with --cards 4) instead. First kernel B, gemm_allreduce, at
+tp_check.py's decode shapes (the O and down projections, M = 128 and 64,
+bf16 and int8 panels) against its plain version: the clean gap (max |d|
+over max |plain|) beside the gap of the plain version run with a fault
+planted in its inputs, the gap a kernel with that fault would show:
+
+    tp drop a rank          rank n-1's partial is left out
+    tp stale epoch          the previous call's data is read (the previous
+                            call's inputs)
+    tp chunk twice          rank 1's first 128 x 128 tile is added twice
+
+against tp_check.GEMM_AR_LIMIT. Then the engine: Qwen3-1.7B at full
+width and depth over the mesh on "gemm_ar" and "ar", teacher-forced
+against the one-rank "xla" engine as tp_check.py holds it, clean and with
+each fault planted in every decode epilogue by wrapping
+layers/tp_attn.py `tp_down` (rank n-1's input zeroed; the previous
+epilogue's output of the same shape returned; rank 1's partial added
+again to the first M/n rows), against tp_check.GATE.
+
 Prints one line per configuration and case with the largest relative gap
 over the steps and whether a limit of LIMIT times the largest logit
 catches it; needs one card.
@@ -383,20 +405,6 @@ def run_moe(m, model):
     return results
 
 
-def serving_requests(m, vocab: int, n: int):
-    """The first n of chip_smoke.py's 128 serving requests (the same
-    seeded draw): 4 system prompts of 96 tokens, a 16-48-token tail each,
-    32-64 tokens to generate."""
-    import numpy as np
-    rng = np.random.RandomState(1)
-    prompts = [rng.randint(0, vocab, 96) for _ in range(4)]
-    which = rng.permutation(np.arange(128) % 4)
-    return [m.Request(rid=i, ids=np.concatenate(
-                [prompts[w], rng.randint(0, vocab, rng.randint(16, 49))]).astype(np.int32),
-                gen_len=int(rng.randint(32, 65)))
-            for i, w in enumerate(which)][:n]
-
-
 def served_vs_contiguous(m, model, reqs, out, ref=None):
     """Teacher-force the contiguous flash engine along each request's
     prompt and served tokens. Per served token: its top-2 margin over
@@ -440,6 +448,7 @@ def run_moe_serving(m, model):
     from triton_dist_tpu_torch.layers import tp_moe
     for ly in model.layers:
         ly.moe.capacity_factor = "dropless"
+    from triton_dist_tpu_torch.tools.checks import serving_requests
     reqs = serving_requests(m, model.config.vocab_size, MOE_DL_REQS)
     eng = m.Engine(model, max_seq=SERVE_MAX_SEQ, backend="flash", device=model.device)
     ref = m.Engine(model, max_seq=SERVE_MAX_SEQ, backend="xla", device=model.device)
@@ -616,10 +625,136 @@ def run_train(m):
     return results
 
 
+def tp_kernel_faults(mesh, seed: int = 0) -> dict:
+    """Kernel B at the decode shapes: the clean gap and each planted
+    fault's (see the module docstring)."""
+    from triton_dist_tpu_torch import kernels as K
+    from triton_dist_tpu_torch.kernels.gemm_allreduce import _partial
+    from triton_dist_tpu_torch.tools import tp_check as tc
+    n = mesh.size
+    gen = torch.Generator(device=mesh.devices[0]).manual_seed(seed)
+
+    def draw(M, k_loc, wt):
+        a = [torch.randn(M, k_loc, generator=gen, device=mesh.devices[0]).bfloat16().to(d)
+             for d in mesh.devices]
+        w = [(torch.randn(k_loc, tc.D, generator=gen, device=mesh.devices[0])
+              * k_loc ** -0.5).bfloat16() for _ in range(n)]
+        if wt == "int8":
+            w = [K.quantize_int8(x) for x in w]
+        return a, [K.QuantW(q=x.q.to(d), s=x.s.to(d)) if wt == "int8" else x.to(d)
+                   for x, d in zip(w, mesh.devices)]
+
+    results = {}
+    for M, k_loc, what in ((tc.B, tc.HQ * tc.HD // n, "o_proj"), (tc.B, tc.I // n, "down"),
+                           (tc.SERVE_B, tc.HQ * tc.HD // n, "o_proj"),
+                           (tc.SERVE_B, tc.I // n, "down")):
+        for wt in ("bf16", "int8"):
+            prev_a, prev_w = draw(M, k_loc, wt)
+            a, w = draw(M, k_loc, wt)
+            ref = K.gemm_allreduce_ref(a, w)[0].float()
+
+            def gap(out):
+                return _rel(out[0].float(), ref)
+
+            res = {"tp clean": gap(K.gemm_allreduce(a, w, mesh=mesh))}
+            res["tp drop a rank"] = gap(K.gemm_allreduce_ref(
+                a[:-1] + [torch.zeros_like(a[-1])], w))
+            res["tp stale epoch"] = gap(K.gemm_allreduce_ref(prev_a, prev_w))
+            twice = K.gemm_allreduce_ref(a, w)[0].clone()
+            tile = _partial(a[1], w[1])[:128, :128].to(twice.device)
+            twice[:128, :128] = (twice[:128, :128].float() + tile.float()).to(twice.dtype)
+            res["tp chunk twice"] = gap([twice])
+            torch.cuda.synchronize()
+            key = f"{what} M={M} {wt}"
+            results[key] = res
+            print(f"tp kernel {key}: " + "; ".join(
+                f"{c} {g:.3g} ({_caught(g, tc.GEMM_AR_LIMIT)})" for c, g in res.items()),
+                flush=True)
+    return results
+
+
+@contextlib.contextmanager
+def _tp_fault(case: str):
+    """Plant `case` in every "ar"/"gemm_ar" epilogue (layers/tp_attn.py
+    tp_down, as both layer modules hold it)."""
+    from triton_dist_tpu_torch.kernels.quant import qmm
+    from triton_dist_tpu_torch.layers import tp_attn, tp_mlp
+    real = tp_attn.tp_down
+    last = {}
+
+    def faulty(mode, hs, ws, mesh):
+        if mode not in ("ar", "gemm_ar") or case == "tp clean":
+            return real(mode, hs, ws, mesh)
+        if case == "tp drop a rank":
+            return real(mode, hs[:-1] + [torch.zeros_like(hs[-1])], ws, mesh)
+        out = real(mode, hs, ws, mesh)
+        if case == "tp stale epoch":
+            key = (tuple(out[0].shape), tuple(hs[0].shape))
+            prev, last[key] = last.get(key), out
+            return out if prev is None else prev
+        rows = out[0].shape[0] // len(out)
+        extra = qmm(hs[1], ws[1])[:rows]
+        return [torch.cat([o[:rows] + extra.to(o.device), o[rows:]]) for o in out]
+
+    tp_attn.tp_down = tp_mlp.tp_down = faulty
+    try:
+        yield
+    finally:
+        tp_attn.tp_down = tp_mlp.tp_down = real
+
+
+def run_tp(m, mesh) -> dict:
+    """Kernel B's faults, then the engine's on "gemm_ar" and "ar"."""
+    from triton_dist_tpu_torch.tools import tp_check as tc
+    results = {"kernel": tp_kernel_faults(mesh)}
+    cfg = m.qwen3_1p7b()
+    gen = torch.Generator(device=mesh.devices[0]).manual_seed(0)
+    ids = torch.randint(0, cfg.vocab_size, (tc.B, tc.S), generator=gen,
+                        device=mesh.devices[0])
+    ref_model = m.DenseLLM.random_init(cfg, device=mesh.devices[0], seed=0)
+    model = ref_model.to_mesh(mesh)
+    ref = m.Engine(ref_model, max_seq=tc.S + STEPS + 8, backend="xla", device=mesh.devices[0])
+    lr0, cr = ref.prefill(ids)
+    refs, toks, lr = [lr0], [], lr0
+    for _ in range(STEPS):
+        toks.append(torch.argmax(lr, -1))
+        lr = ref.decode_step(toks[-1], cr)
+        refs.append(lr)
+    del cr
+    for backend in ("gemm_ar", "ar"):
+        eng = m.Engine(model, max_seq=tc.S + STEPS + 8, backend=backend,
+                       device=mesh.devices[0])
+        res = {}
+        for case in ("tp clean", "tp drop a rank", "tp stale epoch", "tp chunk twice"):
+            with _tp_fault(case):
+                lf, cf = eng.prefill(ids)
+                gaps = []
+                for t, want in enumerate(refs):
+                    gaps.append(_rel(lf, want))
+                    if t < STEPS:
+                        lf = eng.decode_step(toks[t], cf)
+            res[case] = max(gaps)
+            print(f"tp engine {backend} {case}: worst step gap {res[case]:.4g} "
+                  f"({_caught(res[case], tc.GATE)}); per step "
+                  f"{[round(g, 4) for g in gaps]}", flush=True)
+            del cf
+        results[f"engine {backend}"] = res
+    return results
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("fault_margin: needs an NVIDIA card", file=sys.stderr)
         return 2
+    if "--tp" in sys.argv[1:]:
+        import triton_dist_tpu_torch.models as m
+        from triton_dist_tpu_torch.runtime import make_mesh
+        from triton_dist_tpu_torch.tools import tp_check as tc
+        mesh = (make_mesh(4) if "--cards" in sys.argv[1:]
+                else make_mesh(4, devices=["cuda:0"] * 4))
+        print(json.dumps({"kernel limit": tc.GEMM_AR_LIMIT, "engine limit": tc.GATE,
+                          "tp": run_tp(m, mesh)}), flush=True)
+        return 0
     if "--gdn" in sys.argv[1:]:
         print(json.dumps({"limit": GDN_LIMIT, "gdn": run_gdn()}), flush=True)
         return 0

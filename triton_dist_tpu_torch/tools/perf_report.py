@@ -1,7 +1,7 @@
 """Per-op roofline report: each ported kernel's time on the card against
 the least time the card could take (its SOL, tools/perf_model.py).
 
-    python3 -m triton_dist_tpu_torch.tools.perf_report [--json PATH]
+    python3 -m triton_dist_tpu_torch.tools.perf_report [--json PATH] [--cards 4]
 
 Counterpart of triton_dist_tpu/tools/perf_report.py (`_time`, `chain`,
 `_ROW_OF`, `registry_coverage`, `sol_frac_rows`, `run_report`) for the
@@ -9,8 +9,13 @@ rows one card runs in the port, at the JAX report's on-chip shapes, bf16:
 ag_gemm and gemm_rs at world size 1 (M=256, K=N=4096), flash_decode (B=8,
 16 query and 8 kv heads, T=2048, d=128), flash_decode_paged (the same
 keys in 128-row pages) and gdn_fwd(pallas) (B=8, H=16, T=2048,
-dk=dv=128, C=64). The collective rows and the rows of kernels not yet
-ported are listed under `not_ported`. Each row carries its plain version,
+dk=dv=128, C=64). With --cards 4 (a mesh of four cards,
+runtime/bootstrap.py make_mesh) it adds the collectives' rows at the JAX
+report's shapes in bf16 (`comm_rows`: all_gather of [256, 4096] shards,
+all_reduce and reduce_scatter of [4 x 256, 4096] partials, gemm_allreduce
+[256, 4096/4] @ [4096/4, 4096]), against perf_model.collective_sol_us
+over NVLink. The rows of kernels not yet ported are listed under
+`not_ported`. Each row carries its plain version,
 so that a caller can hold the op's output at the timed shape against it
 (chip_smoke.py does). It needs a card and raises without one: no row is
 ever timed on the CPU.
@@ -32,15 +37,18 @@ from triton_dist_tpu_torch.tools.perf_model import chip_specs, gemm_sol_us, sol_
 
 _REPO = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-# the JAX report's rows that need more than one card or a kernel not yet
-# ported
-NOT_PORTED = ("all_gather(one_shot)", "all_gather(ring)", "all_reduce(one_shot)",
-              "all_reduce(two_shot)", "reduce_scatter", "gemm_allreduce", "ag_group_gemm",
-              "moe_reduce_rs", "moe_reduce_ar", "ep_fused", "ulysses_qkv_gemm_a2a",
-              "ulysses_o_a2a_gemm", "pp_gpipe_fwd", "sp_ring(ring_shmem)", "sp_ring(ring)")
+# the JAX report's rows of kernels not yet ported
+NOT_PORTED = ("ag_group_gemm", "moe_reduce_rs", "moe_reduce_ar", "ep_fused",
+              "ulysses_qkv_gemm_a2a", "ulysses_o_a2a_gemm", "pp_gpipe_fwd",
+              "sp_ring(ring_shmem)", "sp_ring(ring)")
 
-# registry name -> this report's row name, where they differ
-_ROW_OF = {"gdn_fwd": "gdn_fwd(pallas)"}
+# registry name -> this report's row name, where they differ (the JAX
+# report's map)
+_ROW_OF = {"gdn_fwd": "gdn_fwd(pallas)", "allgather_one_shot": "all_gather(one_shot)",
+           "allgather_ring": "all_gather(ring)", "allreduce_one_shot": "all_reduce(one_shot)",
+           "allreduce_two_shot": "all_reduce(two_shot)",
+           "reduce_scatter_one_shot": "reduce_scatter", "reduce_scatter_ring": "reduce_scatter",
+           "gemm_ar": "gemm_allreduce"}
 
 
 def chain(op):
@@ -50,7 +58,9 @@ def chain(op):
     def step(v):
         out = op(v)
         out = out[0] if isinstance(out, tuple) else out
-        v.view(-1)[:1].add_(out.reshape(-1)[:1].to(v.dtype), alpha=1e-30)
+        # a collective's input and output are lists, one tensor per rank
+        for x, o in (zip(v, out) if isinstance(v, list) else [(v, out)]):
+            x.view(-1)[:1].add_(o.reshape(-1)[:1].to(x.dtype), alpha=1e-30)
         return v
     return step
 
@@ -186,16 +196,64 @@ def report_rows(spec) -> list:
     return rows
 
 
-def run_report(write_json=None, rows=None) -> dict:
-    """Time every row of `rows` (by default report_rows()) on the card;
-    returns {"env", "ops", "not_ported", "registry"}."""
+def comm_rows(spec, mesh) -> list:
+    """The collectives' rows over `mesh` (the JAX report's shapes, bf16;
+    each rank's input on its device), against collective_sol_us: the
+    NVLink time of the whole tensor's payload."""
+    from triton_dist_tpu_torch import kernels as K
+    from triton_dist_tpu_torch.tools.perf_model import collective_sol_us
+    n = mesh.size
+    gen = torch.Generator(device=mesh.devices[0]).manual_seed(0)
+    M, K_, N = 256, 4096, 4096
+
+    def parts(*shape, sc=1.0):
+        return [(torch.randn(shape, generator=gen, device=mesh.devices[0]) * sc)
+                .to(torch.bfloat16).to(d) for d in mesh.devices]
+
+    full = n * M * N * 2
+    shards, partials = parts(M, N), parts(n * M, N, sc=1.0 / n)
+    rows = []
+    for meth in ("one_shot", "ring"):
+        m = K.AllGatherMethod(meth)
+        rows.append(Row(f"all_gather({meth})",
+                        lambda v, m=m: K.all_gather(v, mesh=mesh, method=m),
+                        lambda v: K.all_gather_ref(v), (shards,),
+                        collective_sol_us("ag", full, n, spec=spec)))
+    for meth in ("one_shot", "two_shot"):
+        m = K.AllReduceMethod(meth)
+        rows.append(Row(f"all_reduce({meth})",
+                        lambda v, m=m: K.all_reduce(v, mesh=mesh, method=m),
+                        lambda v, m=m: K.all_reduce_ref(v, method=m), (partials,),
+                        collective_sol_us("ar", full, n, spec=spec)))
+    rows.append(Row("reduce_scatter", lambda v: K.reduce_scatter(v, mesh=mesh),
+                    lambda v: K.reduce_scatter_ref(
+                        v, method=K.get_auto_reduce_scatter_method(M * N * 2, n)),
+                    (partials,), collective_sol_us("rs", full, n, spec=spec), "auto method"))
+    a, b = parts(M, K_ // n), parts(K_ // n, N, sc=(K_ // n) ** -0.5)
+    rows.append(Row("gemm_allreduce", lambda u, w: K.gemm_allreduce(u, w, mesh=mesh),
+                    lambda u, w: K.gemm_allreduce_ref(u, w), (a, b),
+                    gemm_sol_us(M, K_ // n, N, spec=spec)
+                    + collective_sol_us("ar", M * N * 2, n, spec=spec)))
+    return rows
+
+
+def run_report(write_json=None, rows=None, mesh=None) -> dict:
+    """Time every row of `rows` (by default report_rows(), and comm_rows()
+    over `mesh` when it spans more than one card) on the card; returns
+    {"env", "ops", "not_ported", "registry"}."""
     if not torch.cuda.is_available():
         raise RuntimeError("perf_report: needs an NVIDIA card (no CPU rows)")
     spec = chip_specs()
     env = _env(spec)
     out_rows = []
-    for r in report_rows(spec) if rows is None else rows:
-        t = _time(chain(lambda u, r=r: r.fn(u, *r.args[1:])), r.args[0].clone())
+    if rows is None:
+        rows = report_rows(spec)
+        if mesh is not None and len(mesh.device_groups()) > 1:
+            rows += comm_rows(spec, mesh)
+    for r in rows:
+        x0 = r.args[0]
+        x0 = [t.clone() for t in x0] if isinstance(x0, list) else x0.clone()
+        t = _time(chain(lambda u, r=r: r.fn(u, *r.args[1:])), x0)
         out_rows.append({"op": r.op, "achieved_us": t, "sol_us": r.sol_us,
                          "sol_frac": r.sol_us / t, "note": r.note})
         print(sol_report(r.op, t, r.sol_us) + (f"  [{r.note}]" if r.note else ""), flush=True)
@@ -212,8 +270,14 @@ def run_report(write_json=None, rows=None) -> dict:
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--json", default=None)
+    ap.add_argument("--cards", type=int, default=1,
+                    help="with 4: add the collectives' rows over make_mesh(4)")
     args = ap.parse_args()
-    report = run_report(args.json)
+    mesh = None
+    if args.cards > 1:
+        from triton_dist_tpu_torch.runtime import make_mesh
+        mesh = make_mesh(args.cards)
+    report = run_report(args.json, mesh=mesh)
     print(json.dumps(report["env"]), flush=True)
 
 
