@@ -33,6 +33,12 @@ NVIDIA card: the quickest proof that the port still starts on the GPU.
    read just after each; every kernel of that path (flash_decode,
    kv_update, swiglu) must have run in both. The logits
    are then checked, teacher-forced, against the plain ("xla") backend.
+   The same on Engine(backend="dist") at one rank, bf16 and int8, where
+   every projection is the one-rank ag_gemm/gemm_rs (the GEMM kernel,
+   with int8 QuantW panels in int8): exactly four gemm launches a layer
+   and forward; its kernel rows 14c-14d and 15e-15f (gemm at the decode
+   step's four projections, bf16 and int8 panels) come with the kernel
+   phase.
 5. Serving phases: the same model through ContinuousScheduler
    (Engine(backend="flash")), 128 seeded requests over 64 slots, chunk
    16: four 96-token system prompts, each shared by 32 requests, with
@@ -44,7 +50,8 @@ NVIDIA card: the quickest proof that the port still starts on the GPU.
    seeded-chosen requests are held, teacher-forced, against the plain
    ("xla") contiguous engine. A tick probe then runs one bare tick under
    torch.cuda.set_sync_debug_mode("error") (a tick that synchronises
-   with the host fails) and one under torch.profiler (the idle share).
+   with the host fails) and one of PROFILE_STEPS (4) steps under
+   torch.profiler (the idle share).
 6. Megakernel phases (backend="mega", one persistent CUDA kernel per
    decode layer): rows 5a (mega_decode, B=128, pos=200, T=264) and 6a/6b
    (mega_paged_decode, 64 slots at lengths in [1, 224], page 16, bf16 and
@@ -143,8 +150,8 @@ NVIDIA card: the quickest proof that the port still starts on the GPU.
    "dropless", a teacher-forced check against the plain backend at B=4,
    S=64 with the plain backend's expert selection pinned to the flash
    path's (tools/fault_margin.py RouteTape), and no drop in a slot chunk.
-   The serving phase: the first 64 of the 128 requests (one wave of
-   the slots) through ContinuousScheduler(paged=True) at capacity 2.0
+   The serving phase: the first 16 of the 128 requests (a quarter of a
+   wave of the slots) through ContinuousScheduler(paged=True) at capacity 2.0
    (exact launch counts, the MoE counters, the tick probe), then a
    dropless arm (8 requests, 4 slots, no drop) whose first
    MOE_DL_TF_REQS served streams are held to the contiguous flash engine
@@ -160,20 +167,27 @@ NVIDIA card: the quickest proof that the port still starts on the GPU.
    epochs, not NVLink peer access nor the ordering of stores across
    cards, which `python3 -m triton_dist_tpu_torch.tools.tp_check --cards
    4` checks). The registry's comm specs on the mesh, held bitwise (their
-   gemm_ar within GEMM_AR_LIMIT) to the same specs on a CPU mesh, with
-   all_gather and reduce_scatter launched by them; the kernel rows of
-   all_reduce, all_gather, reduce_scatter (bitwise to their plain
-   versions, every rank equal, CALLS calls on fresh inputs) and
-   gemm_allreduce (bf16 and int8 panels, within GEMM_AR_LIMIT); Engine
-   "ar" and "gemm_ar" over the mesh, B=128 after a 128-token prompt
-   (prefill on "xla" launching no kernel; decode launching the
-   per-layer kernels and the comm kernel, all_reduce two-shot at 128
-   rows and no one-shot), teacher-forced against the one-rank "xla"
-   engine by the margin rule of 4.; paged serving at 64 slots on
-   "gemm_ar" and "ar" (the all_reduce one-shot at 64 rows and no
-   two-shot) over the serving traffic's first tp_check.N_REQ (16)
-   requests, admissions launching no comm kernel, ticks doing, every
-   served stream of both backends held to the one-rank plain engine.
+   gemm_ar, ag_gemm and gemm_rs within their tp_check limits) to the
+   same specs on a CPU mesh, with all_gather and reduce_scatter launched
+   by them; the kernel rows of all_reduce, all_gather, reduce_scatter
+   (bitwise to their plain versions, every rank equal, CALLS calls on
+   fresh inputs), gemm_allreduce (bf16 and int8 panels, within
+   GEMM_AR_LIMIT) and the ag_gemm and gemm_rs rings (the "dist"
+   projections at 128, 64 and 16384 rows, bf16 and int8 panels, and the
+   registry's f32 shapes, within AG_GEMM_LIMIT / GEMM_RS_LIMIT); Engine
+   "ar", "gemm_ar" and "dist" over the mesh, B=128 after a 128-token
+   prompt (on "ar"/"gemm_ar" prefill on "xla" launching no kernel and
+   decode launching the per-layer kernels and the comm kernel,
+   all_reduce two-shot at 128 rows and no one-shot; on "dist" prefill
+   and decode launching the per-layer kernels and exactly 56 ag_gemm and
+   56 gemm_rs a forward, no other comm kernel and no gemm),
+   teacher-forced against the one-rank "xla" engine by the margin rule
+   of 4.; paged serving at 64 slots on "gemm_ar", "ar" (the all_reduce
+   one-shot at 64 rows and no two-shot) and "dist" over the serving
+   traffic's first tp_check.N_REQ (16) requests, admissions launching no
+   comm kernel on the first two and the rings alone on "dist", ticks
+   launching the backend's comm kernels alone, every served stream of
+   the three backends held to the one-rank plain engine.
 12. Prints one JSON line of per-kernel results, then, last, the device
    line {"ok": true, "device": {...}}.
 
@@ -225,15 +239,19 @@ FIRST_POLL_MS = {}
 # margin of 15), requests teacher-forced against the plain engine
 SERVE_B, SERVE_CHUNK, SERVE_MAX_SEQ = 64, 16, 224
 TF_REQS = 8
+# the tick probe's profiled tick: its steps (the profiler's own cost
+# grows with the launches it records: 6017 a step on MoE)
+PROFILE_STEPS = 4
 # MoE: the teacher-forced arm's batch and prompt, the dropless serving
 # arm's requests and slots, the logit limit of flash against the plain
 # backend with the routing pinned, and the margin limit of served tokens
 # against the contiguous flash engine
 # (triton_dist_tpu_torch/tools/fault_margin.py --moe)
 MOE_TF_B, MOE_TF_S = 4, 64
-# the capacity-2.0 arm's requests: one wave of the serving slots (its
-# tokens are not teacher-forced; the tick probe takes SERVE_B of them)
-MOE_REQS = SERVE_B
+# the capacity-2.0 arm's requests: a quarter of a wave of the serving
+# slots (its tokens are not teacher-forced; the tick probe admits them all
+# in its first poll); 64 until the "dist" phases took its time
+MOE_REQS = SERVE_B // 4
 MOE_DL_REQS, MOE_DL_SLOTS = 8, 4
 # served streams held, teacher-forced, to the contiguous flash engine with
 # the routing pinned (about 12-16 s a request): of the monolithic dropless
@@ -1183,7 +1201,13 @@ def engine_phase(m, k, model, kv_dtype, label, ids, card, backend="flash"):
     decode_s = time.perf_counter() - t0
     c_decode = k.launch_counts()
     peak = torch.cuda.max_memory_allocated()
-    per_op = ("flash_decode", "kv_update", "swiglu")
+    # "dist" at one rank: every projection through the GEMM kernel (the
+    # one-rank ag_gemm and gemm_rs), four a layer and forward
+    per_op = ("flash_decode", "kv_update", "swiglu") + (("gemm",) if backend == "dist" else ())
+    if backend == "dist":
+        check(c_prefill["gemm"] == 4 * N_LAYERS and c_decode["gemm"] == 4 * N_LAYERS * GEN,
+              f"{label}: gemm launched {c_prefill['gemm']} times in prefill and "
+              f"{c_decode['gemm']} in decode, want {4 * N_LAYERS} and {4 * N_LAYERS * GEN}")
     for name in per_op:
         check(c_prefill[name] > 0 and (backend == "mega" or c_decode[name] > 0),
               f"{label}: kernel {name} did not run on the main path "
@@ -1829,11 +1853,11 @@ def moe_served_check(m, model, reqs, out, n, label):
 
 def tick_probe(m, k, eng, paged, reqs, label):
     """One wave of SERVE_B requests admitted by one poll (timed), then two
-    bare decode ticks of SERVE_CHUNK steps on the resulting slots: the
-    first under torch.cuda.set_sync_debug_mode("error"), so a tick that
+    bare decode ticks on the resulting slots: the first, of SERVE_CHUNK
+    steps, under torch.cuda.set_sync_debug_mode("error"), so a tick that
     synchronises with the host fails the run, and timed with no profiler;
-    the second under torch.profiler for the device's busy time by
-    kernel, hence the tick's idle share."""
+    the second, of PROFILE_STEPS steps, under torch.profiler for the
+    device's busy time per step by kernel, hence the tick's idle share."""
     from torch.profiler import ProfilerActivity, profile
     sched = m.ContinuousScheduler(eng, batch=SERVE_B, chunk=SERVE_CHUNK, paged=paged,
                                   page=PAGE)
@@ -1848,9 +1872,9 @@ def tick_probe(m, k, eng, paged, reqs, label):
     slots = sched.slots
     tick = eng.paged_slot_chunk if paged else eng.slot_chunk
 
-    def run_tick():
+    def run_tick(steps=SERVE_CHUNK):
         slots.logits, slots.cache, slots.pos = tick(
-            slots.logits, slots.cache, slots.pos, slots.active, chunk=SERVE_CHUNK)[1:4]
+            slots.logits, slots.cache, slots.pos, slots.active, chunk=steps)[1:4]
 
     k.reset_launch_counts()
     t0 = time.perf_counter()
@@ -1876,20 +1900,20 @@ def tick_probe(m, k, eng, paged, reqs, label):
               f"tick {label}: launches {counts}, want grouped_gemm == "
               f"{2 * L * SERVE_CHUNK} and {attn} == {L * SERVE_CHUNK} only")
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        run_tick()
+        run_tick(PROFILE_STEPS)
         torch.cuda.synchronize()
     ev = [e for e in prof.key_averages()
           if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy_ms = sum(e.self_device_time_total for e in ev) / 1e3 / SERVE_CHUNK
+    busy_ms = sum(e.self_device_time_total for e in ev) / 1e3 / PROFILE_STEPS
     step_ms = tick_s * 1e3 / SERVE_CHUNK
     top = sorted(ev, key=lambda e: -e.self_device_time_total)[:6]
     print(f"tick {label}: first poll ({SERVE_B} admissions + one tick) "
           f"{first_s * 1e3:.1f} ms; a bare tick of {SERVE_CHUNK} steps with no "
           f"host sync (sync debug mode 'error'): {step_ms:.3f} ms/step wall, device "
           f"busy {busy_ms:.3f} ms/step ({1 - busy_ms / step_ms:.1%} idle), "
-          f"device launches per step {sum(e.count for e in ev) // SERVE_CHUNK}, "
+          f"device launches per step {sum(e.count for e in ev) // PROFILE_STEPS}, "
           f"kernel launches {counts}; top: "
-          + "; ".join(f"{e.key[:50]} {e.self_device_time_total / 1e3 / SERVE_CHUNK:.3f} ms"
+          + "; ".join(f"{e.key[:50]} {e.self_device_time_total / 1e3 / PROFILE_STEPS:.3f} ms"
                       for e in top), flush=True)
     del sched, slots
 
@@ -2085,6 +2109,45 @@ def train_kernel_phase(k, gen):
         2 * Mf * Nf * Kf, F32_FLOPS_PER_S)
     del a, b, out, ref
     torch.cuda.empty_cache()
+    return rows
+
+
+def dist_gemm_rows(k, gen):
+    """Rows 14c-14d and 15e-15f (gemm, the one-rank ag_gemm and gemm_rs of
+    Engine(backend="dist")) at the decode step's projections (B=128 rows
+    of Qwen3-1.7B: QKV, gate/up, O, down), bf16 and int8 QuantW panels,
+    each held against its plain version within one bf16 ulp of its
+    largest output. Their launches are the dist engine's decode."""
+    dev = torch.device("cuda")
+    src = "triton_dist_tpu_torch/kernels/csrc/gemm.cu"
+    rows = []
+    for case, K, N, rep_at in (
+            ("14c ag_gemm qkv", 2048, 4096, "triton_dist_tpu/kernels/allgather_gemm.py:341"),
+            ("14d ag_gemm gate_up", 2048, 12288,
+             "triton_dist_tpu/kernels/allgather_gemm.py:341"),
+            ("15e gemm_rs o", 2048, 2048, "triton_dist_tpu/kernels/gemm_reduce_scatter.py:315"),
+            ("15f gemm_rs down", 6144, 2048,
+             "triton_dist_tpu/kernels/gemm_reduce_scatter.py:315")):
+        a = torch.randn(B, K, generator=gen, device=dev).bfloat16()
+        w = (torch.randn(K, N, generator=gen, device=dev) * K ** -0.5).bfloat16()
+        for wt, b in (("bf16", w), ("int8", k.quantize_int8(w))):
+            out, ref = k.gemm(a, b), k.gemm_ref(a, b)
+            torch.cuda.synchronize()
+            err, tol = max_err(out, ref), 2 ** -7 * ref.float().abs().max().item()
+            check(err <= tol, f"gemm {case} {wt}: max_abs_err {err} > tol {tol}")
+            wbytes = K * N * 2 if wt == "bf16" else K * N + 4 * N
+            b_ms, b_by = bound(2 * B * K + wbytes + 2 * B * N, 2 * B * K * N)
+            r = dict(name="gemm", case=f"{case} M={B} K={K} N={N} {wt} (dist decode, one "
+                     "rank)", route="cuda", source=src, replaces=rep_at, launches=None,
+                     max_abs_err=err, tol=tol, ms=cuda_ms(lambda: k.gemm(a, b)),
+                     plain_ms=cuda_ms(lambda: k.gemm_ref(a, b), reps=5), bound_ms=b_ms,
+                     bound_by=b_by,
+                     library_ms=cuda_ms(lambda: a @ b) if wt == "bf16" else None)
+            rows.append((r, (wt, "dist decode")))
+            print(f"kernel gemm [{r['case']}]: max_abs_err {err:.3g} (tol {tol:.3g}) ms "
+                  f"{r['ms']:.4f} plain_ms {r['plain_ms']:.4f} library_ms "
+                  f"{r['library_ms'] if r['library_ms'] is None else round(r['library_ms'], 4)}"
+                  f" bound_ms {b_ms:.4f} ({b_by})", flush=True)
     return rows
 
 
@@ -2490,23 +2553,30 @@ def tp_phase(k, card):
         outs[name] = fn(*args)
     torch.cuda.synchronize()
     c_reg = k.launch_counts()
-    for n in ("all_gather", "reduce_scatter", "all_reduce", "gemm_allreduce"):
+    kernels = ("all_gather", "reduce_scatter", "all_reduce", "gemm_allreduce", "ag_gemm",
+               "gemm_rs")
+    for n in kernels:
         check(c_reg[n] > 0, f"tp registry: {n} did not run ({c_reg})")
-    only_launched(c_reg, ("all_gather", "reduce_scatter", "all_reduce", "gemm_allreduce"),
-                  "tp registry")
+    only_launched(c_reg, kernels, "tp registry")
+    limits = {"gemm_ar": tp_check.GEMM_AR_LIMIT, "ag_gemm": tp_check.AG_GEMM_LIMIT,
+              "gemm_rs": tp_check.GEMM_RS_LIMIT}
     for name, spec in comm.items():
         fn, args = spec.build(cpu_mesh)
+        tol = limits.get(name, 0.0)
         for r, (got, want) in enumerate(zip(outs[name], fn(*args))):
             err = max_err(got.cpu(), want) / want.float().abs().max().item()
-            tol = tp_check.GEMM_AR_LIMIT if name == "gemm_ar" else 0.0
             check(err <= tol, f"tp registry {name} rank {r}: card against CPU {err} > {tol}")
         print(f"tp registry {name} ({spec.module}): card against its CPU run within "
-              f"{'bitwise' if name != 'gemm_ar' else tp_check.GEMM_AR_LIMIT}", flush=True)
+              f"{tol or 'bitwise'}", flush=True)
     res = tp_check.run(mesh, card=card)
+    dist = res["counts"]["dist"]
     counts = {"registry": c_reg, "ar decode": res["counts"]["ar"]["decode"],
-              "gemm_ar decode": res["counts"]["gemm_ar"]["decode"]}
+              "gemm_ar decode": res["counts"]["gemm_ar"]["decode"],
+              "dist engine": {n: dist["prefill"][n] + dist["decode"][n]
+                              for n in dist["decode"]}}
     key = {"all_reduce": "ar decode", "gemm_allreduce": "gemm_ar decode",
-           "all_gather": "registry", "reduce_scatter": "registry"}
+           "all_gather": "registry", "reduce_scatter": "registry",
+           "ag_gemm": "dist engine", "gemm_rs": "dist engine"}
     symm_mem.clear_registry()          # the landing buffers and signal pads
     return [(r, ("tp", key[r["name"]])) for r in res["rows"]], counts
 
@@ -2543,6 +2613,7 @@ def main() -> int:
     rows = kernel_phase(k, gen)
     rows += window_kernel_phase(k, torch.Generator(device="cuda").manual_seed(6))
     rows += mega_kernel_phase(gen)
+    rows += dist_gemm_rows(k, torch.Generator(device="cuda").manual_seed(8))
     stamp("kernel phases")
 
     cfg = m.qwen3_1p7b()
@@ -2550,12 +2621,18 @@ def main() -> int:
     model = m.AutoLLM.from_config(cfg, device="cuda", seed=0)
     counts = {"bf16": engine_phase(m, k, model, None, "bf16", ids, card)}
     stamp("engine bf16")
+    counts["bf16"]["dist decode"] = engine_phase(m, k, model, None, "dist bf16", ids, card,
+                                                 backend="dist")["decode"]
+    stamp("engine dist bf16")
     counts["bf16"]["mega decode"] = engine_phase(m, k, model, None, "mega bf16", ids,
                                                  card, backend="mega")["decode"]
     stamp("engine mega bf16")
     model = model.quantize_int8()
     counts["int8"] = engine_phase(m, k, model, torch.int8, "int8", ids, card)
     stamp("engine int8")
+    counts["int8"]["dist decode"] = engine_phase(m, k, model, torch.int8, "dist int8", ids,
+                                                 card, backend="dist")["decode"]
+    stamp("engine dist int8")
 
     reqs = serving_requests(m, cfg.vocab_size)
     model = m.AutoLLM.from_config(cfg, device="cuda", seed=0)

@@ -27,7 +27,7 @@ from triton_dist_tpu.models import Engine as JaxEngine
 from triton_dist_tpu.models.config import tiny_qwen3 as jax_tiny_qwen3
 from triton_dist_tpu_torch.kernels import gdn_fwd
 from triton_dist_tpu_torch.models import (AutoLLM, ContinuousScheduler, DenseLLM, Engine,
-                                          ModelConfig, Request, tiny_qwen3)
+                                          ModelConfig, Request, tiny_qwen3, tiny_qwen3_moe)
 from triton_dist_tpu_torch.models.convert import from_jax_arrays
 from triton_dist_tpu_torch.models.spec_decode import accept_sampled, target_probs
 
@@ -207,7 +207,7 @@ def test_entry_points_default_to_cuda():
 
 
 @pytest.mark.parametrize("kw,exc", [
-    (dict(backend="dist"), NotImplementedError),
+    (dict(backend="ep_flash"), NotImplementedError),
     (dict(backend="ep"), NotImplementedError),
     (dict(backend="nonesuch"), ValueError),
     (dict(sampling="top_k"), NotImplementedError),
@@ -224,6 +224,9 @@ def _gate_cases():
     def model():
         return AutoLLM.from_config(tiny_qwen3(1), device="cpu")
 
+    def moe():
+        return AutoLLM.from_config(tiny_qwen3_moe(1), device="cpu")
+
     def sched(**kw):
         return ContinuousScheduler(Engine(model(), max_seq=32, device="cpu"), batch=2,
                                    **kw)
@@ -236,8 +239,9 @@ def _gate_cases():
     return {
         "moe": lambda: AutoLLM.from_config(ModelConfig(num_experts=4), device="cpu",
                                            moe_impl="ep"),
-        "mode_dist": lambda: model().forward_tokens(
-            torch.zeros(1, 1, dtype=torch.long), model().make_cache(1, 8), mode="dist"),
+        # "dist" runs dense models; a MoE model's FFN has no "dist" form yet
+        "mode_dist": lambda: moe().forward_tokens(
+            torch.zeros(1, 1, dtype=torch.long), moe().make_cache(1, 8), mode="dist"),
         "train_mode_dist": lambda: model().forward_train(torch.zeros(1, 2, dtype=torch.long),
                                                          mode="dist"),
         "train_int8": lambda: model().quantize_int8().requires_grad_(),

@@ -7,16 +7,20 @@ tp=4, on tiny_qwen3(4) in f32.
   them (`jax_tp=4`); the JAX random_init draws the same values on any
   mesh, so they equal a one-device JAX model's, and the port's shards are
   the JAX blocks.
-- Engine over the four-rank mesh on "xla", "flash", "ar" and "gemm_ar"
-  against the JAX "xla" engine at tp=4: the prefill logits and every
-  teacher-forced decode step's within the tolerance, and each token by
-  the margin rule. The JAX "ar"/"gemm_ar" engines run in Pallas interpret
-  mode at 8-10x the "xla" time, so the JAX side is "xla" here and the
-  slow arm runs the JAX "gemm_ar" scheduler.
-- The port at tp=4 against the port at tp=1 from the same seed.
-- The paged ContinuousScheduler at tp=4 ("gemm_ar", "ar") against the JAX
-  "xla" scheduler at tp=4, by the margin rule, and comm_kernel_dispatches
-  > 0 on the comm backends, 0 on the others.
+- Engine over the four-rank mesh on "xla", "flash", "ar", "gemm_ar" and
+  "dist" against the JAX "xla" engine at tp=4: the prefill logits and
+  every teacher-forced decode step's within the tolerance, and each token
+  by the margin rule. The JAX "ar"/"gemm_ar"/"dist" engines run in Pallas
+  interpret mode at 8-30x the "xla" time, so the JAX side is "xla" here
+  and the slow arms run the JAX "gemm_ar" scheduler and "dist" engine.
+- "dist" where B*S does not divide by 4 (its rows padded with zero rows
+  to a multiple of 4): equal to the port's own "xla" engine at tp=4, the
+  padding in no cache position.
+- The port at tp=4 against the port at tp=1 from the same seed ("dist"
+  with int8 weights too).
+- The paged ContinuousScheduler at tp=4 ("gemm_ar", "ar", "dist")
+  against the JAX "xla" scheduler at tp=4, by the margin rule, and
+  comm_kernel_dispatches > 0 on the comm backends, 0 on the others.
 - The card checks' stream gate (tools/checks.py `tf_gate`) passes the
   tp=4 served streams against the one-rank plain engine and fails a
   stream with one token changed where the margin is sure.
@@ -129,7 +133,7 @@ def test_weights_carried_from_jax_tp4(jax_tp4):
                                       gu[:, 2 * blk:3 * blk])
 
 
-@pytest.mark.parametrize("backend", ["xla", "flash", "ar", "gemm_ar"])
+@pytest.mark.parametrize("backend", ["xla", "flash", "ar", "gemm_ar", "dist"])
 def test_engine_tp4_matches_jax_xla(jax_tp4, backend):
     model = _port(jax_tp4, _mesh())
     eng = Engine(model, max_seq=MAX_SEQ, backend=backend, device="cpu")
@@ -168,14 +172,14 @@ def test_tp4_equals_tp1_same_seed():
     np.testing.assert_allclose(l4.numpy(), l1.numpy(), atol=_tol(l1.numpy()), rtol=0)
 
 
-@pytest.mark.parametrize("backend", ["gemm_ar", "ar", "flash", "xla"])
+@pytest.mark.parametrize("backend", ["gemm_ar", "ar", "flash", "xla", "dist"])
 def test_paged_scheduler_tp4_matches_jax(jax_tp4, backend):
     model = _port(jax_tp4, _mesh())
     ref = _port(jax_tp4)                           # one rank, teacher forcing
     eng = Engine(model, max_seq=MAX_SEQ, backend=backend, device="cpu")
     got = ContinuousScheduler(eng, batch=BATCH, chunk=CHUNK, paged=True, page=PAGE).run(
         _requests(Request))
-    assert (eng.comm_kernel_dispatches > 0) == (backend in ("ar", "gemm_ar"))
+    assert (eng.comm_kernel_dispatches > 0) == (backend in ("ar", "gemm_ar", "dist"))
     checked = 0
     for r in _requests(Request):
         w = np.asarray(jax_tp4["streams"][r.rid])
@@ -191,6 +195,48 @@ def test_paged_scheduler_tp4_matches_jax(jax_tp4, backend):
             checked += 1
             logits, cache = ref.forward_tokens(torch.tensor([[int(w[t])]]), cache)
     assert checked >= 10
+
+
+def test_dist_padding_tp4_matches_xla():
+    """"dist" over four ranks where B*S = 15 and then B = 3 rows do not
+    divide by 4: the rows are padded with zero rows, which stay zero and
+    reach neither the attention nor the KV cache, so prefill and every
+    teacher-forced step equal the port's own "xla" engine at tp=4 within
+    the f32 tolerance, and the caches agree (zero past the written
+    positions on both)."""
+    m4 = DenseLLM.random_init(tiny_qwen3(N, dtype="float32"), seed=5, mesh=_mesh())
+    ids = np.random.RandomState(9).randint(0, 256, (3, 5)).astype(np.int32)
+    dist = Engine(m4, max_seq=MAX_SEQ, backend="dist", device="cpu")
+    xla = Engine(m4, max_seq=MAX_SEQ, backend="xla", device="cpu")
+    (ld, cd), (lx, cx) = dist.prefill(ids), xla.prefill(ids)
+    for t in range(STEPS + 1):
+        np.testing.assert_allclose(ld.numpy(), lx.numpy(), atol=_tol(lx.numpy()), rtol=0,
+                                   err_msg=f"step {t}")
+        if t < STEPS:
+            tok = lx.argmax(-1)
+            ld, lx = dist.decode_step(tok, cd), xla.decode_step(tok, cx)
+    written = ids.shape[1] + STEPS
+    for pd, px in zip(cd.parts(), cx.parts()):
+        for a, b in zip(pd.k + pd.v, px.k + px.v):
+            np.testing.assert_allclose(a.numpy(), b.numpy(), atol=1e-5, rtol=0)
+            assert not a[:, :, written:].any()
+
+
+def test_dist_tp4_equals_tp1_same_seed():
+    """"dist" at tp=4 (the rings' plain versions) gives the one-rank "xla"
+    engine's tokens from the same seed, and with int8 weights its prefill
+    logits within the tolerance (the row shards keep the whole weight's
+    column scales)."""
+    cfg = tiny_qwen3(N, dtype="float32")
+    m1 = DenseLLM.random_init(cfg, device="cpu", seed=3)
+    m4 = DenseLLM.random_init(cfg, seed=3, mesh=_mesh())
+    want = Engine(m1, max_seq=MAX_SEQ, backend="xla", device="cpu").serve(IDS, 6)
+    got = Engine(m4, max_seq=MAX_SEQ, backend="dist", device="cpu").serve(IDS, 6)
+    assert torch.equal(got, want)
+    q1, q4 = m1.quantize_int8(), m4.quantize_int8()
+    l1, _ = Engine(q1, max_seq=MAX_SEQ, backend="xla", device="cpu").prefill(IDS)
+    l4, _ = Engine(q4, max_seq=MAX_SEQ, backend="dist", device="cpu").prefill(IDS)
+    np.testing.assert_allclose(l4.numpy(), l1.numpy(), atol=_tol(l1.numpy()), rtol=0)
 
 
 def test_contiguous_scheduler_tp4_equals_serve():
@@ -249,21 +295,24 @@ def test_kv_head_divisibility_refused():
 def test_unported_forms_raise_at_tp4():
     cfg = tiny_qwen3(N, dtype="float32")
     m4 = DenseLLM.random_init(cfg, seed=0, mesh=_mesh())
-    for backend in ("mega", "dist", "ep"):
+    for backend in ("mega", "ep"):
         with pytest.raises(NotImplementedError):
             Engine(m4, max_seq=MAX_SEQ, backend=backend, device="cpu")
-    eng = Engine(m4, max_seq=MAX_SEQ, backend="gemm_ar", device="cpu")
-    for kw in (dict(spec=2), dict(prefill_budget=8)):
-        sched = ContinuousScheduler(eng, batch=2, chunk=CHUNK, paged=True, page=PAGE, **kw)
-        with pytest.raises(NotImplementedError, match="tensor-parallel"):
-            sched.run(_requests(Request))
+    for backend in ("gemm_ar", "dist"):
+        eng = Engine(m4, max_seq=MAX_SEQ, backend=backend, device="cpu")
+        for kw in (dict(spec=2), dict(prefill_budget=8)):
+            sched = ContinuousScheduler(eng, batch=2, chunk=CHUNK, paged=True, page=PAGE,
+                                        **kw)
+            with pytest.raises(NotImplementedError, match="tensor-parallel"):
+                sched.run(_requests(Request))
     with pytest.raises(NotImplementedError):
         m4.forward_train(torch.from_numpy(IDS).long())
     with pytest.raises(NotImplementedError):
         AutoLLM.from_config(tiny_qwen3_moe(N), device="cpu").to_mesh(_mesh())
     moe = AutoLLM.from_config(tiny_qwen3_moe(N), device="cpu")
-    with pytest.raises(NotImplementedError):
-        Engine(moe, max_seq=MAX_SEQ, backend="gemm_ar", device="cpu")
+    for backend in ("gemm_ar", "dist"):
+        with pytest.raises(NotImplementedError):
+            Engine(moe, max_seq=MAX_SEQ, backend=backend, device="cpu")
 
 
 @pytest.mark.slow
@@ -283,3 +332,20 @@ def test_jax_gemm_ar_scheduler_tp4_matches_port(jax_tp4):
         np.testing.assert_array_equal(np.asarray(want[r.rid]),
                                       np.asarray(jax_tp4["streams"][r.rid]))
         np.testing.assert_array_equal(np.asarray(got[r.rid]), np.asarray(want[r.rid]))
+
+
+@pytest.mark.slow
+def test_jax_dist_engine_tp4_matches_port(jax_tp4):
+    """The JAX "dist" engine at tp=4 (ag_gemm and gemm_rs in interpret mode,
+    its prefill through them too; about 45 s on a CPU) serves the JAX "xla"
+    engine's tokens, and the port's "dist" engine at tp=4 the same. Four
+    rows: the JAX "dist" decode takes B divisible by 4."""
+    ids = np.random.RandomState(8).randint(0, 256, (N, 6)).astype(np.int32)
+    cfg = jax_tiny_qwen3(N, dtype="float32")
+    jm = JaxAutoLLM.from_config(cfg, _jmesh(N), seed=0)
+    want = np.asarray(JaxEngine(jm, max_seq=MAX_SEQ, backend="dist").serve(ids, STEPS))
+    np.testing.assert_array_equal(
+        want, np.asarray(JaxEngine(jm, max_seq=MAX_SEQ, backend="xla").serve(ids, STEPS)))
+    got = Engine(_port(jax_tp4, _mesh()), max_seq=MAX_SEQ, backend="dist",
+                 device="cpu").serve(ids, STEPS)
+    np.testing.assert_array_equal(got.numpy(), want)

@@ -35,9 +35,9 @@ from triton_dist_tpu.kernels.grad import ag_gemm_grad as jax_ag_gemm_grad
 from triton_dist_tpu.kernels.grad import gemm_rs_grad as jax_gemm_rs_grad
 from triton_dist_tpu.models import DenseLLM as JaxDenseLLM
 from triton_dist_tpu.models.config import tiny_qwen3 as jax_tiny_qwen3
-from triton_dist_tpu_torch.kernels import (ag_gemm, ag_gemm_grad, flash_attention,
+from triton_dist_tpu_torch.kernels import (ag_gemm_grad, flash_attention,
                                            flash_attention_bwd_ref, flash_attention_ref,
-                                           flash_decode_partial, flash_decode_ref, gemm_rs,
+                                           flash_decode_partial, flash_decode_ref,
                                            gemm_rs_grad, lse_combine, reset_launch_counts,
                                            launch_counts)
 from triton_dist_tpu_torch.kernels.flash_attn_train import _fold_q, query_chunk
@@ -321,9 +321,17 @@ def test_tied_head_gets_its_own_gradient():
 
 @pytest.mark.parametrize("call", ["ag_gemm", "gemm_rs", "ag_gemm_grad", "gemm_rs_grad"])
 def test_multi_rank_not_ported(call):
-    a, b = torch.zeros(4, 8), torch.zeros(8, 8)
-    fns = {"ag_gemm": lambda: ag_gemm(a, b, world_size=2),
-           "gemm_rs": lambda: gemm_rs(a, b, world_size=2),
+    """Training over more than one rank is not ported: the training ops
+    above one rank, and the layers' training forms over a mesh, whose
+    products would be ag_gemm (the MLP's first) and gemm_rs (the
+    attention's last) under autograd. Their forward rings serve on
+    "dist" (tests/test_torch_dist.py)."""
+    from triton_dist_tpu_torch.models import DenseLLM
+    from triton_dist_tpu_torch.runtime import make_mesh
+    m4 = DenseLLM.random_init(tiny_qwen3(4), seed=0, mesh=make_mesh(4, devices=["cpu"] * 4))
+    ly, x = m4.layers[0], [torch.zeros(4, 64) for _ in range(4)]
+    fns = {"ag_gemm": lambda: ly.mlp.fwd_train(x),
+           "gemm_rs": lambda: ly.attn.fwd_train(x, m4.cos, m4.sin, 1),
            "ag_gemm_grad": lambda: ag_gemm_grad(2),
            "gemm_rs_grad": lambda: gemm_rs_grad(4)}
     with pytest.raises(NotImplementedError, match="not yet ported"):

@@ -1,5 +1,6 @@
 """Launch plumbing shared by the collectives' wrappers (allgather.py,
-reduce_scatter.py, allreduce.py, gemm_allreduce.py).
+reduce_scatter.py, allreduce.py, gemm_allreduce.py, and the rings of
+allgather_gemm.py and gemm_reduce_scatter.py).
 
 A collective takes one tensor per rank of a mesh (runtime/bootstrap.py),
 tensor r on rank r's device. On the CPU the wrapper takes its plain
@@ -13,6 +14,7 @@ from __future__ import annotations
 import torch
 
 from triton_dist_tpu_torch.kernels._build import count, ext, stream_ptr
+from triton_dist_tpu_torch.kernels.quant import QuantW
 from triton_dist_tpu_torch.runtime.symm_mem import signal_pad
 
 
@@ -40,6 +42,34 @@ def nvec16(t: torch.Tensor, what: str) -> int:
         raise ValueError(f"{what}: the kernels move 16-byte vectors; {tuple(t.shape)} "
                          f"{t.dtype} is {nbytes} bytes at {t.data_ptr() % 16} past 16")
     return nbytes // 16
+
+
+def ring_gemm_operands(what: str, a, b, mesh):
+    """Check the ring GEMMs' operands, one per rank: A [., K] (bf16 or
+    f32) and B [K, N] in A's dtype or an int8 QuantW with an [N] f32
+    scale; bf16 takes K and N in multiples of 8, f32 N in multiples of 4
+    (the kernels' 16-byte vectors). Returns (the B tensors, the scales or
+    an empty list)."""
+    check_parts(a, mesh, f"{what} A")
+    quant = isinstance(b[0], QuantW)
+    bq = [w.q if quant else w for w in b]
+    check_parts(bq, mesh, f"{what} B")
+    K, N = a[0].shape[1], bq[0].shape[1]
+    adt, bdt = a[0].dtype, bq[0].dtype
+    if bq[0].shape[0] != K:
+        raise ValueError(f"{what}: A [., {K}] @ B {tuple(bq[0].shape)}")
+    if (adt not in (torch.bfloat16, torch.float32) or bdt != (torch.int8 if quant else adt)
+            or (adt == torch.bfloat16 and (K % 8 or N % 8)) or N % 4):
+        raise ValueError(f"{what}: A {adt} [., {K}], B {bdt} [{K}, {N}]; the kernel takes "
+                         "bf16 or f32 A with B of its dtype or an int8 QuantW, K and N "
+                         "multiples of 8 in bf16, N of 4 in f32")
+    scales = []
+    if quant:
+        scales = [w.s for w in b]
+        check_parts(scales, mesh, f"{what} scales", ndim=1)
+        if scales[0].dtype != torch.float32 or scales[0].shape[0] != N:
+            raise ValueError(f"{what}: QuantW scales must be [{N}] f32")
+    return bq, scales
 
 
 def ctas(mesh, work: int) -> int:

@@ -63,10 +63,10 @@ void flash_attn_bwd_dkdv(int dtype, int64_t q, int64_t k, int64_t v, int64_t dou
       HD, rep, valid_len, q_off, static_cast<float>(scale), fault, stream(st)));
 }
 
-void gemm(int dtype, int64_t a, int64_t sam, int64_t sak, int64_t b, int64_t sbk, int64_t sbn,
-          int64_t c, int M, int N, int K, int64_t st) {
-  C10_CUDA_CHECK(tdt::gemm(dtype, ptr<const void>(a), sam, sak, ptr<const void>(b), sbk, sbn,
-                           ptr<void>(c), M, N, K, stream(st)));
+void gemm(int dtype, int b_dtype, int64_t a, int64_t sam, int64_t sak, int64_t b, int64_t sbk,
+          int64_t sbn, int64_t scale, int64_t c, int M, int N, int K, int64_t st) {
+  C10_CUDA_CHECK(tdt::gemm(dtype, b_dtype, ptr<const void>(a), sam, sak, ptr<const void>(b), sbk,
+                           sbn, ptr<const float>(scale), ptr<void>(c), M, N, K, stream(st)));
 }
 
 void flash_decode_paged(int q_dtype, int kv_dtype, int64_t q, int64_t k, int64_t v,
@@ -201,8 +201,9 @@ void mega_paged_decode(const std::vector<int64_t>& p, const std::vector<int64_t>
 
 tdt::CommArgs comm_args(const std::vector<int64_t>& in, const std::vector<int64_t>& in2,
                         const std::vector<int64_t>& scale, const std::vector<int64_t>& out,
-                        const std::vector<int64_t>& land, const std::vector<int64_t>& sig,
-                        int first_rank, int n_local, int64_t epoch) {
+                        const std::vector<int64_t>& out2, const std::vector<int64_t>& land,
+                        const std::vector<int64_t>& sig, int first_rank, int n_local,
+                        int64_t epoch) {
   const int n = static_cast<int>(sig.size());
   TORCH_CHECK(n >= 1 && n <= tdt::kMaxRanks, "collectives take 1-", tdt::kMaxRanks, " ranks");
   TORCH_CHECK(epoch > 0 && epoch < (int64_t(1) << 31), "bad epoch ", epoch);
@@ -214,11 +215,13 @@ tdt::CommArgs comm_args(const std::vector<int64_t>& in, const std::vector<int64_
   check(in2, "in2");
   check(scale, "scale");
   check(out, "out");
+  check(out2, "out2");
   check(land, "land");
   for (size_t r = 0; r < in.size(); ++r) a.in[r] = ptr<const void>(in[r]);
   for (size_t r = 0; r < in2.size(); ++r) a.in2[r] = ptr<const void>(in2[r]);
   for (size_t r = 0; r < scale.size(); ++r) a.scale[r] = ptr<const float>(scale[r]);
   for (size_t r = 0; r < out.size(); ++r) a.out[r] = ptr<void>(out[r]);
+  for (size_t r = 0; r < out2.size(); ++r) a.out2[r] = ptr<void>(out2[r]);
   for (size_t r = 0; r < land.size(); ++r) a.land[r] = ptr<void>(land[r]);
   for (int r = 0; r < n; ++r) a.sig[r] = ptr<unsigned>(sig[r]);
   a.n = n;
@@ -233,7 +236,7 @@ using Ptrs = std::vector<int64_t>;
 void all_gather(int method, const Ptrs& in, const Ptrs& out, const Ptrs& sig, int first_rank,
                 int n_local, int64_t epoch, int64_t svec, int ctas, int64_t st) {
   C10_CUDA_CHECK(tdt::all_gather(
-      method, comm_args(in, {}, {}, out, {}, sig, first_rank, n_local, epoch), svec, ctas,
+      method, comm_args(in, {}, {}, out, {}, {}, sig, first_rank, n_local, epoch), svec, ctas,
       stream(st)));
 }
 
@@ -241,7 +244,7 @@ void reduce_scatter(int dtype, int method, const Ptrs& in, const Ptrs& out, cons
                     const Ptrs& sig, int first_rank, int n_local, int64_t epoch, int64_t cvec,
                     int ctas, int64_t st) {
   C10_CUDA_CHECK(tdt::reduce_scatter(
-      dtype, method, comm_args(in, {}, {}, out, land, sig, first_rank, n_local, epoch), cvec,
+      dtype, method, comm_args(in, {}, {}, out, {}, land, sig, first_rank, n_local, epoch), cvec,
       ctas, stream(st)));
 }
 
@@ -249,7 +252,7 @@ void all_reduce(int dtype, int method, const Ptrs& in, const Ptrs& out, const Pt
                 const Ptrs& sig, int first_rank, int n_local, int64_t epoch, int64_t nvec,
                 int ctas, int64_t st) {
   C10_CUDA_CHECK(tdt::all_reduce(
-      dtype, method, comm_args(in, {}, {}, out, land, sig, first_rank, n_local, epoch), nvec,
+      dtype, method, comm_args(in, {}, {}, out, {}, land, sig, first_rank, n_local, epoch), nvec,
       ctas, stream(st)));
 }
 
@@ -257,8 +260,27 @@ void gemm_allreduce(int a_dtype, int b_dtype, const Ptrs& a, const Ptrs& b, cons
                     const Ptrs& out, const Ptrs& land, const Ptrs& sig, int first_rank,
                     int n_local, int64_t epoch, int M, int N, int K, int ctas, int64_t st) {
   C10_CUDA_CHECK(tdt::gemm_allreduce(
-      a_dtype, b_dtype, comm_args(a, b, scale, out, land, sig, first_rank, n_local, epoch), M,
+      a_dtype, b_dtype, comm_args(a, b, scale, out, {}, land, sig, first_rank, n_local, epoch), M,
       N, K, ctas, stream(st)));
+}
+
+void ag_gemm(int a_dtype, int b_dtype, const Ptrs& a, const Ptrs& b, const Ptrs& scale,
+             const Ptrs& gathered, const Ptrs& c, const Ptrs& sig, int first_rank, int n_local,
+             int64_t epoch, int64_t cvec, int M, int N, int K, int ctas, int64_t st) {
+  C10_CUDA_CHECK(tdt::ag_gemm(
+      a_dtype, b_dtype,
+      comm_args(a, b, scale, gathered, c, {}, sig, first_rank, n_local, epoch), cvec, M, N, K,
+      ctas, stream(st)));
+}
+
+void gemm_rs(int a_dtype, int b_dtype, const Ptrs& a, const Ptrs& b, const Ptrs& scale,
+             const Ptrs& out, const Ptrs& partial, const Ptrs& land, const Ptrs& sig,
+             int first_rank, int n_local, int64_t epoch, int64_t cvec, int M, int N, int K,
+             int ctas, int64_t st) {
+  C10_CUDA_CHECK(tdt::gemm_rs(
+      a_dtype, b_dtype,
+      comm_args(a, b, scale, out, partial, land, sig, first_rank, n_local, epoch), cvec, M, N,
+      K, ctas, stream(st)));
 }
 
 // peer access from device `dev` to `peer` (a mesh of distinct cards);
@@ -296,5 +318,7 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("reduce_scatter", &reduce_scatter);
   m.def("all_reduce", &all_reduce);
   m.def("gemm_allreduce", &gemm_allreduce);
+  m.def("ag_gemm", &ag_gemm);
+  m.def("gemm_rs", &gemm_rs);
   m.def("enable_peer_access", &enable_peer_access);
 }

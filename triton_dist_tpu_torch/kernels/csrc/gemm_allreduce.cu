@@ -23,7 +23,8 @@
 // persistent CTAs loop over the output tiles t = g, g + ctas, ..., so the
 // grid is sized to be resident (four ranks share the card's 132 SMs when
 // emulated on one) whatever the tile count. The tile product is
-// gemm_tile.cuh's, shared with gemm.cu: 128 x 128 bf16 tiles (wmma, a
+// gemm_tile.cuh's RowTile (shared with ag_gemm.cu and gemm_rs.cu; its bf16
+// tile is gemm.cu's): 128 x 128 bf16 tiles (wmma, a
 // 4-stage cp.async ring; an int8 panel widened as it is staged), 64 x 64
 // FMA tiles for f32. A CTA raises its barrier flag first and waits for its
 // peers' only after its first product, so the barrier hides under the
@@ -37,38 +38,9 @@ namespace {
 using namespace tdt_shmem;
 using bf16 = __nv_bfloat16;
 
-// the per-dtype tile: its shape, the shared memory it takes, and the
-// product into shared memory (floats, row r at r * LD)
-template <typename T, typename BT> struct ArTile {
-  static constexpr int BM = tdt_gemm::BM, BN = tdt_gemm::BN, LD = tdt_gemm::LDC;
-  static constexpr int kSmem = tdt_gemm::Tile<true, true>::kSmemBytes;
-  __device__ static void compute(const T* a, const BT* b, int M, int N, int K, int m0, int n0,
-                                 unsigned char* smem) {
-    tdt_gemm::product_tile<true, true, BT>(a, K, b, N, M, N, K, m0, n0, smem);
-  }
-};
-
-template <> struct ArTile<float, float> {
-  static constexpr int BM = tdt_gemm::FT, BN = tdt_gemm::FT, LD = tdt_gemm::FT + 1;
-  static constexpr int kSmem = BM * LD * 4;
-  __device__ static void compute(const float* a, const float* b, int M, int N, int K, int m0,
-                                 int n0, unsigned char* smem) {
-    float acc[4][4];
-    tdt_gemm::product_tile_f32(a, K, 1, b, N, 1, M, N, K, m0, n0, acc);
-    float* Cs = reinterpret_cast<float*>(smem);
-    const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-    __syncthreads();  // the previous tile's readers are done with Cs
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) Cs[(ty + 16 * i) * LD + tx + 16 * j] = acc[i][j];
-    __syncthreads();
-  }
-};
-
 template <typename T, typename BT>
 __global__ void __launch_bounds__(kThreads) gemm_ar_kernel(CommArgs a, int M, int N, int K) {
-  using Tl = ArTile<T, BT>;
+  using Tl = tdt_gemm::RowTile<T, BT>;
   constexpr int V = Vec16<T>::n;
   extern __shared__ __align__(128) unsigned char smem[];
   const float* Cs = reinterpret_cast<const float*>(smem);
@@ -92,12 +64,8 @@ __global__ void __launch_bounds__(kThreads) gemm_ar_kernel(CommArgs a, int M, in
     for (int ch = threadIdx.x; ch < Tl::BM * (Tl::BN / V); ch += kThreads) {
       const int r = ch / (Tl::BN / V), c = (ch % (Tl::BN / V)) * V;
       if (m0 + r >= M || n0 + c >= N) continue;
-      float v[V];
-#pragma unroll
-      for (int e = 0; e < V; ++e)
-        v[e] = Cs[r * Tl::LD + c + e] * (scale ? scale[n0 + c + e] : 1.f);
-      uint4 tile16;
-      store16<T>(reinterpret_cast<T*>(&tile16), v);   // the partial, rounded to A's dtype
+      // the partial, rounded to A's dtype
+      const uint4 tile16 = tdt_gemm::tile_vec<T, Tl::LD>(Cs, r, c, scale, n0 + c);
       const long long off = (static_cast<long long>(me) * M + m0 + r) * N + n0 + c;
       for (int p = 0; p < a.n; ++p)
         *reinterpret_cast<uint4*>(static_cast<T*>(a.land[p]) + off) = tile16;
@@ -123,7 +91,8 @@ template <typename T, typename BT>
 cudaError_t launch(const tdt::CommArgs& a, int M, int N, int K, int ctas, cudaStream_t stream) {
   tdt::CommArgs args_v = a;
   void* args[] = {&args_v, &M, &N, &K};
-  return tdt::coop_launch(gemm_ar_kernel<T, BT>, a, ctas, ArTile<T, BT>::kSmem, args, stream);
+  return tdt::coop_launch(gemm_ar_kernel<T, BT>, a, ctas, tdt_gemm::RowTile<T, BT>::kSmem,
+                          args, stream);
 }
 
 }  // namespace

@@ -1,6 +1,6 @@
-// The tile products of gemm.cu, shared with gemm_allreduce.cu: one CTA of
-// 256 threads computes one f32 tile of C = A @ B and leaves it where its
-// caller's epilogue reads it.
+// The tile products of gemm.cu, shared with gemm_allreduce.cu, ag_gemm.cu
+// and gemm_rs.cu: one CTA of 256 threads computes one f32 tile of C = A @ B
+// and leaves it where its caller's epilogue reads it.
 //
 // bf16 (product_tile): a 128 x 128 tile, 8 warps in 2 (rows) x 4
 // (columns); BK = 32-deep panels of A and B stream through a 4-stage
@@ -9,16 +9,22 @@
 // operand is staged in its own major order (16-byte copies along its
 // unit-stride dimension) and loaded as a row- or column-major wmma
 // fragment, so a transposed operand costs no copy. Rows and columns past
-// the edges load as zeros. An int8 B (gemm_allreduce's QuantW panels,
-// row-major only) is widened to bf16 as it is staged, with plain 8-byte
-// loads in place of cp.async; the per-column scale is the caller's, after
-// the product. The f32 tile lands in shared memory, [BM][LDC] floats over
+// the edges load as zeros. An int8 B (a QuantW panel, row-major only) is
+// widened to bf16 as it is staged, with plain 8-byte loads in place of
+// cp.async; the per-column scale is the caller's, after the product
+// (tile_vec). The f32 tile lands in shared memory, [BM][LDC] floats over
 // the ring.
 //
-// f32 (product_tile_f32): a plain FMA loop over a 64 x 64 tile, thread
+// f32 (product_tile_f32, B f32 or an int8 panel widened as it is staged):
+// a plain FMA loop over a 64 x 64 tile, thread
 // (ty, tx) of 16 x 16 owning rows ty + 16 * i and columns tx + 16 * j
 // (i, j < 4), any strides; no tensor core takes f32 without rounding its
 // inputs (TF32).
+//
+// RowTile<T, BT> picks one of the two for the comm kernels' row-major A
+// (T) and B (BT) and leaves the tile in shared memory as floats; tile_vec
+// (their epilogues' and gemm.cu's) reads one 16-byte vector of it back,
+// scaled per column and rounded to T.
 #pragma once
 
 #include <mma.h>
@@ -167,11 +173,13 @@ __device__ __forceinline__ void product_tile(const bf16* __restrict__ a, long lo
 
 // f32: a 64 x 64 tile at (m0, n0), 16-deep panels, into acc (thread (ty,
 // tx) = (tid / 16, tid % 16) owns rows m0 + ty + 16 * i, columns n0 + tx +
-// 16 * j); strides in elements
+// 16 * j); strides in elements; BT float, or int8_t (a QuantW panel,
+// widened to f32 exactly as it is staged)
 constexpr int FT = 64, FK = 16;
 
+template <typename BT = float>
 __device__ __forceinline__ void product_tile_f32(const float* __restrict__ a, long long sam,
-                                                 long long sak, const float* __restrict__ b,
+                                                 long long sak, const BT* __restrict__ b,
                                                  long long sbk, long long sbn, int M, int N,
                                                  int K, int m0, int n0, float (&acc)[4][4]) {
   __shared__ float As[FK][FT + 1];
@@ -187,7 +195,8 @@ __device__ __forceinline__ void product_tile_f32(const float* __restrict__ a, lo
       const int mm = idx % FT, kk = idx / FT;  // A: consecutive threads along M
       As[kk][mm] = m0 + mm < M && k0 + kk < K ? a[(m0 + mm) * sam + (k0 + kk) * sak] : 0.f;
       const int nn = idx % FT;                 // B: consecutive threads along N
-      Bs[kk][nn] = n0 + nn < N && k0 + kk < K ? b[(k0 + kk) * sbk + (n0 + nn) * sbn] : 0.f;
+      Bs[kk][nn] = n0 + nn < N && k0 + kk < K ? to_f<BT>(b[(k0 + kk) * sbk + (n0 + nn) * sbn])
+                                              : 0.f;
     }
     __syncthreads();
 #pragma unroll
@@ -204,6 +213,53 @@ __device__ __forceinline__ void product_tile_f32(const float* __restrict__ a, lo
         for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
     }
   }
+}
+
+// The tile of C = A @ B for row-major A [M, K] (T) and B [K, N] (BT: T, or
+// an int8 panel), as floats in shared memory, row r at r * LD: the
+// wmma tile for bf16, the FMA tile for f32. compute begins and ends with a
+// __syncthreads, so a persistent loop may read the previous tile up to the
+// next call.
+template <typename T, typename BT> struct RowTile {
+  static constexpr int BM = tdt_gemm::BM, BN = tdt_gemm::BN, LD = LDC;
+  static constexpr int kSmem = Tile<true, true>::kSmemBytes;
+  __device__ static void compute(const T* a, const BT* b, int M, int N, int K, int m0, int n0,
+                                 unsigned char* smem) {
+    product_tile<true, true, BT>(a, K, b, N, M, N, K, m0, n0, smem);
+  }
+};
+
+template <typename BT> struct RowTile<float, BT> {
+  static constexpr int BM = FT, BN = FT, LD = FT + 1;
+  static constexpr int kSmem = BM * LD * 4;
+  __device__ static void compute(const float* a, const BT* b, int M, int N, int K, int m0,
+                                 int n0, unsigned char* smem) {
+    float acc[4][4];
+    product_tile_f32<BT>(a, K, 1, b, N, 1, M, N, K, m0, n0, acc);
+    float* Cs = reinterpret_cast<float*>(smem);
+    const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+    __syncthreads();  // the previous tile's readers are done with Cs
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) Cs[(ty + 16 * i) * LD + tx + 16 * j] = acc[i][j];
+    __syncthreads();
+  }
+};
+
+// Vector c / V of row r of a tile in shared memory (floats, row r at r *
+// LD), each column times its scale (scale[col0 + e]; none when null),
+// rounded to T: the one rounding of a tile.
+template <typename T, int LD>
+__device__ __forceinline__ uint4 tile_vec(const float* Cs, int r, int c, const float* scale,
+                                          int col0) {
+  constexpr int V = Vec16<T>::n;
+  float v[V];
+#pragma unroll
+  for (int e = 0; e < V; ++e) v[e] = Cs[r * LD + c + e] * (scale ? scale[col0 + e] : 1.f);
+  uint4 out;
+  store16<T>(reinterpret_cast<T*>(&out), v);
+  return out;
 }
 
 }  // namespace tdt_gemm

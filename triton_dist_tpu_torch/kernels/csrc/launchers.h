@@ -54,10 +54,12 @@ cudaError_t flash_attn_bwd_dkdv(int dtype, const void* q, const void* k, const v
 // csrc/gemm.cu. c [M, N] contiguous = a [M, K] @ b [K, N] in a's dtype (bf16
 // or f32), f32 accumulation; strides in elements. bf16: each operand has a
 // unit stride in one dimension, K and N are multiples of 8 (M too for a
-// column-major a), leading strides multiples of 8.
-cudaError_t gemm(int dtype, const void* a, long long sam, long long sak, const void* b,
-                 long long sbk, long long sbn, void* c, int M, int N, int K,
-                 cudaStream_t stream);
+// column-major a), leading strides multiples of 8. b_dtype: a's, or int8
+// under a bf16 a (a QuantW panel: b row-major, scale [N] f32 applied per
+// column after the product; null otherwise).
+cudaError_t gemm(int dtype, int b_dtype, const void* a, long long sam, long long sak,
+                 const void* b, long long sbk, long long sbn, const float* scale, void* c,
+                 int M, int N, int K, cudaStream_t stream);
 
 // csrc/flash_decode_paged.cu. q [B, S, Hq, HD]; pools [NP, 1, page, HD];
 // strides in elements: st = {q_sb, q_ss, q_sh, page stride and row stride
@@ -160,13 +162,14 @@ cudaError_t mega_decode(const MegaLayerArgs& a, cudaStream_t stream);
 cudaError_t mega_paged_decode(const MegaLayerArgs& a, cudaStream_t stream);
 
 // The collectives (csrc/shmem.cuh, ring.cuh; allgather.cu, reduce_scatter.cu,
-// allreduce.cu, gemm_allreduce.cu). One launch covers the n_local ranks
-// [first_rank, first_rank + n_local) of one device; every pointer of all n
-// ranks comes by value. in: each rank's input (A for gemm_allreduce);
-// in2/scale: gemm_allreduce's B panels and their per-column f32 scales
-// (null for bf16 panels); out: each rank's output; land: each rank's
-// symmetric landing buffer (unused by all_gather); sig: each rank's signal
-// pad (runtime/symm_mem.py SIGNAL_SLOTS int32 flags); epoch: the call's,
+// allreduce.cu, gemm_allreduce.cu, ag_gemm.cu, gemm_rs.cu). One launch
+// covers the n_local ranks [first_rank, first_rank + n_local) of one device;
+// every pointer of all n ranks comes by value. in: each rank's input (A for
+// the GEMMs); in2/scale: the GEMMs' B panels and their per-column f32
+// scales (null for bf16 panels); out: each rank's output; out2: a second
+// buffer of each rank (ag_gemm's product, gemm_rs's partial); land: each
+// rank's symmetric landing buffer (unused by all_gather); sig: each rank's
+// signal pad (runtime/symm_mem.py SIGNAL_SLOTS int32 flags); epoch: the call's,
 // from the mesh (never 0, never reused).
 constexpr int kMaxRanks = 8;
 struct CommArgs {
@@ -174,6 +177,7 @@ struct CommArgs {
   const void* in2[kMaxRanks];
   const float* scale[kMaxRanks];
   void* out[kMaxRanks];
+  void* out2[kMaxRanks];
   void* land[kMaxRanks];
   unsigned* sig[kMaxRanks];
   int n, first_rank, n_local;
@@ -197,5 +201,17 @@ cudaError_t all_reduce(int dtype, int method, const CommArgs& a, long long nvec,
 // out [M, N] and land [n, M, N] in A's dtype.
 cudaError_t gemm_allreduce(int a_dtype, int b_dtype, const CommArgs& a, int M, int N, int K,
                            int ctas, cudaStream_t stream);
+// The ring GEMMs, on the same operand types as gemm_allreduce (A [*, K] and
+// B [K, N] row-major contiguous per rank; N a multiple of 8 in bf16, of 4
+// in f32), cvec the 16-byte vectors of one rank's chunk. ag_gemm: in = A_r
+// [m, K], M = n * m; out = each rank's symmetric gathered A [M, K]; out2 =
+// each rank's C_r [M, N] = gathered A @ B_r. gemm_rs: in = A_r [M, K]; out2
+// = each rank's partial [M, N] (local); land = each rank's symmetric (n -
+// 1)-slot landing buffer [n - 1, M / n, N]; out = each rank's [M / n, N]
+// rows of the sum.
+cudaError_t ag_gemm(int a_dtype, int b_dtype, const CommArgs& a, long long cvec, int M, int N,
+                    int K, int ctas, cudaStream_t stream);
+cudaError_t gemm_rs(int a_dtype, int b_dtype, const CommArgs& a, long long cvec, int M, int N,
+                    int K, int ctas, cudaStream_t stream);
 
 }  // namespace tdt

@@ -123,6 +123,21 @@ __device__ __forceinline__ void barrier_all(const CommArgs& a) {
   wait_all(a, a.sig[me] + kBarrier, 1);
 }
 
+// The rank's CTAs wait for one another (every store each made before it is
+// visible to all after it): each raises its own flag in the rank's pad at
+// `region`, then waits for all gridDim.x of them. It holds a kernel whose
+// CTA g reads what other CTAs of its rank wrote or received (ag_gemm.cu's
+// tiles over the gathered A, gemm_rs.cu's ring slices over the tiles).
+__device__ __forceinline__ void rank_barrier(const CommArgs& a, int region) {
+  unsigned* pad = a.sig[my_pe(a)] + region;
+  quiet();
+  if (threadIdx.x == 0) {
+    signal_op(pad + blockIdx.x, a.epoch);
+    for (int g = 0; g < gridDim.x; ++g) signal_wait_until(pad + g, a.epoch);
+  }
+  __syncthreads();
+}
+
 // this CTA's data flag for `slot` (a source rank or a ring step) in a region
 __device__ __forceinline__ unsigned* flag(unsigned* pad, int region, int slot) {
   return pad + region + slot * gridDim.x + blockIdx.x;

@@ -22,25 +22,17 @@ import torch
 
 from triton_dist_tpu_torch.kernels import _comm
 from triton_dist_tpu_torch.kernels._build import DTYPE_CODES
+from triton_dist_tpu_torch.kernels.gemm import gemm_ref
 from triton_dist_tpu_torch.kernels.quant import QuantW
 from triton_dist_tpu_torch.kernels.reduce_scatter import ordered_sum
 from triton_dist_tpu_torch.runtime.symm_mem import create_symm_buffer
 
 
-def _partial(a: torch.Tensor, b) -> torch.Tensor:
-    """One rank's partial product, rounded to A's dtype: f32 accumulation
-    (an int8 panel widened to A's dtype first, its scale after)."""
-    if isinstance(b, QuantW):
-        acc = a.float() @ b.q.to(a.dtype).float() * b.s.float()
-    else:
-        acc = a.float() @ b.float()
-    return acc.to(a.dtype)
-
-
 def gemm_allreduce_ref(a, b) -> list:
-    """Plain version: the rounded partials summed in rank order in f32 on
-    rank 0's device; each rank's copy on its device."""
-    out = ordered_sum([_partial(x, w) for x, w in zip(a, b)], list(range(len(a))), False)
+    """Plain version: the partials rounded to A's dtype (gemm_ref), summed
+    in rank order in f32 on rank 0's device; each rank's copy on its
+    device."""
+    out = ordered_sum([gemm_ref(x, w) for x, w in zip(a, b)], list(range(len(a))), False)
     return [out.to(x.device) for x in a]
 
 

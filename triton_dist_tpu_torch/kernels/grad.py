@@ -10,16 +10,25 @@ closes over the two ops, as the JAX custom VJPs do:
 
 b^T is a view (the GEMM kernel takes either major order), and each db is
 a plain torch.matmul, as the JAX package computes it outside any kernel.
-`gemm_ar_grad`, `grouped_gemm_grad` and the all-to-all VJPs are not
-ported yet.
+`gemm_ar_grad`, `grouped_gemm_grad`, the all-to-all VJPs and the two
+ops over more than one rank (the rings of csrc/ag_gemm.cu and gemm_rs.cu
+under autograd) are not ported yet.
 """
 
 from __future__ import annotations
 
 import torch
 
-from triton_dist_tpu_torch.kernels.allgather_gemm import ag_gemm, check_world_size
+from triton_dist_tpu_torch.kernels.allgather_gemm import ag_gemm
 from triton_dist_tpu_torch.kernels.gemm_reduce_scatter import gemm_rs
+
+
+def _one_rank(op: str, world_size: int) -> None:
+    """The training ops run at one rank; their multi-rank forms (the
+    rings under autograd) are not ported."""
+    if world_size != 1:
+        raise NotImplementedError(f"{op} over {world_size} ranks (multi-rank training): "
+                                  "not yet ported")
 
 
 class _AgGemm(torch.autograd.Function):
@@ -55,11 +64,11 @@ class _GemmRs(torch.autograd.Function):
 
 def ag_gemm_grad(world_size: int = 1):
     """Differentiable ag_gemm: op(a [M, K], b [K, N]) -> [M, N]."""
-    check_world_size("ag_gemm_grad", world_size, None)
+    _one_rank("ag_gemm_grad", world_size)
     return _AgGemm.apply
 
 
 def gemm_rs_grad(world_size: int = 1):
     """Differentiable gemm_rs: op(a [M, K], b [K, N]) -> [M, N]."""
-    check_world_size("gemm_rs_grad", world_size, None)
+    _one_rank("gemm_rs_grad", world_size)
     return _GemmRs.apply

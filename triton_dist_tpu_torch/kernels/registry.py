@@ -4,10 +4,11 @@ Counterpart of triton_dist_tpu/kernels/__init__.py (`KernelSpec`,
 `kernel_registry` and the build functions `_b_flash_decode`,
 `_b_flash_decode_paged`, `_b_kv_update`, `_b_grouped_gemm`, `_b_swiglu`,
 `_b_gdn`, `_b_flash_attention`, and the collectives' `_b_allgather`,
-`_b_reduce_scatter`, `_b_allreduce`, `_b_gemm_ar`): the eight specs whose
-`min_devices` is 1, whose build takes a device, and the seven of the
-ported collectives (min_devices 2, kind "comm"), whose build takes a
-mesh (runtime/bootstrap.py) and returns one input per rank.
+`_b_reduce_scatter`, `_b_allreduce`, `_b_ag_gemm`, `_b_gemm_rs`,
+`_b_gemm_ar`): the eight specs whose `min_devices` is 1, whose build
+takes a device, and the nine of the ported collectives (min_devices 2,
+kind "comm"), whose build takes a mesh (runtime/bootstrap.py) and
+returns one input per rank.
 Each build function draws its inputs from the same
 `np.random.RandomState(seed)`, in the same order and shapes, as its JAX
 counterpart, so that both registries' canonical calls see equal inputs.
@@ -166,6 +167,28 @@ def _b_partials(op: str, method: str):
     return build
 
 
+def _b_ag_gemm(mesh):
+    """A [8n, 128] sharded on rows, B [128, 32n] on columns (seed 2, the
+    JAX order: a, then b); args: the n A shards, then the n B shards."""
+    from triton_dist_tpu_torch.kernels.allgather_gemm import ag_gemm
+    n = mesh.size
+    rng = np.random.RandomState(2)
+    a, b = _f32(rng, 8 * n, 128), _f32(rng, 128, 32 * n)
+    return ((lambda *ab: ag_gemm(list(ab[:n]), list(ab[n:]), mesh=mesh)),
+            tuple(_split(a, mesh, 0) + _split(b, mesh, 1)))
+
+
+def _b_gemm_rs(mesh):
+    """A [8n, 128] sharded on columns, B [128, 128] on rows (seed 3, the
+    JAX order); args: the n A shards, then the n B shards."""
+    from triton_dist_tpu_torch.kernels.gemm_reduce_scatter import gemm_rs
+    n = mesh.size
+    rng = np.random.RandomState(3)
+    a, b = _f32(rng, 8 * n, 128), _f32(rng, 128, 128)
+    return ((lambda *ab: gemm_rs(list(ab[:n]), list(ab[n:]), mesh=mesh)),
+            tuple(_split(a, mesh, 1) + _split(b, mesh, 0)))
+
+
 def _b_gemm_ar(mesh):
     """A [8, 128] sharded on columns, B [128, 128] on rows (seed 4, drawn
     in the JAX order: a, then b); args: the n A shards, then the n B
@@ -205,6 +228,9 @@ def kernel_registry() -> dict:
                    _b_partials("ar", "one_shot"), min_devices=2),
         KernelSpec("allreduce_two_shot", "kernels.allreduce", "comm",
                    _b_partials("ar", "two_shot"), min_devices=2),
+        KernelSpec("ag_gemm", "kernels.allgather_gemm", "comm", _b_ag_gemm, min_devices=2),
+        KernelSpec("gemm_rs", "kernels.gemm_reduce_scatter", "comm", _b_gemm_rs,
+                   min_devices=2),
         KernelSpec("gemm_ar", "kernels.gemm_allreduce", "comm", _b_gemm_ar, min_devices=2),
     ]
     return {s.name: s for s in specs}

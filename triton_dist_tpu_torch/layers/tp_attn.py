@@ -9,23 +9,32 @@ and `_attend_paged_slots`/`fwd_cached_slots_paged`, their window forms
 (speculative verify and chunked prefill), and the training
 forms `_local_attn_train`/`fwd_train`), for the modes "flash" (the CUDA
 kernels), "xla" (the plain PyTorch versions, the JAX package's oracle
-mode), "ar" (the partial O projection, then the all_reduce kernel) and
-"gemm_ar" (the gemm_allreduce kernel). The packed weight layout is kept:
-w_qkv is [D, (Hq + 2*Hkv) * hd] = [q | k | v].
+mode), "ar" (the partial O projection, then the all_reduce kernel),
+"gemm_ar" (the gemm_allreduce kernel) and "dist" (the JAX `fwd_dist`
+projections: QKV through ag_gemm, O through gemm_rs). The
+packed weight layout is kept: w_qkv is [D, (Hq + 2*Hkv) * hd] = [q | k |
+v].
 
 Tensor parallelism (`to_mesh`, or `init(..., mesh=)`): over a mesh of n
 ranks (runtime/bootstrap.py) the layer holds `shards`, one TP_Attn per
 rank with its Hq/n query and Hkv/n kv heads (its block of the packed
 [q_r | k_r | v_r] columns, its rows of w_o) on the rank's device, and
-the forwards take and return lists, one tensor per rank: x replicated,
-the caches, rope tables and positions per rank. Each rank's
-projection and attention run between the collectives; the O projection
-ends in the mode's epilogue (`tp_down`): "ar" all_reduce, "gemm_ar"
-gemm_allreduce, "flash"/"xla" a psum whose counterpart is
-`all_reduce_ref` (XLA's psum is no Pallas kernel). Only the loop over the
-ranks' collective launches is inside one call, so every rank's launch of
-a collective is enqueued back to back. The window and training forms
-stay at one rank. The KV
+the forwards take and return lists, one tensor per rank: x replicated
+(row-sharded on "dist"), the caches, rope tables and positions per rank.
+Each rank's projection and attention run between the collectives; the
+O projection ends in the mode's epilogue (`tp_down`): "ar" all_reduce,
+"gemm_ar" gemm_allreduce, "flash"/"xla" a psum whose counterpart is
+`all_reduce_ref` (XLA's psum is no Pallas kernel). On "dist" the QKV
+projection is one ag_gemm over the ranks' row shards (`tp_up`), so every
+rank attends its heads over all rows, and the O projection one gemm_rs
+back to row shards. The JAX "dist" forward takes B*S divisible by n; the
+model pads its rows to a multiple of n with zero rows instead
+(models/dense.py `_tp_stack`): the attention and the KV writes take only
+the first `rows` rows of ag_gemm's output, and the O projection pads its
+input back with zero rows before gemm_rs. Only the loop over the ranks'
+collective launches is inside one call, so every rank's launch of a
+collective is enqueued back to back. The window and training forms stay
+at one rank. The KV
 cache tensors and page pools are updated in place; the per-row writes
 of the slot forms are plain torch indexing, as the JAX `.at[].set`
 was plain jnp. The JAX window forms scatter their padding rows out of
@@ -41,7 +50,9 @@ import dataclasses
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 
+from triton_dist_tpu_torch.kernels.allgather_gemm import ag_gemm
 from triton_dist_tpu_torch.kernels.allreduce import all_reduce, all_reduce_ref
 from triton_dist_tpu_torch.kernels.flash_attn import (flash_decode,
                                                       flash_decode_ref,
@@ -49,6 +60,7 @@ from triton_dist_tpu_torch.kernels.flash_attn import (flash_decode,
 from triton_dist_tpu_torch.kernels.flash_attn_train import (flash_attention,
                                                             flash_attention_ref)
 from triton_dist_tpu_torch.kernels.gemm_allreduce import gemm_allreduce
+from triton_dist_tpu_torch.kernels.gemm_reduce_scatter import gemm_rs
 from triton_dist_tpu_torch.kernels.grad import ag_gemm_grad, gemm_rs_grad
 from triton_dist_tpu_torch.kernels.paged_kv import (flash_decode_paged,
                                                    flash_decode_paged_ref)
@@ -58,7 +70,7 @@ from triton_dist_tpu_torch.layers.common import (apply_rope, apply_rope_slots,
                                                  split_rows, weight_to)
 from triton_dist_tpu_torch.runtime.bootstrap import mesh_of
 
-MODES = ("flash", "xla", "ar", "gemm_ar")
+MODES = ("flash", "xla", "ar", "gemm_ar", "dist")
 
 
 def check_mode(mode: str) -> None:
@@ -67,12 +79,25 @@ def check_mode(mode: str) -> None:
             f"forward mode {mode!r}: not yet ported (the port runs {MODES})")
 
 
+def tp_up(mode: str, xs, ws, mesh) -> list:
+    """The column-parallel up projection of every rank: "dist" one ag_gemm
+    of the row shards xs (each rank's result has every rank's rows),
+    every other mode each rank's xs[r] @ ws[r] on its replicated rows."""
+    if mode == "dist":
+        return ag_gemm(xs, ws, mesh=mesh)
+    return [qmm(x, w) for x, w in zip(xs, ws)]
+
+
 def tp_down(mode: str, hs, ws, mesh) -> list:
     """The row-parallel down projection of every rank (hs[r] @ ws[r]) and
-    its epilogue, replicated: the JAX `_o_proj`/`_down_psum` and the
-    MLPs' fwd_ar/fwd_gemm_ar/psum. "gemm_ar": one gemm_allreduce; "ar":
-    the partials, then all_reduce; "flash"/"xla": the partials, then the
-    psum's plain version (all_reduce_ref, the one-shot order)."""
+    its epilogue: the JAX `_o_proj`/`_down_psum` and the MLPs'
+    fwd_dist/fwd_ar/fwd_gemm_ar/psum. "dist": one gemm_rs, each rank
+    keeping its row shard of the sum; replicated otherwise: "gemm_ar" one
+    gemm_allreduce; "ar" the partials, then all_reduce; "flash"/"xla" the
+    partials, then the psum's plain version (all_reduce_ref, the
+    one-shot order)."""
+    if mode == "dist":
+        return gemm_rs(hs, ws, mesh=mesh)
     if mode == "gemm_ar":
         return gemm_allreduce(hs, ws, mesh=mesh)
     parts = [qmm(h, w) for h, w in zip(hs, ws)]
@@ -136,21 +161,30 @@ class TP_Attn:
         return TP_Attn(w_qkv=None, w_o=None, q_norm=None, k_norm=None, n_heads=hq,
                        n_kv_heads=hkv, head_dim=hd, mesh=mesh, shards=shards)
 
-    def _qkv_proj(self, x):
-        """The column-parallel QKV projection: each rank's own heads from
-        the replicated x (every mode; "dist" is not ported)."""
+    def _qkv_proj(self, x, mode: str = "flash", rows: Optional[int] = None):
+        """The column-parallel QKV projection (tp_up): each rank's own
+        heads. At one rank "dist" is ag_gemm's one-rank form (the GEMM
+        kernel). At n > 1 on "dist", x holds the row shards and each rank
+        keeps the first `rows` rows of the gathered product (the real
+        ones; the rest pad to a multiple of n)."""
         if self.shards is None:
-            return qmm(x, self.w_qkv)
-        return [qmm(xr, s.w_qkv) for xr, s in zip(x, self.shards)]
+            return ag_gemm(x, self.w_qkv) if mode == "dist" else qmm(x, self.w_qkv)
+        qkv = tp_up(mode, x, [s.w_qkv for s in self.shards], self.mesh)
+        return [q[:rows] for q in qkv] if mode == "dist" else qkv
 
     def _o_proj(self, o, mode: str = "flash"):
         """The O projection and the mode's epilogue (tp_down); at one rank
-        "flash"/"xla" are the plain product and "ar"/"gemm_ar" run their
-        collective over the one-rank mesh."""
+        "flash"/"xla" are the plain product, "dist" gemm_rs's one-rank
+        form (the GEMM kernel) and "ar"/"gemm_ar" run their collective
+        over the one-rank mesh. At n > 1 on "dist" each rank's o is padded
+        with zero rows to a multiple of n first (its row shards then match
+        the residual stream's)."""
         if self.shards is None:
             if mode in ("ar", "gemm_ar"):
                 return tp_down(mode, [o], [self.w_o], mesh_of(o.device))[0]
-            return qmm(o, self.w_o)
+            return gemm_rs(o, self.w_o) if mode == "dist" else qmm(o, self.w_o)
+        if mode == "dist":
+            o = [F.pad(t, (0, 0, 0, -t.shape[0] % len(o))) for t in o]
         return tp_down(mode, o, [s.w_o for s in self.shards], self.mesh)
 
     def _attend_cached(self, qkv, cos, sin, batch: int, kv, kv_start: int,
@@ -208,13 +242,14 @@ class TP_Attn:
         return o.reshape(M, hq * hd), kv
 
     def fwd_cached(self, x, cos, sin, batch: int, kv, kv_start: int,
-                   mode: str = "flash"):
+                   mode: str = "flash", rows: Optional[int] = None):
         """QKV projection -> cached attention -> O projection.
-        x: [B*S, D]; kv: the layer's cache tuple (KVCache.layer).
-        Returns (y [B*S, D], kv)."""
+        x: [B*S, D] (on "dist" at n > 1 the row shards of B*S = `rows`
+        rows padded to a multiple of n); kv: the layer's cache tuple
+        (KVCache.layer). Returns (y [B*S, D], kv)."""
         check_mode(mode)
         impl = "ref" if mode == "xla" else "flash"
-        qkv = self._qkv_proj(x)
+        qkv = self._qkv_proj(x, mode, rows)
         if self.shards is None:
             o, kv = self._attend_cached(qkv, cos, sin, batch, kv, kv_start, impl)
         else:
@@ -379,7 +414,7 @@ class TP_Attn:
         kv: the layer's cache tuple. Returns (y [B, D], kv)."""
         check_mode(mode)
         impl = "ref" if mode == "xla" else "flash"
-        qkv = self._qkv_proj(x)
+        qkv = self._qkv_proj(x, mode, batch)
         if self.shards is None:
             o, kv = self._attend_cached_slots(qkv, cos, sin, batch, kv, pos, impl)
         else:
@@ -395,7 +430,7 @@ class TP_Attn:
         shared prefix). Returns (y [B, D], kv)."""
         check_mode(mode)
         impl = "ref" if mode == "xla" else "flash"
-        qkv = self._qkv_proj(x)
+        qkv = self._qkv_proj(x, mode, batch)
         if self.shards is None:
             o, kv = self._attend_paged_slots(qkv, cos, sin, batch, kv, table, pos, impl)
         else:
@@ -412,8 +447,8 @@ class TP_Attn:
         if self.shards is not None:
             raise _one_rank("the verify window attention")
         impl = "ref" if mode == "xla" else "flash"
-        o, kv = self._attend_cached_slots_verify(self._qkv_proj(x), cos, sin, batch, kv,
-                                                 pos, q_lens, impl)
+        o, kv = self._attend_cached_slots_verify(self._qkv_proj(x, mode), cos, sin, batch,
+                                                 kv, pos, q_lens, impl)
         return self._o_proj(o, mode), kv
 
     def fwd_cached_slots_paged_verify(self, x, cos, sin, batch: int, kv, table, pos,
@@ -424,8 +459,8 @@ class TP_Attn:
         if self.shards is not None:
             raise _one_rank("the paged verify window attention")
         impl = "ref" if mode == "xla" else "flash"
-        o, kv = self._attend_paged_slots_verify(self._qkv_proj(x), cos, sin, batch, kv,
-                                                table, pos, q_lens, impl)
+        o, kv = self._attend_paged_slots_verify(self._qkv_proj(x, mode), cos, sin, batch,
+                                                kv, table, pos, q_lens, impl)
         return self._o_proj(o, mode), kv
 
     def _local_attn_train(self, qkv, cos, sin, batch: int, impl: str = "flash"):

@@ -1,8 +1,9 @@
 """SwiGLU MLP block.
 
 Counterpart of triton_dist_tpu/layers/tp_mlp.py (`TP_MLP.init`,
-`fwd_xla`, `fwd_flash`, `fwd_ar`, `fwd_gemm_ar`, `__call__`, and the
-training forms `_local_swiglu`/`fwd_train`). The packed layout is kept:
+`fwd_xla`, `fwd_flash`, `fwd_ar`, `fwd_gemm_ar`, `__call__` (whose mode
+"dist" is the JAX `fwd_dist`), and the training forms
+`_local_swiglu`/`fwd_train`). The packed layout is kept:
 w_gate_up is [D, 2I] = [gate | up].
 
 Tensor parallelism (`to_mesh`, or `init(..., mesh=)`): over a mesh of n
@@ -10,9 +11,11 @@ ranks the layer holds `shards`, one TP_MLP per rank with its I/n columns
 of gate and up (the JAX per-rank block [gate_r | up_r]) and its rows of
 w_down on the rank's device; the forward takes and returns lists, one
 tensor per rank, and ends in the mode's epilogue (layers/tp_attn.py
-`tp_down`). "ar" and "gemm_ar" run the SwiGLU kernel between the
-projections, where the JAX modes run the plain jnp SwiGLU: the kernel
-is the port's, and its plain version is what "xla" runs.
+`tp_down`); on "dist" it takes and returns row shards (ag_gemm ->
+SwiGLU -> gemm_rs, `tp_up` then `tp_down`). "dist", "ar" and "gemm_ar"
+run the SwiGLU kernel between the projections, where the JAX modes run
+the plain jnp SwiGLU: the kernel is the port's, and its plain version is
+what "xla" runs.
 """
 
 from __future__ import annotations
@@ -22,12 +25,14 @@ from typing import Optional
 
 import torch.nn.functional as F
 
+from triton_dist_tpu_torch.kernels.allgather_gemm import ag_gemm
+from triton_dist_tpu_torch.kernels.gemm_reduce_scatter import gemm_rs
 from triton_dist_tpu_torch.kernels.grad import ag_gemm_grad, gemm_rs_grad
 from triton_dist_tpu_torch.kernels.quant import Weight, qmm
 from triton_dist_tpu_torch.kernels.swiglu import swiglu, swiglu_ref
 from triton_dist_tpu_torch.layers.common import (shard_cols_packed, split_packed, split_rows,
                                                  weight_to)
-from triton_dist_tpu_torch.layers.tp_attn import check_mode, tp_down
+from triton_dist_tpu_torch.layers.tp_attn import check_mode, tp_down, tp_up
 from triton_dist_tpu_torch.runtime.bootstrap import mesh_of
 
 
@@ -82,11 +87,13 @@ class TP_MLP:
     def _tp(self, mode: str, x):
         act = swiglu_ref if mode == "xla" else swiglu
         if self.shards is None:
+            if mode == "dist":
+                return gemm_rs(act(ag_gemm(x, self.w_gate_up)), self.w_down)
             h = act(qmm(x, self.w_gate_up))
             if mode in ("flash", "xla"):
                 return qmm(h, self.w_down)
             return tp_down(mode, [h], [self.w_down], mesh_of(x.device))[0]
-        hs = [act(qmm(xr, s.w_gate_up)) for xr, s in zip(x, self.shards)]
+        hs = [act(c) for c in tp_up(mode, x, [s.w_gate_up for s in self.shards], self.mesh)]
         return tp_down(mode, hs, [s.w_down for s in self.shards], self.mesh)
 
     @staticmethod

@@ -17,7 +17,16 @@ runs on rank 0 and its rows are copied to every rank's device; each
 layer's epilogue (the mode's all-reduce) leaves every rank the same sum;
 the final RMSNorm and the LM head run on rank 0's copy, so the logits,
 the argmax and the next tokens live on rank 0 (the JAX global-view ops
-put them on the replicated array; here rank 0 holds them). The JAX
+put them on the replicated array; here rank 0 holds them). On "dist"
+the residual stream is row-sharded instead (`_tp_stack`): the M rows are
+padded with zero rows to a multiple of n and rank r holds rows [r * m,
+(r + 1) * m), each layer runs RMSNorm on its shard, ag_gemm before and
+gemm_rs after the attention and the MLP; then the shards are copied to
+rank 0 (the counterpart of the JAX `_gather_rows` all_gather, as the
+psum of "flash"/"xla" is all_reduce_ref) and the padding dropped before
+the final norm. Zero rows stay zero through RMSNorm, both rings, the
+SwiGLU and the residual adds, and no padding row reaches the attention,
+the KV cache or the logits. The JAX
 random_init draws every weight from one key stream whatever the mesh;
 here the one-rank model is drawn from the seed and then split, so a
 model of n ranks equals the one-rank model of the same seed. Only the
@@ -292,7 +301,8 @@ class DenseLLM:
         """One forward pass over ids [B, S] starting at cache.offset; fills
         the cache in place and returns (logits [B, V] f32, cache): those
         of position S-1, or of position last_pos of the S when given.
-        mode: "flash" (kernels) or "xla" (plain versions)."""
+        mode: "flash" (kernels), "xla" (plain versions), or a comm mode
+        ("ar", "gemm_ar", "dist"; layers/tp_attn.py)."""
         B, S = ids.shape
         cfg = self.config
         x = self.embed[ids].reshape(B * S, cfg.hidden_size)
@@ -300,7 +310,7 @@ class DenseLLM:
         if self.tp > 1:
             cos, sin = self._ropes()
             x = self._tp_stack(x, lambda attn, hs, li: attn.fwd_cached(
-                hs, cos, sin, B, cache.layer(li), kv_start, mode), mode)
+                hs, cos, sin, B, cache.layer(li), kv_start, mode, rows=B * S), mode)
         else:
             for li, layer in enumerate(self.layers):
                 h = rms_norm(x, layer.ln_attn, cfg.rms_norm_eps)
@@ -387,16 +397,25 @@ class DenseLLM:
 
     def _tp_stack(self, x, attend, mode: str):
         """The layer stack at n > 1 ranks: x [M, D] (rank 0's embedding
-        rows) copied to every rank, each layer's attention block
+        rows) copied to every rank (on "dist" rank r's row shard of the
+        rows padded to a multiple of n), each layer's attention block
         attend(attn, [h per rank], layer index) and MLP over the ranks'
-        lists; returns rank 0's copy of the residual stream."""
+        lists; returns rank 0's copy of the residual stream [M, D]."""
         eps = self.config.rms_norm_eps
-        xs = self.mesh.replicate(x)
+        if mode == "dist":
+            M, n = x.shape[0], self.mesh.size
+            m = -(-M // n)
+            xp = torch.nn.functional.pad(x, (0, 0, 0, n * m - M))
+            xs = [xp[r * m:(r + 1) * m].to(d) for r, d in enumerate(self.mesh.devices)]
+        else:
+            xs = self.mesh.replicate(x)
         for li, ly in enumerate(self.layers):
             a, _ = attend(ly.attn, [rms_norm(xr, w, eps) for xr, w in zip(xs, ly.ln_attn)], li)
             xs = [xr + ar for xr, ar in zip(xs, a)]
             y = ly.mlp([rms_norm(xr, w, eps) for xr, w in zip(xs, ly.ln_mlp)], mode)
             xs = [xr + yr for xr, yr in zip(xs, y)]
+        if mode == "dist":
+            return torch.cat([xr.to(x.device) for xr in xs])[:M]
         return xs[0]
 
     def _ffn(self, layer, h, mode: str, load):

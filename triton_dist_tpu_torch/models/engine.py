@@ -16,13 +16,18 @@ JAX package's oracle backend); "ar" and "gemm_ar" (dense models, any
 tensor-parallel size) end each layer's O and down projections in the
 all_reduce kernel or the gemm_allreduce kernel, and prefill and admit
 on "xla", as in the JAX engine, so the hand collectives run in the
-decode ticks; `comm_kernel_dispatches` counts the slot programs a comm
-backend dispatched (the JAX engine's counter). Over a mesh of n > 1
-ranks, "flash" and "xla" end the projections in the psum's plain
-version, the caches are head-sharded (models/kv_cache.py), the page
-table's host side, allocator and radix tree stay one, and the logits,
-tokens and positions live on rank 0's device; the window programs,
-"mega" and MoE models stay at one rank. "mega" (dense models) prefills
+decode ticks; "dist" (dense models, any tensor-parallel size) runs the
+QKV and gate/up projections through the ag_gemm ring and the O and down
+projections through the gemm_rs ring on a row-sharded residual stream,
+and prefills and admits through itself (the JAX engine's
+prefill_backend), so the rings run in the prefill, the admissions and
+the ticks; at one rank both are the GEMM kernel. `comm_kernel_dispatches`
+counts the slot programs a comm backend dispatched (the JAX engine's
+counter). Over a mesh of n > 1 ranks, "flash" and "xla" end the
+projections in the psum's plain version, the caches are head-sharded
+(models/kv_cache.py), the page table's host side, allocator and radix
+tree stay one, and the logits, tokens and positions live on rank 0's
+device; the window programs, "mega" and MoE models stay at one rank. "mega" (dense models) prefills
 and admits on "flash" and decodes each layer as ONE megakernel launch
 (mega/decode_layer.py): `decode` over the contiguous cache
 (`_mega_scan_decode_fn`) and `paged_slot_chunk` over the paged pool
@@ -73,11 +78,11 @@ from triton_dist_tpu_torch.models.spec_decode import accept_greedy
 from triton_dist_tpu_torch.models.utils import sample_greedy
 from triton_dist_tpu_torch.runtime.device import resolve_device
 
-BACKENDS = ("flash", "xla", "mega", "ar", "gemm_ar")
+BACKENDS = ("flash", "xla", "mega", "ar", "gemm_ar", "dist")
 # backends of the JAX engine that the port does not run yet
-_JAX_BACKENDS = ("dist", "ep", "ep_flash")
+_JAX_BACKENDS = ("ep", "ep_flash")
 # the backends whose decode ticks run the TP comm kernels
-COMM_BACKENDS = ("ar", "gemm_ar")
+COMM_BACKENDS = ("ar", "gemm_ar", "dist")
 
 
 def _not_ported(what: str) -> NotImplementedError:
@@ -119,10 +124,11 @@ class Engine:
         self.kv_dtype = kv_dtype
         self.device = dev
         self.tp = tp
-        # admissions and prefill: mega fuses decode only; the comm backends
-        # prefill on "xla", as the JAX engine's default prefill_backend
+        # admissions and prefill: mega fuses decode only; "ar"/"gemm_ar"
+        # prefill on "xla", "dist" through itself, as the JAX engine's
+        # default prefill_backend
         self.prefill_backend = ("flash" if backend == "mega" else
-                                "xla" if backend in COMM_BACKENDS else backend)
+                                "xla" if backend in ("ar", "gemm_ar") else backend)
         # slot programs dispatched through a comm backend
         self.comm_kernel_dispatches = 0
         self._paged_scratch = None      # admit_slot_paged's 1-row cache

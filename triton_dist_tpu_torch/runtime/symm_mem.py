@@ -1,5 +1,6 @@
 """Symmetric buffers: counterpart of triton_dist_tpu/runtime/symm_mem.py
-(`create_symm_buffer`, `clear_registry`).
+(`create_symm_buffer`, `clear_registry`), plus `symm_workspace`, a
+buffer grown to the largest row count asked for.
 
 A symmetric buffer is one tensor of the same local shape per rank, on the
 rank's device; a collective kernel writes into a peer's copy through its
@@ -49,18 +50,37 @@ def create_symm_buffer(name: str, local_shape, dtype=torch.float32, *, mesh,
     """A zeroed `local_shape` buffer on every rank of `mesh`, cached by
     key."""
     key = (name, tuple(int(s) for s in local_shape), dtype, mesh, axis)
-    if key in _REGISTRY:
-        return _REGISTRY[key]
-    buf = SymmBuffer(name=name, local_shape=key[1], dtype=dtype, mesh=mesh,
-                     tensors=[torch.zeros(key[1], dtype=dtype, device=d)
-                              for d in mesh.devices])
+    if key not in _REGISTRY:
+        _REGISTRY[key] = _allocate(name, key[1], dtype, mesh)
+    return _REGISTRY[key]
+
+
+def symm_workspace(name: str, rows: int, row_shape, dtype, *, mesh,
+                   axis: str = "tp") -> SymmBuffer:
+    """A symmetric buffer of at least `rows` rows of `row_shape`, keyed
+    without the rows (name, row shape, dtype, mesh, axis) and grown to the
+    largest row count asked for: the reference's max_M-padded workspace
+    (its allgather_gemm.py:447), so that serving's many row counts share
+    one buffer. The caller takes views of its first rows; a larger request
+    replaces the buffer (the kernels never keep its address past a
+    call)."""
+    row_shape = tuple(int(s) for s in row_shape)
+    key = (name, ("rows",) + row_shape, dtype, mesh, axis)
+    buf = _REGISTRY.get(key)
+    if buf is None or buf.local_shape[0] < rows:
+        buf = _REGISTRY[key] = _allocate(name, (int(rows),) + row_shape, dtype, mesh)
+    return buf
+
+
+def _allocate(name: str, shape, dtype, mesh) -> SymmBuffer:
+    buf = SymmBuffer(name=name, local_shape=shape, dtype=dtype, mesh=mesh,
+                     tensors=[torch.zeros(shape, dtype=dtype, device=d) for d in mesh.devices])
     groups = mesh.device_groups()
     if len(groups) > 1 and mesh.is_cuda:
         # a peer may write a flag into this rank's pad as soon as its own
         # stream reaches a collective: the zeros must have landed first
         for d, _ in groups:
             torch.cuda.synchronize(d)
-    _REGISTRY[key] = buf
     return buf
 
 

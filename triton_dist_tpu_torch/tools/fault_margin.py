@@ -96,24 +96,31 @@ The limit is GDN_LIMIT (chip_smoke.py's).
     python3 -m triton_dist_tpu_torch.tools.fault_margin --tp [--cards 4]
 
 holds the tensor-parallel path over four ranks (emulated on one card, or
-four cards with --cards 4) instead. First kernel B, gemm_allreduce, at
-tp_check.py's decode shapes (the O and down projections, M = 128 and 64,
-bf16 and int8 panels) against its plain version: the clean gap (max |d|
-over max |plain|) beside the gap of the plain version run with a fault
-planted in its inputs, the gap a kernel with that fault would show:
+four cards with --cards 4) instead. First the GEMM collectives at
+tp_check.py's decode shapes (M = 128 and 64, bf16 and int8 panels):
+gemm_allreduce (kernel B) and gemm_rs (kernel F) at the O and down
+projections, ag_gemm (kernel E) at the QKV and gate/up ones, each against
+its plain version: the clean gap (max |d| over max |plain|, the worst
+rank) beside the gap of the plain version run with a fault planted in its
+inputs, the gap a kernel with that fault would show:
 
-    tp drop a rank          rank n-1's partial is left out
+    tp drop a rank          rank n-1's partial (ag_gemm: its A chunk) is
+                            left out
     tp stale epoch          the previous call's data is read (the previous
                             call's inputs)
-    tp chunk twice          rank 1's first 128 x 128 tile is added twice
+    tp chunk twice          gemm_allreduce: rank 1's first 128 x 128 tile
+                            is added twice; gemm_rs: rank 1's partial is
+                            added twice to chunk 0; ag_gemm: chunk 1 also
+                            lands in chunk 2's slot
 
-against tp_check.GEMM_AR_LIMIT. Then the engine: Qwen3-1.7B at full
-width and depth over the mesh on "gemm_ar" and "ar", teacher-forced
-against the one-rank "xla" engine as tp_check.py holds it, clean and with
-each fault planted in every decode epilogue by wrapping
-layers/tp_attn.py `tp_down` (rank n-1's input zeroed; the previous
-epilogue's output of the same shape returned; rank 1's partial added
-again to the first M/n rows), against tp_check.GATE.
+against tp_check.GEMM_AR_LIMIT, AG_GEMM_LIMIT and GEMM_RS_LIMIT. Then the
+engine: Qwen3-1.7B at full width and depth over the mesh on "gemm_ar",
+"ar" and "dist", teacher-forced against the one-rank "xla" engine as
+tp_check.py holds it, clean and with each fault planted in every
+epilogue by wrapping layers/tp_attn.py `tp_down` (rank n-1's input
+zeroed; the previous epilogue's output of the same shape returned; rank
+1's partial added again to the first M/n rows, on "dist" to rank 0's row
+shard), against tp_check.GATE.
 
 Prints one line per configuration and case with the largest relative gap
 over the steps and whether a limit of LIMIT times the largest logit
@@ -626,64 +633,90 @@ def run_train(m):
 
 
 def tp_kernel_faults(mesh, seed: int = 0) -> dict:
-    """Kernel B at the decode shapes: the clean gap and each planted
-    fault's (see the module docstring)."""
+    """The GEMM collectives at the decode shapes: the clean gap and each
+    planted fault's (see the module docstring)."""
     from triton_dist_tpu_torch import kernels as K
-    from triton_dist_tpu_torch.kernels.gemm_allreduce import _partial
+    from triton_dist_tpu_torch.kernels.gemm import gemm_ref
     from triton_dist_tpu_torch.tools import tp_check as tc
     n = mesh.size
-    gen = torch.Generator(device=mesh.devices[0]).manual_seed(seed)
+    dev0 = mesh.devices[0]
+    gen = torch.Generator(device=dev0).manual_seed(seed)
 
-    def draw(M, k_loc, wt):
-        a = [torch.randn(M, k_loc, generator=gen, device=mesh.devices[0]).bfloat16().to(d)
+    def draw(rows, k_, n_, wt):
+        a = [torch.randn(rows, k_, generator=gen, device=dev0).bfloat16().to(d)
              for d in mesh.devices]
-        w = [(torch.randn(k_loc, tc.D, generator=gen, device=mesh.devices[0])
-              * k_loc ** -0.5).bfloat16() for _ in range(n)]
+        w = [(torch.randn(k_, n_, generator=gen, device=dev0) * k_ ** -0.5).bfloat16()
+             for _ in range(n)]
         if wt == "int8":
             w = [K.quantize_int8(x) for x in w]
         return a, [K.QuantW(q=x.q.to(d), s=x.s.to(d)) if wt == "int8" else x.to(d)
                    for x, d in zip(w, mesh.devices)]
 
+    def with_rank(xs, r, x):
+        return xs[:r] + [x] + xs[r + 1:]
+
+    def gemm_ar(a, w, prev_a, prev_w):
+        twice = K.gemm_allreduce_ref(a, w)[0].clone()
+        tile = gemm_ref(a[1], w[1])[:128, :128].to(twice.device)
+        twice[:128, :128] = (twice[:128, :128].float() + tile.float()).to(twice.dtype)
+        return (K.gemm_allreduce(a, w, mesh=mesh), K.gemm_allreduce_ref,
+                [twice] + K.gemm_allreduce_ref(a, w)[1:])
+
+    def gemm_rs(a, w, prev_a, prev_w):
+        out = K.gemm_rs_ref(a, w)
+        m = out[0].shape[0]
+        twice = (out[0].float() + gemm_ref(a[1], w[1])[:m].float().to(dev0)).to(out[0].dtype)
+        return K.gemm_rs(a, w, mesh=mesh), K.gemm_rs_ref, [twice] + out[1:]
+
+    def ag_gemm(a, w, prev_a, prev_w):
+        return (K.ag_gemm(a, w, mesh=mesh), K.ag_gemm_ref,
+                K.ag_gemm_ref(with_rank(a, 2, a[1].to(a[2].device)), w))
+
+    # (name, limit, op, the rows of A and its K and N per rank, case)
+    ops = []
+    for M in (tc.B, tc.SERVE_B):
+        for what, k_loc in (("o_proj", tc.HQ * tc.HD // n), ("down", tc.I // n)):
+            ops += [("gemm_allreduce", tc.GEMM_AR_LIMIT, gemm_ar, (M, k_loc, tc.D), what),
+                    ("gemm_rs", tc.GEMM_RS_LIMIT, gemm_rs, (M, k_loc, tc.D), what)]
+        for what, n_loc in (("qkv", (tc.HQ + 2 * tc.HKV) * tc.HD // n),
+                            ("gate_up", 2 * tc.I // n)):
+            ops.append(("ag_gemm", tc.AG_GEMM_LIMIT, ag_gemm, (M // n, tc.D, n_loc), what))
     results = {}
-    for M, k_loc, what in ((tc.B, tc.HQ * tc.HD // n, "o_proj"), (tc.B, tc.I // n, "down"),
-                           (tc.SERVE_B, tc.HQ * tc.HD // n, "o_proj"),
-                           (tc.SERVE_B, tc.I // n, "down")):
+    for name, limit, op, shape, what in ops:
         for wt in ("bf16", "int8"):
-            prev_a, prev_w = draw(M, k_loc, wt)
-            a, w = draw(M, k_loc, wt)
-            ref = K.gemm_allreduce_ref(a, w)[0].float()
+            prev_a, prev_w = draw(*shape, wt)
+            a, w = draw(*shape, wt)
+            out, plain, twice = op(a, w, prev_a, prev_w)
+            ref = plain(a, w)
 
-            def gap(out):
-                return _rel(out[0].float(), ref)
+            def gap(outs):
+                return max(_rel(o.float().to(dev0), r.float().to(dev0))
+                           for o, r in zip(outs, ref))
 
-            res = {"tp clean": gap(K.gemm_allreduce(a, w, mesh=mesh))}
-            res["tp drop a rank"] = gap(K.gemm_allreduce_ref(
-                a[:-1] + [torch.zeros_like(a[-1])], w))
-            res["tp stale epoch"] = gap(K.gemm_allreduce_ref(prev_a, prev_w))
-            twice = K.gemm_allreduce_ref(a, w)[0].clone()
-            tile = _partial(a[1], w[1])[:128, :128].to(twice.device)
-            twice[:128, :128] = (twice[:128, :128].float() + tile.float()).to(twice.dtype)
-            res["tp chunk twice"] = gap([twice])
+            res = {"tp clean": gap(out),
+                   "tp drop a rank": gap(plain(with_rank(a, n - 1, torch.zeros_like(a[-1])),
+                                               w)),
+                   "tp stale epoch": gap(plain(prev_a, prev_w)),
+                   "tp chunk twice": gap(twice)}
             torch.cuda.synchronize()
-            key = f"{what} M={M} {wt}"
+            key = f"{name} {what} M={shape[0] * (n if name == 'ag_gemm' else 1)} {wt}"
             results[key] = res
             print(f"tp kernel {key}: " + "; ".join(
-                f"{c} {g:.3g} ({_caught(g, tc.GEMM_AR_LIMIT)})" for c, g in res.items()),
-                flush=True)
+                f"{c} {g:.3g} ({_caught(g, limit)})" for c, g in res.items()), flush=True)
     return results
 
 
 @contextlib.contextmanager
 def _tp_fault(case: str):
-    """Plant `case` in every "ar"/"gemm_ar" epilogue (layers/tp_attn.py
-    tp_down, as both layer modules hold it)."""
+    """Plant `case` in every "ar"/"gemm_ar"/"dist" epilogue
+    (layers/tp_attn.py tp_down, as both layer modules hold it)."""
     from triton_dist_tpu_torch.kernels.quant import qmm
     from triton_dist_tpu_torch.layers import tp_attn, tp_mlp
     real = tp_attn.tp_down
     last = {}
 
     def faulty(mode, hs, ws, mesh):
-        if mode not in ("ar", "gemm_ar") or case == "tp clean":
+        if mode not in ("ar", "gemm_ar", "dist") or case == "tp clean":
             return real(mode, hs, ws, mesh)
         if case == "tp drop a rank":
             return real(mode, hs[:-1] + [torch.zeros_like(hs[-1])], ws, mesh)
@@ -692,6 +725,9 @@ def _tp_fault(case: str):
             key = (tuple(out[0].shape), tuple(hs[0].shape))
             prev, last[key] = last.get(key), out
             return out if prev is None else prev
+        if mode == "dist":             # rank 0 holds chunk 0 of the sum
+            rows = out[0].shape[0]
+            return [out[0] + qmm(hs[1], ws[1])[:rows].to(out[0].device)] + out[1:]
         rows = out[0].shape[0] // len(out)
         extra = qmm(hs[1], ws[1])[:rows]
         return [torch.cat([o[:rows] + extra.to(o.device), o[rows:]]) for o in out]
@@ -704,7 +740,8 @@ def _tp_fault(case: str):
 
 
 def run_tp(m, mesh) -> dict:
-    """Kernel B's faults, then the engine's on "gemm_ar" and "ar"."""
+    """The GEMM collectives' faults, then the engine's on "gemm_ar", "ar"
+    and "dist"."""
     from triton_dist_tpu_torch.tools import tp_check as tc
     results = {"kernel": tp_kernel_faults(mesh)}
     cfg = m.qwen3_1p7b()
@@ -721,7 +758,7 @@ def run_tp(m, mesh) -> dict:
         lr = ref.decode_step(toks[-1], cr)
         refs.append(lr)
     del cr
-    for backend in ("gemm_ar", "ar"):
+    for backend in ("gemm_ar", "ar", "dist"):
         eng = m.Engine(model, max_seq=tc.S + STEPS + 8, backend=backend,
                        device=mesh.devices[0])
         res = {}
@@ -752,8 +789,10 @@ def main() -> int:
         from triton_dist_tpu_torch.tools import tp_check as tc
         mesh = (make_mesh(4) if "--cards" in sys.argv[1:]
                 else make_mesh(4, devices=["cuda:0"] * 4))
-        print(json.dumps({"kernel limit": tc.GEMM_AR_LIMIT, "engine limit": tc.GATE,
-                          "tp": run_tp(m, mesh)}), flush=True)
+        print(json.dumps({"kernel limits": {"gemm_allreduce": tc.GEMM_AR_LIMIT,
+                                            "ag_gemm": tc.AG_GEMM_LIMIT,
+                                            "gemm_rs": tc.GEMM_RS_LIMIT},
+                          "engine limit": tc.GATE, "tp": run_tp(m, mesh)}), flush=True)
         return 0
     if "--gdn" in sys.argv[1:]:
         print(json.dumps({"limit": GDN_LIMIT, "gdn": run_gdn()}), flush=True)

@@ -13,8 +13,10 @@ dk=dv=128, C=64). With --cards 4 (a mesh of four cards,
 runtime/bootstrap.py make_mesh) it adds the collectives' rows at the JAX
 report's shapes in bf16 (`comm_rows`: all_gather of [256, 4096] shards,
 all_reduce and reduce_scatter of [4 x 256, 4096] partials, gemm_allreduce
-[256, 4096/4] @ [4096/4, 4096]), against perf_model.collective_sol_us
-over NVLink. The rows of kernels not yet ported are listed under
+[256, 4096/4] @ [4096/4, 4096], the rings ag_gemm(ring) [256/4, 4096] x 4
+@ [4096, 4096/4] and gemm_rs(ring) [256, 4096/4] @ [4096/4, 4096]),
+against perf_model.collective_sol_us over NVLink plus, for the GEMMs,
+one card's share of the product (gemm_sol_us on the per-card dims). The rows of kernels not yet ported are listed under
 `not_ported`. Each row carries its plain version,
 so that a caller can hold the op's output at the timed shape against it
 (chip_smoke.py does). It needs a card and raises without one: no row is
@@ -157,9 +159,9 @@ def report_rows(spec) -> list:
 
     M, K, N = 256, 4096, 4096
     a, b = randn(M, K), randn(K, N)
-    rows.append(Row("ag_gemm", functools.partial(ag_gemm, world_size=1), ag_gemm_ref, (a, b),
+    rows.append(Row("ag_gemm", ag_gemm, ag_gemm_ref, (a, b),
                     gemm_sol_us(M, K, N, spec=spec), "world size 1"))
-    rows.append(Row("gemm_rs", functools.partial(gemm_rs, world_size=1), gemm_rs_ref, (a, b),
+    rows.append(Row("gemm_rs", gemm_rs, gemm_rs_ref, (a, b),
                     gemm_sol_us(M, K, N, spec=spec), "world size 1"))
 
     B, Hq, Hkv, T, d = 8, 16, 8, 2048, 128
@@ -234,6 +236,15 @@ def comm_rows(spec, mesh) -> list:
                     lambda u, w: K.gemm_allreduce_ref(u, w), (a, b),
                     gemm_sol_us(M, K_ // n, N, spec=spec)
                     + collective_sol_us("ar", M * N * 2, n, spec=spec)))
+    rows.append(Row("gemm_rs(ring)", lambda u, w: K.gemm_rs(u, w, mesh=mesh),
+                    lambda u, w: K.gemm_rs_ref(u, w), (a, b),
+                    gemm_sol_us(M, K_ // n, N, spec=spec)
+                    + collective_sol_us("rs", M * N * 2, n, spec=spec)))
+    a_rows, b_cols = parts(M // n, K_), parts(K_, N // n, sc=K_ ** -0.5)
+    rows.append(Row("ag_gemm(ring)", lambda u, w: K.ag_gemm(u, w, mesh=mesh),
+                    lambda u, w: K.ag_gemm_ref(u, w), (a_rows, b_cols),
+                    gemm_sol_us(M, K_, N // n, spec=spec)
+                    + collective_sol_us("ag", M * K_ * 2, n, spec=spec)))
     return rows
 
 

@@ -1,4 +1,4 @@
-"""Tensor-parallel checks of the port on the card: the four collectives'
+"""Tensor-parallel checks of the port on the card: the six collectives'
 kernels against their plain versions, and Qwen3 decode and paged serving
 over a mesh of four ranks against the one-rank plain engine.
 
@@ -22,22 +22,31 @@ Checks, each failing the run (tools/checks.py CheckFailed):
   copy equal, over CALLS calls on fresh inputs; gemm_allreduce at the O
   and down projections (bf16 and int8 panels) within GEMM_AR_LIMIT of its
   plain version (max |d| over max |plain|; tools/fault_margin.py --tp);
-  each row timed (CUDA events) beside its plain version, one PyTorch call
+  the ag_gemm and gemm_rs rings (the "dist" projections: QKV and gate/up,
+  O and down) at the engine's 128 rows, the serving tick's 64 and the
+  prefill's 16384, bf16 and int8 panels, and the registry's f32 shapes,
+  within AG_GEMM_LIMIT / GEMM_RS_LIMIT of their plain versions; each row
+  timed (CUDA events) beside its plain version, one PyTorch call
   where one computes the function, and its bound: the card's memory for
   ranks emulated on one card (each input read once, each output written
   once), NVLink (perf_model.collective_sol_us) across cards;
 - engine: Qwen3-1.7B at full width (seeded random weights), B=128 after a
-  128-token prompt, Engine(backend="ar" and "gemm_ar") over the mesh:
-  prefill launches no comm kernel (it runs on "xla"), decode launches the
-  layers' kernels and its comm kernel, "ar" its all_reduce two-shot only
-  (3 x 512 KiB > 1 MiB); the logits, teacher-forced, held to the one-rank
-  "xla" engine by the margin rule (tools/checks.py, GATE);
-- paged serving: ContinuousScheduler(paged=True) at 64 slots on "gemm_ar"
-  and "ar" over the serving traffic's first N_REQ requests (tools/checks.py
-  `serving_requests`, chip_smoke.py's traffic); admissions launch no comm
-  kernel, ticks do, "ar" its all_reduce one-shot only (64 rows),
-  comm_kernel_dispatches > 0; then every served stream of both backends,
-  teacher-forced through the one-rank plain engine, by the margin rule.
+  128-token prompt, Engine(backend="ar", "gemm_ar" and "dist") over the
+  mesh: on "ar"/"gemm_ar" prefill launches no comm kernel (it runs on
+  "xla"), decode launches the layers' kernels and its comm kernel, "ar"
+  its all_reduce two-shot only (3 x 512 KiB > 1 MiB); on "dist" prefill
+  and decode each launch the layers' kernels and exactly two ag_gemm and
+  two gemm_rs a layer and forward, and no other comm kernel; the logits,
+  teacher-forced, held to the one-rank "xla" engine by the margin rule
+  (tools/checks.py, GATE);
+- paged serving: ContinuousScheduler(paged=True) at 64 slots on
+  "gemm_ar", "ar" and "dist" over the serving traffic's first N_REQ
+  requests (tools/checks.py `serving_requests`, chip_smoke.py's traffic);
+  admissions launch no comm kernel on "ar"/"gemm_ar" and the two rings
+  alone on "dist", ticks launch the backend's comm kernels alone, "ar"
+  its all_reduce one-shot only (64 rows), comm_kernel_dispatches > 0;
+  then every served stream of the three backends, teacher-forced through
+  the one-rank plain engine, by the margin rule.
 """
 
 from __future__ import annotations
@@ -53,9 +62,11 @@ import torch
 from triton_dist_tpu_torch.tools.checks import (  # noqa: F401 (GATE: fault_margin.py)
     GATE, check, margin_gate, only_launched, serving_requests, tf_gate)
 
-# gemm_allreduce against its plain version: max |d| over max |plain|
-# (tools/fault_margin.py --tp)
+# gemm_allreduce, ag_gemm and gemm_rs against their plain versions: max
+# |d| over max |plain| (tools/fault_margin.py --tp)
 GEMM_AR_LIMIT = 2e-2
+AG_GEMM_LIMIT = 2e-2
+GEMM_RS_LIMIT = 2e-2
 CALLS = 3                       # fresh-input calls checked per kernel row
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM, NVIDIA data sheet
 BF16_FLOPS_PER_S = 989e12
@@ -63,7 +74,7 @@ F32_FLOPS_PER_S = 67e12
 B, S, GEN, TF_STEPS = 128, 128, 16, 8
 SERVE_B, SERVE_CHUNK, SERVE_MAX_SEQ, PAGE = 64, 16, 224, 16
 N_REQ = 16
-D, I, HQ, HD = 2048, 6144, 16, 128
+D, I, HQ, HKV, HD = 2048, 6144, 16, 8, 128
 
 SOURCES = {
     "all_gather": ("triton_dist_tpu_torch/kernels/csrc/allgather.cu",
@@ -74,8 +85,15 @@ SOURCES = {
                    "triton_dist_tpu/kernels/allreduce.py:198"),
     "gemm_allreduce": ("triton_dist_tpu_torch/kernels/csrc/gemm_allreduce.cu",
                        "triton_dist_tpu/kernels/gemm_allreduce.py:225"),
+    "ag_gemm": ("triton_dist_tpu_torch/kernels/csrc/ag_gemm.cu",
+                "triton_dist_tpu/kernels/allgather_gemm.py:341"),
+    "gemm_rs": ("triton_dist_tpu_torch/kernels/csrc/gemm_rs.cu",
+                "triton_dist_tpu/kernels/gemm_reduce_scatter.py:315"),
 }
-COMM = tuple(SOURCES)
+# the comm kernels each backend runs (the one-rank GEMM kernel, "gemm",
+# runs on none of them at n > 1)
+BACKEND_COMM = {"ar": ("all_reduce",), "gemm_ar": ("gemm_allreduce",),
+                "dist": ("ag_gemm", "gemm_rs")}
 
 
 def sync(mesh) -> None:
@@ -248,6 +266,59 @@ def kernel_rows(mesh, seed: int = 0) -> list:
                 lambda a, w: K.gemm_allreduce_ref(a, w), lib,
                 n * (M * k_loc * 2 + wbytes + M * D * 2), M * D * 2, "ar", GEMM_AR_LIMIT,
                 flops=2.0 * M * k_loc * n * D)
+    # ag_gemm and gemm_rs: the "dist" projections at the engine's decode
+    # rows, the serving tick's and the prefill's (B*S), bf16 and int8
+    # panels; ag_gemm QKV [M/n, D] x n @ [D, (Hq + 2 Hkv) hd / n] and gate/up
+    # [D, 2I/n], gemm_rs O [M, Hq hd / n] @ [., D] and down [M, I/n] @ [., D]
+    def weights(k_, n_, wt):
+        w = [randn(k_, n_, scale=k_ ** -0.5) for _ in range(n)]
+        return [K.QuantW(q=x.q.to(d), s=x.s.to(d)) if wt == "int8" else x.to(d)
+                for x, d in zip([K.quantize_int8(x) if wt == "int8" else x for x in w],
+                                mesh.devices)]
+
+    def cat_lib(dim_a, dim_b):
+        def lib(a, w):
+            return torch.cat([x.to(mesh.devices[0]) for x in a], dim_a) @ torch.cat(
+                [x.to(mesh.devices[0]) for x in w], dim_b)
+        return lib
+
+    for M in (B, SERVE_B, B * S):
+        for what, n_loc in (("qkv", (HQ + 2 * HKV) * HD // n), ("gate_up", 2 * I // n)):
+            for wt in ("bf16", "int8"):
+                wbytes = D * n_loc * (2 if wt == "bf16" else 1) + (4 * n_loc if wt == "int8"
+                                                                    else 0)
+                row("ag_gemm", f"{what} M={M} K={D} N={n_loc}x{n} {wt}",
+                    lambda M=M, n_loc=n_loc, wt=wt: (parts((M // n, D), bf16),
+                                                      weights(D, n_loc, wt)),
+                    lambda a, w: K.ag_gemm(a, w, mesh=mesh),
+                    lambda a, w: K.ag_gemm_ref(a, w),
+                    # one rank's product: the gathered rows times its shard
+                    (lambda a, w: torch.cat([x.to(mesh.devices[0]) for x in a]) @ w[0])
+                    if wt == "bf16" else None,
+                    n * (M // n * D * 2 + wbytes + M * n_loc * 2), M * D * 2, "ag",
+                    AG_GEMM_LIMIT, flops=2.0 * M * D * n_loc * n)
+        for what, k_loc in (("o_proj", HQ * HD // n), ("down", I // n)):
+            for wt in ("bf16", "int8"):
+                wbytes = k_loc * D * (2 if wt == "bf16" else 1) + (4 * D if wt == "int8" else 0)
+                row("gemm_rs", f"{what} M={M} K={k_loc}x{n} N={D} {wt}",
+                    lambda M=M, k_loc=k_loc, wt=wt: (parts((M, k_loc), bf16),
+                                                      weights(k_loc, D, wt)),
+                    lambda a, w: K.gemm_rs(a, w, mesh=mesh),
+                    lambda a, w: K.gemm_rs_ref(a, w),
+                    cat_lib(1, 0) if wt == "bf16" else None,
+                    n * (M * k_loc * 2 + wbytes + M // n * D * 2), M * D * 2, "rs",
+                    GEMM_RS_LIMIT, flops=2.0 * M * k_loc * n * D)
+    # the registry's f32 shapes
+    row("ag_gemm", f"registry [8x{n}, 128] @ [128, 32x{n}] f32",
+        lambda: (parts((8, 128), f32, 0.1), parts((128, 32), f32, 0.1)),
+        lambda a, w: K.ag_gemm(a, w, mesh=mesh), lambda a, w: K.ag_gemm_ref(a, w), None,
+        n * (8 * 128 + 128 * 32 + 8 * n * 32) * 4, 8 * n * 128 * 4, "ag", AG_GEMM_LIMIT,
+        flops=2.0 * 8 * n * 128 * 32 * n, flops_per_s=F32_FLOPS_PER_S)
+    row("gemm_rs", f"registry [8x{n}, {128 // n}x{n}] @ [., 128] f32",
+        lambda: (parts((8 * n, 128 // n), f32, 0.1), parts((128 // n, 128), f32, 0.1)),
+        lambda a, w: K.gemm_rs(a, w, mesh=mesh), lambda a, w: K.gemm_rs_ref(a, w), None,
+        n * (8 * n * 128 // n + 128 // n * 128 + 8 * 128) * 4, 8 * n * 128 * 4, "rs",
+        GEMM_RS_LIMIT, flops=2.0 * 8 * n * 128 * 128, flops_per_s=F32_FLOPS_PER_S)
     row("gemm_allreduce", f"registry [8, {128 // n}x{n}] @ [., 128] f32",
         lambda: (parts((8, 128 // n), f32, 0.1), parts((128 // n, 128), f32, 0.1)),
         lambda a, w: K.gemm_allreduce(a, w, mesh=mesh),
@@ -293,9 +364,22 @@ def engine_check(m, k, mesh, ref_model, model, ids, backend: str, card: str) -> 
     decode_s = time.perf_counter() - t0
     c_decode = k.launch_counts()
     by_method = k.method_counts()
-    comm = "gemm_allreduce" if backend == "gemm_ar" else "all_reduce"
-    path = ("flash_decode", "kv_update", "swiglu", comm)
-    only_launched(c_prefill, (), f"tp {backend} prefill (on xla)")
+    comm = BACKEND_COMM[backend]
+    path = ("flash_decode", "kv_update", "swiglu") + comm
+    # a collective counts one launch per distinct device of the mesh
+    per_call = len(mesh.device_groups())
+    L = model.config.num_layers
+    if backend == "dist":
+        # prefill through the rings too: two ag_gemm and two gemm_rs a
+        # layer and forward
+        want = 2 * L * per_call
+        for name in comm:
+            check(c_prefill[name] == want and c_decode[name] == want * GEN,
+                  f"tp dist: {name} launched {c_prefill[name]} times in prefill, "
+                  f"{c_decode[name]} in decode; want {want} and {want * GEN}")
+        only_launched(c_prefill, path, "tp dist prefill")
+    else:
+        only_launched(c_prefill, (), f"tp {backend} prefill (on xla)")
     for name in path:
         check(c_decode[name] > 0, f"tp {backend}: {name} did not run in decode ({c_decode})")
     only_launched(c_decode, path, f"tp {backend} decode")
@@ -305,7 +389,7 @@ def engine_check(m, k, mesh, ref_model, model, ids, backend: str, card: str) -> 
     check(tuple(toks.shape) == (B, GEN), f"tp {backend}: tokens {tuple(toks.shape)}")
     step_ms = decode_s * 1e3 / GEN
     print(f"engine tp={mesh.size} {backend} on {card}: prefill {prefill_s * 1e3:.1f} ms "
-          f"(B={B}, S={S}, on xla), decode {GEN} steps {decode_s * 1e3:.1f} ms "
+          f"(B={B}, S={S}, on {eng.prefill_backend}), decode {GEN} steps {decode_s * 1e3:.1f} ms "
           f"({step_ms:.2f} ms/step); launches prefill {c_prefill} decode {c_decode} "
           f"{by_method}", flush=True)
     ref = m.Engine(ref_model, max_seq=S + GEN + 8, backend="xla", device=mesh.devices[0])
@@ -327,21 +411,21 @@ def engine_check(m, k, mesh, ref_model, model, ids, backend: str, card: str) -> 
           f"{TF_STEPS} steps: max|d| / max|ref| per step {[round(e, 5) for e in errs]} "
           f"(gate {GATE}), {forced} greedy tokens checked", flush=True)
     return dict(prefill=c_prefill, decode=c_decode, ms_per_step=step_ms, idle=idle,
-                gaps=errs)
+                gaps=errs, prefill_ms=prefill_s * 1e3)
 
 
 def serving_check(m, k, mesh, model, reqs, backend: str, card: str):
     """ContinuousScheduler(paged=True) over the mesh on `backend`. Returns
     (the launch counts, the served streams by rid)."""
     eng = m.Engine(model, max_seq=SERVE_MAX_SEQ, backend=backend, device=mesh.devices[0])
-    admit = {"comm": 0}
+    admit = {}
     inner = eng.admit_slot_paged
 
     def counted_admit(*a, **kw):
         before = k.launch_counts()
         out = inner(*a, **kw)
-        after = k.launch_counts()
-        admit["comm"] += sum(after[c] - before[c] for c in COMM)
+        for c, v in k.launch_counts().items():
+            admit[c] = admit.get(c, 0) + v - before[c]
         return out
 
     eng.admit_slot_paged = counted_admit
@@ -354,13 +438,21 @@ def serving_check(m, k, mesh, model, reqs, backend: str, card: str):
     wall = time.perf_counter() - t0
     counts = k.launch_counts()
     by_method = k.method_counts()
-    comm = "gemm_allreduce" if backend == "gemm_ar" else "all_reduce"
-    check(admit["comm"] == 0, f"tp serving {backend}: admissions launched "
-          f"{admit['comm']} comm kernels")
-    check(counts[comm] > 0 and eng.comm_kernel_dispatches > 0,
-          f"tp serving {backend}: {comm} {counts[comm]}, dispatches "
-          f"{eng.comm_kernel_dispatches}")
-    only_launched(counts, ("flash_decode_paged", "swiglu", comm), f"tp serving {backend}")
+    comm = BACKEND_COMM[backend]
+    ticks = {c: v - admit.get(c, 0) for c, v in counts.items()}
+    # admissions: the batch-1 forward of each suffix, on "xla" (no kernel)
+    # for "ar"/"gemm_ar", through the layers' kernels and the rings on "dist"
+    admit_path = ("flash_decode", "kv_update", "swiglu") + comm if backend == "dist" else ()
+    for c in admit_path:
+        check(admit.get(c, 0) > 0, f"tp serving {backend}: admissions launched no {c} "
+              f"({admit})")
+    only_launched(admit, admit_path, f"tp serving {backend} admissions")
+    for c in comm:
+        check(ticks[c] > 0, f"tp serving {backend}: ticks launched {c} {ticks[c]} times")
+    check(eng.comm_kernel_dispatches > 0,
+          f"tp serving {backend}: dispatches {eng.comm_kernel_dispatches}")
+    only_launched(ticks, ("flash_decode_paged", "swiglu") + comm,
+                  f"tp serving {backend} ticks")
     if backend == "ar":
         # a tick's [64, 2048] bf16: 3 x 256 KiB <= 1 MiB, the one-shot
         only_launched(by_method, ("all_reduce one_shot",), "tp serving ar (methods)")
@@ -371,7 +463,7 @@ def serving_check(m, k, mesh, model, reqs, backend: str, card: str):
     print(f"serving tp={mesh.size} paged {backend} on {card}: {len(reqs)} requests over "
           f"{SERVE_B} slots, {toks} tokens in {wall:.2f} s ({toks / wall:.1f} tok/s), "
           f"comm_kernel_dispatches {eng.comm_kernel_dispatches}, launches {counts} "
-          f"{by_method}", flush=True)
+          f"(admissions {admit}) {by_method}", flush=True)
     return counts, out
 
 
@@ -392,19 +484,19 @@ def run(mesh, *, card: str, n_layers=None, n_req: int = N_REQ) -> dict:
     ref_model = m.DenseLLM.random_init(cfg, device=mesh.devices[0], seed=0)
     model = ref_model.to_mesh(mesh)
     counts = {}
-    for backend in ("ar", "gemm_ar"):
+    for backend in ("ar", "gemm_ar", "dist"):
         counts[backend] = engine_check(m, k, mesh, ref_model, model, ids, backend, card)
         print(f"[tp {time.perf_counter() - t0:.1f} s] engine {backend} done", flush=True)
     reqs = serving_requests(m, cfg.vocab_size, n_req)
     served = []
-    for backend in ("gemm_ar", "ar"):
+    for backend in ("gemm_ar", "ar", "dist"):
         counts[backend]["paged"], out = serving_check(m, k, mesh, model, reqs, backend, card)
         served += [(r.ids, out[r.rid]) for r in reqs]
         print(f"[tp {time.perf_counter() - t0:.1f} s] serving {backend} done", flush=True)
     forced, n_streams = tf_gate(m, ref_model, None, served, "tp serving", SERVE_MAX_SEQ)
     print(f"serving tp={mesh.size}: {forced} tokens of the {n_streams} distinct streams "
-          f"that gemm_ar and ar served for {len(reqs)} requests checked against one-rank "
-          f"xla", flush=True)
+          f"that gemm_ar, ar and dist served for {len(reqs)} requests checked against "
+          f"one-rank xla", flush=True)
     print(f"[tp {time.perf_counter() - t0:.1f} s] served streams checked", flush=True)
     return dict(rows=rows, counts=counts)
 
@@ -439,7 +531,8 @@ def main() -> int:
         raise ValueError("--cards is 1 or 4")
     res = run(mesh, card=card.replace("\n", "; "), n_layers=args.layers,
               n_req=args.requests)
-    summary = {b: {kk: v for kk, v in c.items() if kk in ("ms_per_step", "idle", "gaps")}
+    summary = {b: {kk: v for kk, v in c.items()
+                   if kk in ("ms_per_step", "idle", "gaps", "prefill_ms")}
                for b, c in res["counts"].items()}
     if args.json:
         with open(args.json, "w") as f:
