@@ -68,7 +68,7 @@ NVIDIA card: the quickest proof that the port still starts on the GPU.
    and kv_update launched only by the admissions.
 7. Window phases (Qwen3-1.7B, bf16 unless named). Speculative decoding
    (bench.py:396-430): 16 requests, each prompt its own seeded 4-token
-   pattern tiled 16 times plus 2, 96 tokens each, ContinuousScheduler
+   pattern tiled 16 times plus 2, 64 tokens each (96 in bench.py), ContinuousScheduler
    with spec=4 and chunk 4, contiguous and paged, with the n-gram
    drafter, one that proposes the spec=0 run's tokens and one that is
    always wrong, beside spec=0: exact launch counts, tokens per verify
@@ -80,8 +80,9 @@ NVIDIA card: the quickest proof that the port still starts on the GPU.
    every position held to the plain engine at 5e-2 of its largest logit,
    the kept counts and next seeds to the plain engine's where their
    margins decide them. Chunked prefill
-   (bench.py:498-560): 6 live requests (16-token prompts, 192 tokens)
-   decoding at chunk 2 when a 384-token prompt (8 tokens asked) arrives:
+   (bench.py:498-560): 6 live requests (16-token prompts, 96 tokens; 192
+   in bench.py) decoding at chunk 2 when a 384-token prompt (8 tokens
+   asked) arrives:
    its TTFT and the live streams' inter-token gaps until then,
    prefill_budget 32 against monolithic admissions, paged and contiguous
    in bf16 and int8 (int8 weights and KV; contiguous int8 chunked only),
@@ -159,8 +160,9 @@ NVIDIA card: the quickest proof that the port still starts on the GPU.
    and that engine to the plain one with the routing pinned; the same
    arm with prefill_budget 32 (a mixed tick routes its whole window,
    padding too; exact launch counts; MOE_TF_REQS of its streams held so).
-11. Tensor-parallel phase (tools/tp_check.py `run`, Qwen3-1.7B at its
-   28 layers), over four ranks emulated on the one card
+11. Tensor-parallel phase (tools/tp_check.py `run`, Qwen3-1.7B at full
+   width, cut to TP_LAYERS = 14 of its 28 layers since the
+   expert-parallel phase came), over four ranks emulated on the one card
    (`make_mesh(4, devices=["cuda:0"] * 4)`: the same device code as on
    four cards, every rank's CTAs resident on this one, peers reached by
    plain pointers; it proves the collectives' arithmetic, signalling and
@@ -179,8 +181,8 @@ NVIDIA card: the quickest proof that the port still starts on the GPU.
    prompt (on "ar"/"gemm_ar" prefill on "xla" launching no kernel and
    decode launching the per-layer kernels and the comm kernel,
    all_reduce two-shot at 128 rows and no one-shot; on "dist" prefill
-   and decode launching the per-layer kernels and exactly 56 ag_gemm and
-   56 gemm_rs a forward, no other comm kernel and no gemm),
+   and decode launching the per-layer kernels and exactly 2 ag_gemm and
+   2 gemm_rs a layer and forward, no other comm kernel and no gemm),
    teacher-forced against the one-rank "xla" engine by the margin rule
    of 4.; paged serving at 64 slots on "gemm_ar", "ar" (the all_reduce
    one-shot at 64 rows and no two-shot) and "dist" over the serving
@@ -188,7 +190,34 @@ NVIDIA card: the quickest proof that the port still starts on the GPU.
    comm kernel on the first two and the rings alone on "dist", ticks
    launching the backend's comm kernels alone, every served stream of
    the three backends held to the one-rank plain engine.
-12. Prints one JSON line of per-kernel results, then, last, the device
+12. Expert-parallel phase (tools/tp_check.py `run_ep`), on the MoE
+   phases' model, its experts split over four ranks emulated on the card
+   (Qwen3MoE.to_mesh(mesh, "ep"): the expert panels views of the
+   one-rank model's, 32 experts a rank; full width and 48 layers). Kernel
+   rows 18-20: all_to_all (the combine) and dispatch_a2a (payload and
+   metadata) at the decode step's and the prefill's capacities, bf16 and
+   the int8 wire, and the registry's f32 shapes (low_latency_all_to_all's
+   too), bitwise to their plain versions on every rank;
+   ep_moe_fused_device at the serving layer's shape (bf16, int8 panels)
+   and the registry's f32 shape within tp_check.EP_FUSED_LIMIT
+   (tools/fault_margin.py --ep). Per backend "ep" and "ep_flash":
+   Engine prefill B=128 x S=128 and 16 decode steps at capacity 2.0 (one
+   dispatch_a2a, one all_to_all and two grouped_gemm over the four ranks'
+   experts a layer and forward, on "ep" one ag_gemm and one gemm_rs a
+   layer and forward, nothing outside the EP path), paged serving of the traffic's
+   first 16 requests, at most 32 tokens each, at 64 slots (admissions
+   and ticks each launching
+   both exchanges; the ticks' routed entries counted in full); then
+   dropless: the teacher-forced gate against the one-rank plain engine
+   with the routing pinned (B=4 x S=64, 8 steps, MOE_LIMIT, and a slot
+   chunk's routing load equal to the plain engine's with no drop), and a
+   dropless serving wave (4 requests on 4 slots, 16 tokens each) whose
+   streams are teacher-forced through the EP forward against the plain
+   engine (MOE_SERVE_LIMIT, MOE_LIMIT).
+   Then row 20 through EP_MoE(mode="ep_fused") at the serving layer (bf16
+   and int8 panels) against fwd_ep, dropless, timed beside the fwd_ep
+   chain.
+13. Prints one JSON line of per-kernel results, then, last, the device
    line {"ok": true, "device": {...}}.
 
 Exits non-zero, printing no result, if there is no CUDA device, if the
@@ -209,7 +238,7 @@ import torch
 
 try:
     from triton_dist_tpu_torch.tools.checks import (
-        check, distinct, margin_gate, only_launched, serving_requests, tf_gate)
+        check, distinct, margin_gate, only_launched, serving_requests, set_capacity, tf_gate)
 except ImportError as e:          # main() reports it
     PACKAGE_MISSING = e
 else:
@@ -224,13 +253,15 @@ TF_STEPS = 8                   # teacher-forced decode steps checked per phase
 PAGE = 16
 # window kernel rows: the cache's positions and the longest row length
 WIN_T, WIN_KV = 416, 400
-# speculative decoding (bench.py:396-430): requests, budget, draft length,
-# the prompt's pattern and its repeats
-SPEC_B, SPEC_GEN, SPEC_K, SPEC_PERIOD, SPEC_REPS = 16, 96, 4, 4, 16
+# speculative decoding (bench.py:396-430): requests, budget (bench.py's 96
+# cut to 64 since the expert-parallel phase came), draft length, the
+# prompt's pattern and its repeats
+SPEC_B, SPEC_GEN, SPEC_K, SPEC_PERIOD, SPEC_REPS = 16, 64, 4, 4, 16
 # chunked prefill (bench.py:498-560): live requests, their prompt and
-# budget, the long prompt, the prefill budget; the serving workload's
-# budget
-CL_LIVE, CL_PLEN, CL_GEN, CL_LONG, CL_BUDGET = 6, 16, 192, 384, 32
+# budget (bench.py's 192 cut to 96 since the expert-parallel phase came:
+# the long prompt's first token comes within the first 40), the long
+# prompt, the prefill budget; the serving workload's budget
+CL_LIVE, CL_PLEN, CL_GEN, CL_LONG, CL_BUDGET = 6, 16, 96, 384, 32
 SERVE_BUDGET = 64
 # the first-poll ms of each serving phase's tick probe, by label
 FIRST_POLL_MS = {}
@@ -294,6 +325,9 @@ GDN_LIMIT = 1e-2
 GDN_F64_TOL = {"10c": (2e-4, 2e-4), "10d": (2e-4, 2e-4), "10e": (2e-4, 2e-3)}
 # the sequence-parallel degree of the paged partial's emulation
 SP_RANKS = 4
+# the tensor-parallel phase's depth: Qwen3-1.7B cut from 28 layers to make
+# room for the expert-parallel phase (its checks do not depend on depth)
+TP_LAYERS = 14
 
 
 def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
@@ -1060,11 +1094,6 @@ def chunk_load(eng, logits, cache, pos, steps):
     return eng.slot_chunk(logits, cache, pos, active, chunk=steps)[4].cpu().numpy()
 
 
-def set_capacity(model, cf) -> None:
-    for ly in model.layers:
-        ly.moe.capacity_factor = cf
-
-
 def moe_engine_phase(m, k, model, ids, card):
     """Qwen3-30B-A3B through Engine(backend="flash") at capacity 2.0:
     prefill B x S and GEN decode steps, timed, with exact launch counts,
@@ -1389,9 +1418,9 @@ def serving_phase(m, k, model, kv_dtype, label, paged, reqs, card, backend="flas
 
 
 def spec_requests(m, vocab: int):
-    """bench.py's speculative-decoding row at full size: SPEC_B requests,
-    each prompt its own seeded SPEC_PERIOD-token pattern tiled SPEC_REPS
-    times plus its first two tokens, SPEC_GEN tokens each."""
+    """bench.py's speculative-decoding row (its budget cut): SPEC_B
+    requests, each prompt its own seeded SPEC_PERIOD-token pattern tiled
+    SPEC_REPS times plus its first two tokens, SPEC_GEN tokens each."""
     rng = np.random.RandomState(3)
     reqs = []
     for i in range(SPEC_B):
@@ -1635,9 +1664,9 @@ def verify_gate(m, model, pairs, paged, label, max_seq, limit=5e-2):
 
 
 def chunked_requests(m, vocab: int):
-    """bench.py's chunked-prefill row at full size: CL_LIVE live requests
-    of CL_PLEN prompt tokens and CL_GEN tokens each, and one long
-    CL_LONG-token prompt asking for 8."""
+    """bench.py's chunked-prefill row (its live requests' length cut):
+    CL_LIVE live requests of CL_PLEN prompt tokens and CL_GEN tokens each,
+    and one long CL_LONG-token prompt asking for 8."""
     rng = np.random.RandomState(6)
     live = [m.Request(rid=f"l{i}", ids=rng.randint(0, vocab, CL_PLEN).astype(np.int32),
                       gen_len=CL_GEN) for i in range(CL_LIVE)]
@@ -2554,12 +2583,18 @@ def tp_phase(k, card):
     torch.cuda.synchronize()
     c_reg = k.launch_counts()
     kernels = ("all_gather", "reduce_scatter", "all_reduce", "gemm_allreduce", "ag_gemm",
-               "gemm_rs")
+               "gemm_rs", "all_to_all", "dispatch_a2a", "ep_moe_fused")
     for n in kernels:
         check(c_reg[n] > 0, f"tp registry: {n} did not run ({c_reg})")
     only_launched(c_reg, kernels, "tp registry")
+    # ep_dispatch_combine's weighted sums, ep_fused's products and
+    # low_latency_all_to_all's int8 pack and unpack are f32 arithmetic on
+    # the card against the CPU's (the pack one f32 ulp apart on the H100:
+    # 7.5e-8 of the largest output); their exchanges are held bitwise in
+    # tp_check's rows
     limits = {"gemm_ar": tp_check.GEMM_AR_LIMIT, "ag_gemm": tp_check.AG_GEMM_LIMIT,
-              "gemm_rs": tp_check.GEMM_RS_LIMIT}
+              "gemm_rs": tp_check.GEMM_RS_LIMIT, "ep_fused": tp_check.EP_FUSED_LIMIT,
+              "ep_dispatch_combine": 1e-5, "low_latency_all_to_all": 1e-6}
     for name, spec in comm.items():
         fn, args = spec.build(cpu_mesh)
         tol = limits.get(name, 0.0)
@@ -2568,7 +2603,7 @@ def tp_phase(k, card):
             check(err <= tol, f"tp registry {name} rank {r}: card against CPU {err} > {tol}")
         print(f"tp registry {name} ({spec.module}): card against its CPU run within "
               f"{tol or 'bitwise'}", flush=True)
-    res = tp_check.run(mesh, card=card)
+    res = tp_check.run(mesh, card=card, n_layers=TP_LAYERS)
     dist = res["counts"]["dist"]
     counts = {"registry": c_reg, "ar decode": res["counts"]["ar"]["decode"],
               "gemm_ar decode": res["counts"]["gemm_ar"]["decode"],
@@ -2579,6 +2614,23 @@ def tp_phase(k, card):
            "ag_gemm": "dist engine", "gemm_rs": "dist engine"}
     symm_mem.clear_registry()          # the landing buffers and signal pads
     return [(r, ("tp", key[r["name"]])) for r in res["rows"]], counts
+
+
+def ep_phase(k, card, model):
+    """The expert-parallel phase (12. above) on the MoE phases' model.
+    Returns its kernel rows with their launch-count keys and the counts
+    they read."""
+    from triton_dist_tpu_torch.runtime import make_mesh, symm_mem
+    from triton_dist_tpu_torch.tools import tp_check
+    mesh = make_mesh(4, devices=["cuda:0"] * 4)
+    res = tp_check.run_ep(mesh, card=card, one=model)
+    ep = res["counts"]["ep"]
+    counts = {"ep engine": {n: ep["prefill"][n] + ep["decode"][n] for n in ep["decode"]},
+              "ep layer": res["counts"]["layer"]["launches"]}
+    key = {"all_to_all": "ep engine", "dispatch_a2a": "ep engine",
+           "ep_moe_fused": "ep layer"}
+    symm_mem.clear_registry()
+    return [(r, ("ep", key[r["name"]])) for r in res["rows"]], counts
 
 
 def main() -> int:
@@ -2724,6 +2776,12 @@ def main() -> int:
         prefill_budget=MOE_BUDGET)
     set_capacity(model, 2.0)
     stamp(f"serving moe paged bf16 dropless prefill_budget {MOE_BUDGET}")
+
+    # expert parallelism: the same model's experts split over four ranks
+    # emulated on the card (views of its expert panels)
+    ep_rows, counts["ep"] = ep_phase(k, card, model)
+    rows += ep_rows
+    stamp("expert-parallel phase")
 
     out = []
     for r, (kvt, phase) in rows:

@@ -207,11 +207,15 @@ def test_entry_points_default_to_cuda():
 
 
 @pytest.mark.parametrize("kw,exc", [
-    (dict(backend="ep_flash"), NotImplementedError),
-    (dict(backend="ep"), NotImplementedError),
+    # the expert-parallel backends refuse a dense model (the JAX gate)
+    (dict(backend="ep_flash"), ValueError),
+    (dict(backend="ep"), ValueError),
     (dict(backend="nonesuch"), ValueError),
     (dict(sampling="top_k"), NotImplementedError),
-])
+], # the ids the cases had before EP was ported, when the ep cases raised
+   # NotImplementedError
+    ids=["kw0-NotImplementedError", "kw1-NotImplementedError", "kw2-ValueError",
+         "kw3-NotImplementedError"])
 def test_engine_gates(kw, exc):
     model = AutoLLM.from_config(tiny_qwen3(1), device="cpu")
     with pytest.raises(exc):
@@ -237,8 +241,10 @@ def _gate_cases():
     x = torch.zeros(1, 1, 4, 64)
     g = torch.zeros(1, 1, 4)
     return {
-        "moe": lambda: AutoLLM.from_config(ModelConfig(num_experts=4), device="cpu",
-                                           moe_impl="ep"),
+        # expert parallelism runs on one mesh axis; the hybrid EP + TP mesh
+        # (moe_axis) waits
+        "moe": lambda: AutoLLM.from_config(tiny_qwen3_moe(1), device="cpu", moe_impl="ep",
+                                           moe_axis="expert"),
         # "dist" runs dense models; a MoE model's FFN has no "dist" form yet
         "mode_dist": lambda: moe().forward_tokens(
             torch.zeros(1, 1, dtype=torch.long), moe().make_cache(1, 8), mode="dist"),

@@ -418,16 +418,25 @@ def _moe_model():
 @pytest.mark.parametrize("case", ["ep_backend", "ep_flash_backend", "moe_impl_ep",
                                   "forward_train", "mode_dist", "quantize_int8"])
 def test_moe_not_ported_paths_raise(case):
+    """What a MoE model does not run yet raises NotImplementedError("... not
+    yet ported"); the expert-parallel backends, ported, refuse a TP_MoE
+    model as the JAX engine does (ValueError naming moe_impl), and an EP
+    model's two-tier mode is what stays unported of moe_impl="ep"."""
     m = _moe_model()
     calls = {
         "ep_backend": lambda: Engine(m, backend="ep", device="cpu"),
         "ep_flash_backend": lambda: Engine(m, backend="ep_flash", device="cpu"),
         "moe_impl_ep": lambda: AutoLLM.from_config(tiny_qwen3_moe(1), device="cpu",
-                                                   moe_impl="ep"),
+                                                   moe_impl="ep").layers[0].moe(
+            torch.zeros(1, 64), "ep_2d"),
         "forward_train": lambda: m.forward_train(None),
         "mode_dist": lambda: m.layers[0].moe(torch.zeros(1, 64), "dist"),
         "quantize_int8": m.quantize_int8,
     }
+    if case in ("ep_backend", "ep_flash_backend"):
+        with pytest.raises(ValueError, match="moe_impl"):
+            calls[case]()
+        return
     with pytest.raises(NotImplementedError, match="not yet ported"):
         calls[case]()
 

@@ -1,16 +1,24 @@
 """Kernels of the port: each hand-written CUDA kernel (csrc/) beside its
 plain PyTorch version (the collectives all_gather, reduce_scatter,
-all_reduce and gemm_allreduce over a mesh of ranks among them), the differentiable training ops built on them
-(flash_attn_train.py, grad.py), plus the int8 quantizers, `qmm`, the
-MoE routing helpers (ep_a2a.py) and the kernel registry (registry.py)."""
+all_reduce, gemm_allreduce and all_to_all over a mesh of ranks among
+them, the EP dispatch and the fused EP-MoE), the differentiable training
+ops built on them (flash_attn_train.py, grad.py), plus the int8
+quantizers, `qmm`, the MoE routing and EP planning helpers (ep_a2a.py)
+and the kernel registry (registry.py)."""
 
 from triton_dist_tpu_torch.kernels._build import (  # noqa: F401
     launch_counts, method_counts, reset_launch_counts)
 from triton_dist_tpu_torch.kernels.allgather import (  # noqa: F401
     AllGatherMethod, all_gather, all_gather_ref, get_auto_all_gather_method)
 from triton_dist_tpu_torch.kernels.allgather_gemm import ag_gemm, ag_gemm_ref  # noqa: F401
+from triton_dist_tpu_torch.kernels.all_to_all import (  # noqa: F401
+    all_to_all, all_to_all_ref, low_latency_all_to_all)
 from triton_dist_tpu_torch.kernels.allreduce import (  # noqa: F401
     AllReduceMethod, all_reduce, all_reduce_ref, get_auto_allreduce_method)
+from triton_dist_tpu_torch.kernels.ep_a2a import (  # noqa: F401
+    combine_a2a, create_ep_a2a_context, dispatch_a2a, dispatch_a2a_int8, ep_dispatch_combine)
+from triton_dist_tpu_torch.kernels.ep_fused import (  # noqa: F401
+    ep_moe_fused_device, ep_moe_fused_device_ref)
 from triton_dist_tpu_torch.kernels.flash_attn import (  # noqa: F401
     flash_decode, flash_decode_partial, flash_decode_partial_ref, flash_decode_ref,
     kv_update, kv_update_ref, lse_combine)

@@ -283,6 +283,38 @@ void gemm_rs(int a_dtype, int b_dtype, const Ptrs& a, const Ptrs& b, const Ptrs&
       K, ctas, stream(st)));
 }
 
+void all_to_all(const Ptrs& in, const Ptrs& out, const Ptrs& sig, int first_rank, int n_local,
+                int64_t epoch, int64_t chunk_bytes, int ctas, int64_t st) {
+  C10_CUDA_CHECK(tdt::all_to_all(
+      comm_args(in, {}, {}, out, {}, {}, sig, first_rank, n_local, epoch), chunk_bytes, ctas,
+      stream(st)));
+}
+
+void dispatch_a2a(const Ptrs& x, const Ptrs& meta, const Ptrs& out, const Ptrs& meta_out,
+                  const Ptrs& sig, int first_rank, int n_local, int64_t epoch,
+                  int64_t chunk_bytes, int64_t meta_bytes, int ctas, int64_t st) {
+  C10_CUDA_CHECK(tdt::dispatch_a2a(
+      comm_args(x, meta, {}, out, meta_out, {}, sig, first_rank, n_local, epoch), chunk_bytes,
+      meta_bytes, ctas, stream(st)));
+}
+
+void ep_moe_fused(int dtype, int w_dtype, const Ptrs& x, const Ptrs& wgu, const Ptrs& sgu,
+                  const Ptrs& wd, const Ptrs& sd, const Ptrs& recv, const Ptrs& h,
+                  const Ptrs& yback, const Ptrs& sig, int first_rank, int n_local,
+                  int64_t epoch, int E, int cap, int D, int I, int ctas, int64_t st) {
+  tdt::EpFusedArgs f{};
+  f.c = comm_args(x, wgu, sgu, yback, h, recv, sig, first_rank, n_local, epoch);
+  TORCH_CHECK(static_cast<int>(wd.size()) == f.c.n && (sd.empty() || static_cast<int>(
+                  sd.size()) == f.c.n), "ep_moe_fused: one w_d (and scale) pointer per rank");
+  for (size_t r = 0; r < wd.size(); ++r) f.wd[r] = ptr<const void>(wd[r]);
+  for (size_t r = 0; r < sd.size(); ++r) f.sd[r] = ptr<const float>(sd[r]);
+  f.E = E;
+  f.cap = cap;
+  f.D = D;
+  f.I = I;
+  C10_CUDA_CHECK(tdt::ep_moe_fused(dtype, w_dtype, f, ctas, stream(st)));
+}
+
 // peer access from device `dev` to `peer` (a mesh of distinct cards);
 // enabling it twice is not an error
 void enable_peer_access(int dev, int peer) {
@@ -320,5 +352,8 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("gemm_allreduce", &gemm_allreduce);
   m.def("ag_gemm", &ag_gemm);
   m.def("gemm_rs", &gemm_rs);
+  m.def("all_to_all", &all_to_all);
+  m.def("dispatch_a2a", &dispatch_a2a);
+  m.def("ep_moe_fused", &ep_moe_fused);
   m.def("enable_peer_access", &enable_peer_access);
 }

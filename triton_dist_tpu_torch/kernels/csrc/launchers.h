@@ -214,4 +214,28 @@ cudaError_t ag_gemm(int a_dtype, int b_dtype, const CommArgs& a, long long cvec,
 cudaError_t gemm_rs(int a_dtype, int b_dtype, const CommArgs& a, long long cvec, int M, int N,
                     int K, int ctas, cudaStream_t stream);
 
+// csrc/a2a.cu, the one-shot all-to-all: in = each rank's n chunks of
+// chunk_bytes (chunk p for rank p), out = each rank's output of the same
+// size (chunk p from rank p). dispatch_a2a also moves in2 -> out2, n chunks
+// of meta_bytes (a multiple of 8, 8-byte aligned), in the same launch.
+cudaError_t all_to_all(const CommArgs& a, long long chunk_bytes, int ctas, cudaStream_t stream);
+cudaError_t dispatch_a2a(const CommArgs& a, long long chunk_bytes, long long meta_bytes,
+                         int ctas, cudaStream_t stream);
+
+// csrc/ep_fused.cu, the fused EP-MoE. In c: in = each rank's send slabs x
+// [n, E, cap, D] (dtype: bf16 or f32), in2 = w_gu [E, D, 2I] (w_dtype: x's,
+// or int8 panels with scale = s_gu [E, 2I] f32; null scales otherwise), out
+// = each rank's y_back [n, E, cap, D], out2 = each rank's h [E, n*cap, I]
+// (scratch), land = each rank's landing buffer recv [E, n*cap, D]; wd =
+// w_d [E, I, D] (w_dtype) and sd = its scales [E, D] f32 (int8 panels).
+// All contiguous; D and I multiples of 8 (bf16) or 4 (f32).
+struct EpFusedArgs {
+  CommArgs c;
+  const void* wd[kMaxRanks];
+  const float* sd[kMaxRanks];
+  int E, cap, D, I;
+};
+cudaError_t ep_moe_fused(int dtype, int w_dtype, const EpFusedArgs& a, int ctas,
+                         cudaStream_t stream);
+
 }  // namespace tdt

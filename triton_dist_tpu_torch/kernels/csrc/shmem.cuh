@@ -46,6 +46,7 @@ constexpr int kMaxCtas = 256;                     // per rank
 constexpr int kBarrier = 0;                       // slots [0, kMaxRanks)
 constexpr int kRegionA = 64;                      // kMaxRanks * kMaxCtas flags
 constexpr int kRegionB = kRegionA + kMaxRanks * kMaxCtas;
+constexpr int kRegionC = kRegionB + kMaxRanks * kMaxCtas;
 constexpr long long kSpinTimeoutNs = 20ll * 1000 * 1000 * 1000;
 
 __device__ __forceinline__ int my_pe(const CommArgs& a) { return a.first_rank + blockIdx.z; }
@@ -152,6 +153,13 @@ __device__ __forceinline__ void signal_all(const CommArgs& a, int region, int sl
 // the CTA waits for its flags of every source rank in a region
 __device__ __forceinline__ void wait_sources(const CommArgs& a, int region) {
   wait_all(a, flag(a.sig[my_pe(a)], region, 0), gridDim.x);
+}
+
+// one thread: wait until every CTA of rank `src` has signalled this
+// rank's flags `src` of a region (signal_all(a, region, src) by each)
+__device__ __forceinline__ void signal_wait_rank(const CommArgs& a, int region, int src) {
+  const unsigned* pad = a.sig[my_pe(a)] + region + src * gridDim.x;
+  for (int g = 0; g < gridDim.x; ++g) signal_wait_until(pad + g, a.epoch);
 }
 
 // f32 sum of 16-byte vector i of n landed contributions (land + src *

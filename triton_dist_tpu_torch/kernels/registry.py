@@ -5,10 +5,11 @@ Counterpart of triton_dist_tpu/kernels/__init__.py (`KernelSpec`,
 `_b_flash_decode_paged`, `_b_kv_update`, `_b_grouped_gemm`, `_b_swiglu`,
 `_b_gdn`, `_b_flash_attention`, and the collectives' `_b_allgather`,
 `_b_reduce_scatter`, `_b_allreduce`, `_b_ag_gemm`, `_b_gemm_rs`,
-`_b_gemm_ar`): the eight specs whose `min_devices` is 1, whose build
-takes a device, and the nine of the ported collectives (min_devices 2,
-kind "comm"), whose build takes a mesh (runtime/bootstrap.py) and
-returns one input per rank.
+`_b_gemm_ar`, `_b_all_to_all`, `_b_ep_dispatch_combine`, `_b_ep_fused`):
+the eight specs whose `min_devices` is 1, whose build takes a device,
+and the thirteen of the ported collectives (min_devices 2, kind "comm"),
+whose build takes a mesh (runtime/bootstrap.py) and returns one input
+per rank.
 Each build function draws its inputs from the same
 `np.random.RandomState(seed)`, in the same order and shapes, as its JAX
 counterpart, so that both registries' canonical calls see equal inputs.
@@ -201,6 +202,47 @@ def _b_gemm_ar(mesh):
             tuple(_split(a, mesh, 1) + _split(b, mesh, 0)))
 
 
+def _b_all_to_all(low_latency: bool):
+    """x [n, n, 8, 128] (seed 1), rank r's block x[r]."""
+    def build(mesh):
+        from triton_dist_tpu_torch.kernels.all_to_all import all_to_all, low_latency_all_to_all
+        n = mesh.size
+        x = _f32(np.random.RandomState(1), n, n, 8, 128)
+        fn = low_latency_all_to_all if low_latency else all_to_all
+        return (lambda *xs: fn(list(xs), mesh=mesh)), tuple(t[0] for t in _split(x, mesh))
+    return build
+
+
+def _b_ep_dispatch_combine(mesh):
+    """x [8n, 128] and router logits [8n, 2n] (seed 8, in that order),
+    row-sharded; 2n experts, top-2, capacity 8n; args: the n x shards,
+    then the n logit shards."""
+    from triton_dist_tpu_torch.kernels.ep_a2a import create_ep_a2a_context, ep_dispatch_combine
+    n = mesh.size
+    rng = np.random.RandomState(8)
+    T, D, E = 8 * n, 128, 2 * n
+    x, logits = _f32(rng, T, D), _f32(rng, T, E)
+    ctx = create_ep_a2a_context(mesh, num_experts=E, capacity=T)
+    return ((lambda *xl: ep_dispatch_combine(list(xl[:n]), list(xl[n:]), 2, ctx)),
+            tuple(_split(x, mesh) + _split(logits, mesh)))
+
+
+def _b_ep_fused(mesh):
+    """ep_moe_fused_device at E_loc=2, cap_e=16, D=I=128 (seed 9: x
+    [n*2*16*n, 128], w_gu [2n, 128, 256], w_d [2n, 128, 128]); args: the
+    n x shards, the n w_gu shards, the n w_d shards."""
+    from triton_dist_tpu_torch.kernels.ep_fused import ep_moe_fused_device
+    n = mesh.size
+    rng = np.random.RandomState(9)
+    E_loc, cap_e, D, I = 2, 16, 128, 128
+    x = _f32(rng, n * E_loc * cap_e * n, D)
+    wgu = _f32(rng, E_loc * n, D, 2 * I)
+    wd = _f32(rng, E_loc * n, I, D)
+    return ((lambda *a: ep_moe_fused_device(list(a[:n]), list(a[n:2 * n]), list(a[2 * n:]),
+                                            mesh=mesh, cap_e=cap_e)),
+            tuple(_split(x, mesh) + _split(wgu, mesh) + _split(wd, mesh)))
+
+
 @functools.lru_cache(maxsize=None)
 def kernel_registry() -> dict:
     """The canonical enumeration of the port's kernels: name -> KernelSpec."""
@@ -232,5 +274,12 @@ def kernel_registry() -> dict:
         KernelSpec("gemm_rs", "kernels.gemm_reduce_scatter", "comm", _b_gemm_rs,
                    min_devices=2),
         KernelSpec("gemm_ar", "kernels.gemm_allreduce", "comm", _b_gemm_ar, min_devices=2),
+        KernelSpec("all_to_all", "kernels.all_to_all", "comm", _b_all_to_all(False),
+                   min_devices=2),
+        KernelSpec("low_latency_all_to_all", "kernels.all_to_all", "comm",
+                   _b_all_to_all(True), min_devices=2),
+        KernelSpec("ep_dispatch_combine", "kernels.ep_a2a", "comm", _b_ep_dispatch_combine,
+                   min_devices=2),
+        KernelSpec("ep_fused", "kernels.ep_fused", "comm", _b_ep_fused, min_devices=2),
     ]
     return {s.name: s for s in specs}

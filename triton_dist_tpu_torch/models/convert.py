@@ -16,7 +16,11 @@ are copied as they are. A JAX model built over a mesh of n > 1 ranks
 packs w_qkv and w_gate_up as n per-rank blocks (shard_cols_packed): give
 its size as `jax_tp`, and they are unpacked to the one-rank layout first
 (a QuantW's scales with its columns). With `mesh`, the port's model is
-then split over it (DenseLLM.to_mesh), whatever the JAX model's size.
+then split over it (DenseLLM.to_mesh), whatever the JAX model's size; a
+MoE config with moe_impl="ep" is split by Qwen3MoE.to_mesh (experts by
+rank, over `mesh` or the device's one-rank mesh). The JAX EP model keeps
+each expert's [gate | up] whole along 2I (its panels split along E), so
+its expert panels need no unpacking.
 This module sees numpy arrays only, never a jax object.
 """
 
@@ -31,6 +35,7 @@ from triton_dist_tpu_torch.layers.common import unpack_cols_packed
 from triton_dist_tpu_torch.models.config import ModelConfig
 from triton_dist_tpu_torch.models.dense import DenseLayer, DenseLLM
 from triton_dist_tpu_torch.models.qwen_moe import MoELayer, Qwen3MoE
+from triton_dist_tpu_torch.runtime.bootstrap import mesh_of
 from triton_dist_tpu_torch.runtime.device import resolve_device
 
 
@@ -47,10 +52,11 @@ def to_torch(a: np.ndarray, device=None) -> torch.Tensor:
 
 
 def from_jax_arrays(cfg: ModelConfig, arrays: dict, device=None,
-                    capacity_factor=2.0, *, mesh=None, jax_tp: int = 1) -> DenseLLM:
+                    capacity_factor=2.0, *, mesh=None, jax_tp: int = 1,
+                    moe_impl: str = "tp") -> DenseLLM:
     """The port's DenseLLM, or Qwen3MoE for a MoE config (with
-    capacity_factor), holding the given parameters on `device` (with a
-    mesh, on its rank 0's device, then split over it)."""
+    capacity_factor and moe_impl), holding the given parameters on
+    `device` (with a mesh, on its rank 0's device, then split over it)."""
     dev = resolve_device(mesh.devices[0] if mesh is not None else device)
 
     def get(name):
@@ -92,6 +98,8 @@ def from_jax_arrays(cfg: ModelConfig, arrays: dict, device=None,
     cls = Qwen3MoE if cfg.is_moe else DenseLLM
     model = cls(embed=get("embed"), layers=layers, final_norm=get("final_norm"),
                 lm_head=get("lm_head"), cos=cos, sin=sin, config=cfg)
+    if cfg.is_moe and (moe_impl == "ep" or mesh is not None):
+        return model.to_mesh(mesh if mesh is not None else mesh_of(dev), moe_impl)
     return model if mesh is None else model.to_mesh(mesh)
 
 

@@ -31,8 +31,9 @@ random_init draws every weight from one key stream whatever the mesh;
 here the one-rank model is drawn from the seed and then split, so a
 model of n ranks equals the one-rank model of the same seed. Only the
 decode forwards (`forward_tokens`, `forward_tokens_slots`,
-`forward_tokens_slots_paged`) run at n > 1; the window forms, training
-and MoE models stay at one rank.
+`forward_tokens_slots_paged`) run at n > 1; the window forms and training
+stay at one rank. A MoE model (models/qwen_moe.py) runs the same stack
+with its own FFN hook (`_ffn_ranks`) and attention mode (`_attn_mode`).
 """
 
 from __future__ import annotations
@@ -307,15 +308,16 @@ class DenseLLM:
         cfg = self.config
         x = self.embed[ids].reshape(B * S, cfg.hidden_size)
         kv_start = cache.offset
+        am = self._attn_mode(mode)
         if self.tp > 1:
             cos, sin = self._ropes()
-            x = self._tp_stack(x, lambda attn, hs, li: attn.fwd_cached(
-                hs, cos, sin, B, cache.layer(li), kv_start, mode, rows=B * S), mode)
+            x, _ = self._tp_stack(x, lambda attn, hs, li: attn.fwd_cached(
+                hs, cos, sin, B, cache.layer(li), kv_start, am, rows=B * S), mode)
         else:
             for li, layer in enumerate(self.layers):
                 h = rms_norm(x, layer.ln_attn, cfg.rms_norm_eps)
                 a, _ = layer.attn.fwd_cached(h, self.cos, self.sin, B,
-                                             cache.layer(li), kv_start, mode)
+                                             cache.layer(li), kv_start, am)
                 x = x + a
                 x = x + self._ffn(layer, rms_norm(x, layer.ln_mlp, cfg.rms_norm_eps), mode,
                                   None)[0]
@@ -374,10 +376,16 @@ class DenseLLM:
         cos, sin = self._ropes()
         return cos, sin, (pos if self.tp == 1 else self.mesh.replicate(pos))
 
+    def _attn_mode(self, mode: str) -> str:
+        """The attention blocks' mode for a model-level mode (the mode
+        itself; a MoE model maps its expert-parallel modes)."""
+        return mode
+
     def _slot_attend(self, cache: KVCache, pos, mode: str, q_lens=None):
         """The slot attention block of forward_tokens_slots (with q_lens:
         of its window form), as attend(attn, h, layer index, batch)."""
         cos, sin, pos = self._slot_args(pos)
+        mode = self._attn_mode(mode)
         if q_lens is None:
             return lambda attn, h, li, b: attn.fwd_cached_slots(
                 h, cos, sin, b, cache.layer(li), pos, mode)
@@ -388,6 +396,7 @@ class DenseLLM:
         """The paged slot attention block of forward_tokens_slots_paged
         (with q_lens: of its window form)."""
         cos, sin, pos = self._slot_args(pos)
+        mode = self._attn_mode(mode)
         table = pcache.table if self.tp == 1 else pcache.tables
         if q_lens is None:
             return lambda attn, h, li, b: attn.fwd_cached_slots_paged(
@@ -395,15 +404,18 @@ class DenseLLM:
         return lambda attn, h, li, b: attn.fwd_cached_slots_paged_verify(
             h, cos, sin, b, pcache.layer(li), table, pos, q_lens, mode)
 
-    def _tp_stack(self, x, attend, mode: str):
+    def _tp_stack(self, x, attend, mode: str, load=None):
         """The layer stack at n > 1 ranks: x [M, D] (rank 0's embedding
-        rows) copied to every rank (on "dist" rank r's row shard of the
-        rows padded to a multiple of n), each layer's attention block
-        attend(attn, [h per rank], layer index) and MLP over the ranks'
-        lists; returns rank 0's copy of the residual stream [M, D]."""
+        rows) copied to every rank (when the attention runs on "dist",
+        rank r's row shard of the rows padded to a multiple of n), each
+        layer's attention block attend(attn, [h per rank], layer index) and
+        FFN (`_ffn_ranks`) over the ranks' lists; returns (rank 0's copy of
+        the residual stream [M, D], load)."""
         eps = self.config.rms_norm_eps
-        if mode == "dist":
-            M, n = x.shape[0], self.mesh.size
+        M = x.shape[0]
+        sharded = self._attn_mode(mode) == "dist"
+        if sharded:
+            n = self.mesh.size
             m = -(-M // n)
             xp = torch.nn.functional.pad(x, (0, 0, 0, n * m - M))
             xs = [xp[r * m:(r + 1) * m].to(d) for r, d in enumerate(self.mesh.devices)]
@@ -412,17 +424,24 @@ class DenseLLM:
         for li, ly in enumerate(self.layers):
             a, _ = attend(ly.attn, [rms_norm(xr, w, eps) for xr, w in zip(xs, ly.ln_attn)], li)
             xs = [xr + ar for xr, ar in zip(xs, a)]
-            y = ly.mlp([rms_norm(xr, w, eps) for xr, w in zip(xs, ly.ln_mlp)], mode)
+            y, load = self._ffn_ranks(ly, [rms_norm(xr, w, eps) for xr, w in zip(xs, ly.ln_mlp)],
+                                      mode, load, M)
             xs = [xr + yr for xr, yr in zip(xs, y)]
-        if mode == "dist":
-            return torch.cat([xr.to(x.device) for xr in xs])[:M]
-        return xs[0]
+        if sharded:
+            return torch.cat([xr.to(x.device) for xr in xs])[:M], load
+        return xs[0], load
 
     def _ffn(self, layer, h, mode: str, load):
         """The layer's FFN on the normed rows h: (output, load). `load` is
         the routing-load accumulator of MoE models (models/qwen_moe.py),
         passed through here."""
         return layer.mlp(h, mode), load
+
+    def _ffn_ranks(self, layer, hs, mode: str, load, rows: int):
+        """The layer's FFN at n > 1 ranks on the ranks' normed rows hs (row
+        shards or copies, as the stack holds them; `rows` real rows):
+        (outputs, load)."""
+        return layer.mlp(hs, mode), load
 
     def _slots_forward(self, ids, attend, mode: str, load=None, window: bool = False):
         """The layer loop of the slot forwards; attend(attn, h, layer
@@ -434,7 +453,7 @@ class DenseLLM:
         cfg = self.config
         x = self.embed[ids].reshape(B * S, cfg.hidden_size)
         if self.tp > 1:
-            x = self._tp_stack(x, lambda attn, hs, li: attend(attn, hs, li, B), mode)
+            x, load = self._tp_stack(x, lambda attn, hs, li: attend(attn, hs, li, B), mode, load)
         else:
             for li, layer in enumerate(self.layers):
                 a, _ = attend(layer.attn, rms_norm(x, layer.ln_attn, cfg.rms_norm_eps), li, B)

@@ -21,13 +21,23 @@ QKV and gate/up projections through the ag_gemm ring and the O and down
 projections through the gemm_rs ring on a row-sharded residual stream,
 and prefills and admits through itself (the JAX engine's
 prefill_backend), so the rings run in the prefill, the admissions and
-the ticks; at one rank both are the GEMM kernel. `comm_kernel_dispatches`
+the ticks; at one rank both are the GEMM kernel. "ep" and "ep_flash" (a Qwen3MoE built
+with moe_impl="ep", its experts split over the mesh) run every MoE layer
+through the EP dispatch_a2a and all_to_all kernels and the grouped GEMM
+on each rank's experts, the attention on "dist" ("ep") or "flash"
+("ep_flash"), and prefill and admit through themselves; a slot batch the
+mesh does not divide is refused (`make_slot_cache`,
+`make_paged_slot_cache`), as in the JAX engine. `comm_kernel_dispatches`
 counts the slot programs a comm backend dispatched (the JAX engine's
 counter). Over a mesh of n > 1 ranks, "flash" and "xla" end the
 projections in the psum's plain version, the caches are head-sharded
 (models/kv_cache.py), the page table's host side, allocator and radix
 tree stay one, and the logits, tokens and positions live on rank 0's
-device; the window programs, "mega" and MoE models stay at one rank. "mega" (dense models) prefills
+device; the window programs and "mega" stay at one rank. The JAX engine
+rounds an EP model's max_seq and prefill buckets up to lcm(8, ep), since
+its EP forwards take row counts the mesh divides; the port runs exact
+row counts, padded with rows that route nowhere (layers/ep_moe.py), so
+max_seq stays as given. "mega" (dense models) prefills
 and admits on "flash" and decodes each layer as ONE megakernel launch
 (mega/decode_layer.py): `decode` over the contiguous cache
 (`_mega_scan_decode_fn`) and `paged_slot_chunk` over the paged pool
@@ -78,11 +88,11 @@ from triton_dist_tpu_torch.models.spec_decode import accept_greedy
 from triton_dist_tpu_torch.models.utils import sample_greedy
 from triton_dist_tpu_torch.runtime.device import resolve_device
 
-BACKENDS = ("flash", "xla", "mega", "ar", "gemm_ar", "dist")
-# backends of the JAX engine that the port does not run yet
-_JAX_BACKENDS = ("ep", "ep_flash")
+BACKENDS = ("flash", "xla", "mega", "ar", "gemm_ar", "dist", "ep", "ep_flash")
 # the backends whose decode ticks run the TP comm kernels
 COMM_BACKENDS = ("ar", "gemm_ar", "dist")
+# the expert-parallel backends (a Qwen3MoE built with moe_impl="ep")
+EP_BACKENDS = ("ep", "ep_flash")
 
 
 def _not_ported(what: str) -> NotImplementedError:
@@ -100,8 +110,6 @@ class Engine:
         if model.device != dev:
             raise ValueError(f"the model lives on {model.device}, the engine "
                              f"was asked for {dev}")
-        if backend in _JAX_BACKENDS:
-            raise _not_ported(f"backend={backend!r}")
         if backend not in BACKENDS:
             raise ValueError(f"unknown backend {backend!r}; this engine serves "
                              f"{BACKENDS}")
@@ -113,6 +121,8 @@ class Engine:
             _check_mega(model, kv_dtype, sampling)
         if backend in COMM_BACKENDS and model.config.is_moe:
             raise _not_ported(f"backend={backend!r} for MoE models (TP-MoE comm kernels)")
+        if backend in EP_BACKENDS:
+            _check_ep(model, backend)
         if sampling != "greedy":
             raise _not_ported(f"sampling={sampling!r}")
         if kv_dtype not in (None, torch.int8, model.config.torch_dtype):
@@ -125,8 +135,8 @@ class Engine:
         self.device = dev
         self.tp = tp
         # admissions and prefill: mega fuses decode only; "ar"/"gemm_ar"
-        # prefill on "xla", "dist" through itself, as the JAX engine's
-        # default prefill_backend
+        # prefill on "xla", "dist", "ep" and "ep_flash" through themselves,
+        # as the JAX engine's default prefill_backend
         self.prefill_backend = ("flash" if backend == "mega" else
                                 "xla" if backend in ("ar", "gemm_ar") else backend)
         # slot programs dispatched through a comm backend
@@ -205,8 +215,22 @@ class Engine:
         """A fresh routing-load accumulator for a MoE slot chunk, else None."""
         return self.model._zero_load() if self.moe_family else None
 
+    def _ep_batch_check(self, batch: int) -> None:
+        """An expert-parallel model's tick feeds its slot batch to the
+        row-sharded expert dispatch: refuse a batch the mesh does not
+        divide (the JAX engine's `_moe_batch_check`), at cache
+        construction."""
+        ep = getattr(self.model, "ep_size", 1)
+        if ep > 1 and batch % ep:
+            raise ValueError(
+                f"EP serving needs the slot batch ({batch}) divisible by the "
+                f"expert-parallel axis size ({ep}): each tick row-shards its token batch "
+                f"over the ep mesh axis {self.model.ep_axis!r}; pad the batch or shrink "
+                "the ep axis")
+
     def make_slot_cache(self, batch: int) -> KVCache:
         """Fresh cache whose batch rows are independent decode slots."""
+        self._ep_batch_check(batch)
         return self.model.make_cache(batch, self.max_seq, dtype=self.kv_dtype)
 
     def prefill_into_slot(self, cache: KVCache, slot: int, ids):
@@ -255,6 +279,7 @@ class Engine:
         table (an int8 pool when kv_dtype is int8). num_pages defaults to
         the no-sharing worst case (every slot full) plus the trash
         page."""
+        self._ep_batch_check(batch)
         cfg = self.model.config
         maxp = -(-self.max_seq // page)
         if num_pages is None:
@@ -530,6 +555,21 @@ def _last_valid(logits_all, q_lens):
     0 for a row with q_len 0)."""
     sel = torch.clamp(q_lens - 1, min=0).long()
     return logits_all[torch.arange(sel.shape[0], device=sel.device), sel]
+
+
+def _check_ep(model, backend: str) -> None:
+    """The construction refusals of the expert-parallel backends (the JAX
+    engine's)."""
+    if not model.config.is_moe:
+        raise ValueError(
+            f"backend={backend!r} routes the FFN through the EP dispatch/combine kernels; "
+            f"{type(model).__name__} has no routed experts (missing capability: "
+            "expert-parallel FFN); dense models serve on 'flash'/'dist'/'ar'/'gemm_ar'")
+    if getattr(model, "moe_impl", None) != "ep":
+        raise ValueError(
+            f"backend={backend!r} needs an expert-SHARDED model (moe_impl='ep'); this "
+            f"Qwen3MoE was built moe_impl={model.moe_impl!r}; TP-MoE serves its "
+            "grouped-GEMM dispatch on 'flash'")
 
 
 def _check_mega(model, kv_dtype, sampling: str) -> None:

@@ -1,31 +1,44 @@
 """Qwen3-MoE: counterpart of triton_dist_tpu/models/qwen_moe.py
-(`MoELayer`, `Qwen3MoE` with moe_impl="tp": `random_init`, `from_hf`,
-`_zero_load`, `forward_tokens`, `forward_tokens_slots`,
-`forward_tokens_slots_paged`, the window forms
+(`MoELayer`, `Qwen3MoE` with `random_init`, `from_hf`, `ep_axis`,
+`ep_size`, `_moe_modes`, `_zero_load`, `_moe_ffn`, `forward_tokens`,
+`forward_tokens_slots`, `forward_tokens_slots_paged`, the window forms
 `forward_tokens_slots_verify` and `forward_tokens_slots_paged_verify`,
-`make_cache`) on one device. The JAX
-`_moe_modes` / `_moe_ffn` split exists for the expert-parallel modes;
-with those not ported, the FFN hook `_ffn` is one call.
+`make_cache`).
 
-Qwen3 attention blocks (layers/tp_attn.py) with a routed-expert FFN
-(layers/tp_moe.py) in place of the dense MLP. The attention, the cache
-and the slot layer loops are DenseLLM's (models/dense.py): Qwen3MoE
-overrides its FFN hook. Modes: "flash" (the flash-decode kernels and the
-grouped-GEMM expert dispatch, TP_MoE.fwd_local) and "xla" (the plain
-versions and the dense all-experts oracle, TP_MoE.fwd_xla).
+Qwen3 attention blocks (layers/tp_attn.py) with a routed-expert FFN in
+place of the dense MLP. The attention, the cache and the slot layer
+loops are DenseLLM's (models/dense.py): Qwen3MoE overrides its FFN hooks
+and its attention mode. Two FFN forms, chosen at construction
+(`moe_impl`), as in the JAX package:
+- "tp": TP_MoE (layers/tp_moe.py) at one rank: modes "flash" (the
+  grouped-GEMM expert dispatch, TP_MoE.fwd_local) and "xla" (the dense
+  all-experts oracle).
+- "ep": EP_MoE (layers/ep_moe.py), the experts split over a mesh of n
+  ranks (`to_mesh`, or `random_init(..., mesh=)`): the attention split by
+  heads as DenseLLM.to_mesh splits it, the expert panels by rank (views
+  of the one-rank model's storage), the router on every rank. Modes (the
+  JAX `_moe_modes`): "ep" runs the attention on "dist" (the ag_gemm and
+  gemm_rs rings on a row-sharded residual stream) and the FFN through
+  EP_MoE.fwd_ep (dispatch_a2a, the grouped GEMMs, the all_to_all
+  combine) on the same row shards; "ep_flash" runs the attention on
+  "flash" (head groups split over the mesh, the stream replicated) and
+  the same EP FFN on each rank's row shard of it, the outputs gathered
+  back; any other mode runs the FFN as the dense oracle (fwd_xla). A
+  forward's rows that the mesh does not divide are padded with zero rows
+  that route nowhere and count in no load (layers/ep_moe.py).
 
 With return_moe_stats=True the slot forwards also return the routing-load
 vector [expert_tokens[0..E-1], capacity_dropped] (int32 [E+1], summed
-over layers, on the device) that the engine and the scheduler surface as
-`expert_tokens{expert=e}`, `moe_capacity_drops` and
-`expert_load_imbalance`.
+over layers and, on "ep", over ranks, the JAX psum; on rank 0's device)
+that the engine and the scheduler surface as `expert_tokens{expert=e}`,
+`moe_capacity_drops` and `expert_load_imbalance`.
 
 The window forms route every row of the window, padding included, as
 the JAX forwards do: padding rows take expert capacity and count in the
-routing load (compute load, not emitted tokens).
+routing load (compute load, not emitted tokens); they run at one rank.
 
-Not ported yet, and raising NotImplementedError: expert parallelism
-(moe_impl="ep", the "ep"/"ep_flash" modes), the multi-chip modes and
+Not ported yet, and raising NotImplementedError: moe_impl="tp" at n > 1
+(TP-MoE over a mesh), the hybrid EP + TP mesh (`moe_axis`), and
 `forward_train`. The JAX Qwen3MoE has no int8-weight form, so neither
 has this one.
 """
@@ -34,12 +47,14 @@ from __future__ import annotations
 
 import dataclasses
 import os
+from typing import Optional
 
 import torch
 
-from triton_dist_tpu_torch.layers import TP_Attn, TP_MoE, precompute_rope
+from triton_dist_tpu_torch.layers import EP_MoE, TP_Attn, TP_MoE, precompute_rope
 from triton_dist_tpu_torch.models.config import ModelConfig
 from triton_dist_tpu_torch.models.dense import DenseLLM
+from triton_dist_tpu_torch.runtime.bootstrap import mesh_of
 from triton_dist_tpu_torch.runtime.device import resolve_device
 
 
@@ -47,17 +62,19 @@ def _not_ported(what: str) -> NotImplementedError:
     return NotImplementedError(f"{what}: not yet ported")
 
 
-def _check_impl(moe_impl: str) -> None:
-    if moe_impl != "tp":
-        raise _not_ported(f"moe_impl={moe_impl!r} (expert parallelism)")
+def _check_impl(moe_impl: str, moe_axis=None) -> None:
+    if moe_impl not in ("tp", "ep"):
+        raise ValueError(f"moe_impl {moe_impl!r}: want 'tp' or 'ep'")
+    if moe_axis is not None:
+        raise _not_ported("moe_axis (the hybrid EP + TP mesh)")
 
 
 @dataclasses.dataclass
 class MoELayer:
     attn: TP_Attn
-    moe: TP_MoE
-    ln_attn: torch.Tensor
-    ln_mlp: torch.Tensor
+    moe: object                  # TP_MoE or EP_MoE
+    ln_attn: object
+    ln_mlp: object
 
 
 @dataclasses.dataclass
@@ -66,12 +83,20 @@ class Qwen3MoE(DenseLLM):
 
     @staticmethod
     def random_init(cfg: ModelConfig, device=None, seed: int = 0, moe_impl: str = "tp",
-                    capacity_factor=2.0) -> "Qwen3MoE":
+                    capacity_factor=2.0, mesh=None, moe_axis=None) -> "Qwen3MoE":
         """Random weights with Qwen3-MoE shapes, drawn layer by layer in the
         model dtype on `device` (default "cuda") from a torch.Generator
         seeded with `seed`; scales as the JAX package's (1/sqrt of the
-        input width, 0.02 for the router, embedding and head)."""
-        _check_impl(moe_impl)
+        input width, 0.02 for the router, embedding and head). moe_impl
+        "ep": the one-rank model of the seed drawn on the mesh's rank 0
+        (or on `device`, a one-rank mesh), then split (`to_mesh`)."""
+        _check_impl(moe_impl, moe_axis)
+        if moe_impl == "ep":
+            dev = mesh.devices[0] if mesh is not None else device
+            one = Qwen3MoE.random_init(cfg, dev, seed, capacity_factor=capacity_factor)
+            return one.to_mesh(mesh if mesh is not None else mesh_of(one.device), "ep")
+        if mesh is not None and mesh.size > 1:
+            raise _not_ported("moe_impl='tp' at tensor-parallel size > 1 (TP-MoE)")
         dev = resolve_device(device)
         gen = torch.Generator(device=dev).manual_seed(seed)
         D, I = cfg.hidden_size, cfg.moe_intermediate_size
@@ -106,12 +131,19 @@ class Qwen3MoE(DenseLLM):
 
     @staticmethod
     def from_hf(path: str, device=None, moe_impl: str = "tp",
-                capacity_factor=2.0) -> "Qwen3MoE":
+                capacity_factor=2.0, mesh=None, moe_axis=None) -> "Qwen3MoE":
         """Load a HF Qwen3-MoE safetensors checkpoint from a local
-        directory, stacking the per-expert projections."""
+        directory, stacking the per-expert projections (moe_impl "ep":
+        then split over `mesh`, as random_init)."""
         from safetensors.torch import load_file
 
-        _check_impl(moe_impl)
+        _check_impl(moe_impl, moe_axis)
+        if moe_impl == "ep":
+            one = Qwen3MoE.from_hf(path, mesh.devices[0] if mesh is not None else device,
+                                   capacity_factor=capacity_factor)
+            return one.to_mesh(mesh if mesh is not None else mesh_of(one.device), "ep")
+        if mesh is not None and mesh.size > 1:
+            raise _not_ported("moe_impl='tp' at tensor-parallel size > 1 (TP-MoE)")
         dev = resolve_device(device)
         cfg = ModelConfig.from_hf_config(path)
         dt = cfg.torch_dtype
@@ -158,6 +190,53 @@ class Qwen3MoE(DenseLLM):
         return Qwen3MoE(embed=embed, layers=layers, final_norm=t("model.norm.weight"),
                         lm_head=lm_head, cos=cos, sin=sin, config=cfg, moe_impl=moe_impl)
 
+    def to_mesh(self, mesh, moe_impl: Optional[str] = None) -> "Qwen3MoE":
+        """This one-rank TP_MoE model over `mesh`: with moe_impl "ep" its
+        experts split over the mesh: each layer's attention split by heads
+        (TP_Attn.to_mesh; a mesh of one rank keeps it whole), norms and
+        the router on every rank, rank r's expert panels experts [r*E/n,
+        (r+1)*E/n) of the model's packed panels, views of the same storage
+        where the device is the same (EP_MoE.from_packed). The embedding,
+        the head and the rope tables stay as they are, on rank 0. moe_impl
+        None is the model's own ("tp": the model itself at one rank; TP-MoE
+        over more is not ported)."""
+        moe_impl = moe_impl or self.moe_impl
+        if moe_impl != "ep":
+            _check_impl(moe_impl)
+            if mesh.size == 1:
+                return self
+            raise _not_ported("moe_impl='tp' at tensor-parallel size > 1 (TP-MoE)")
+        if self.moe_impl != "tp" or self.mesh is not None:
+            raise ValueError("to_mesh takes the one-rank TP_MoE model")
+        split = mesh.size > 1
+        layers = []
+        for ly in self.layers:
+            tp = ly.moe
+            moe = EP_MoE.from_packed(tp.w_router, tp.w_gate_up, tp.w_down, mesh=mesh,
+                                     top_k=tp.top_k, capacity_factor=tp.capacity_factor)
+            layers.append(MoELayer(
+                attn=ly.attn.to_mesh(mesh) if split else ly.attn, moe=moe,
+                ln_attn=mesh.replicate(ly.ln_attn) if split else ly.ln_attn,
+                ln_mlp=mesh.replicate(ly.ln_mlp) if split else ly.ln_mlp))
+        d0 = mesh.devices[0]
+        rope = [(self.cos.to(d), self.sin.to(d)) for d in mesh.devices] if split else None
+        return Qwen3MoE(embed=self.embed.to(d0), layers=layers,
+                        final_norm=self.final_norm.to(d0), lm_head=self.lm_head.to(d0),
+                        cos=self.cos.to(d0), sin=self.sin.to(d0), config=self.config,
+                        mesh=mesh if split else None, rope=rope, moe_impl="ep")
+
+    @property
+    def ep_axis(self) -> str:
+        """The mesh axis the expert panels split over (the port's one
+        axis)."""
+        return "tp"
+
+    @property
+    def ep_size(self) -> int:
+        """Expert-parallel degree: the rows of a serving tick (its slot
+        batch) must divide by it (Engine.make_slot_cache checks)."""
+        return self.layers[0].moe.n if self.moe_impl == "ep" else 1
+
     def quantize_int8(self):
         raise _not_ported("int8 weights of a MoE model (the JAX Qwen3MoE has none)")
 
@@ -167,15 +246,59 @@ class Qwen3MoE(DenseLLM):
         return torch.zeros(self.config.num_experts + 1, dtype=torch.int32,
                            device=self.device)
 
+    def _moe_modes(self, mode: str):
+        """(attention mode, FFN mode) of a model-level mode: "ep" pairs the
+        "dist" attention with the EP dispatch, "ep_flash" the "flash"
+        attention with the same dispatch; an EP model runs every other mode's
+        FFN as the dense oracle ("xla"), a TP_MoE model its own mode."""
+        attn = "dist" if mode == "ep" else "flash" if mode == "ep_flash" else mode
+        if self.moe_impl == "ep":
+            return attn, "ep" if mode in ("ep", "ep_flash") else "xla"
+        return attn, mode
+
+    def _attn_mode(self, mode: str) -> str:
+        return self._moe_modes(mode)[0]
+
+    @staticmethod
+    def _add_load(load, st):
+        """The routing-load accumulator plus one call's stats."""
+        return load + torch.cat([st["expert_tokens"].to(load.device),
+                                 st["dropped"].reshape(1).to(load.device)])
+
     def _ffn(self, layer, h, mode: str, load):
-        """The routed FFN on the normed rows h ("flash": TP_MoE.fwd_local,
-        "xla": the dense oracle; the EP and multi-chip modes raise in
-        TP_MoE). Adds the call's routing load to `load` when the caller
-        asked for stats (load is None otherwise)."""
+        """The routed FFN on the normed rows h at one rank (TP_MoE: "flash"
+        fwd_local, "xla" the dense oracle; EP_MoE over its one-rank mesh:
+        the `_moe_modes` FFN mode). Adds the call's routing load to `load`
+        when the caller asked for stats (load is None otherwise)."""
+        ffn_mode = self._moe_modes(mode)[1]
         if load is None:
-            return layer.moe(h, mode).to(h.dtype), None
-        y, st = layer.moe(h, mode, return_stats=True)
-        return y.to(h.dtype), load + torch.cat([st["expert_tokens"], st["dropped"].reshape(1)])
+            return layer.moe(h, ffn_mode).to(h.dtype), None
+        y, st = layer.moe(h, ffn_mode, return_stats=True)
+        return y.to(h.dtype), self._add_load(load, st)
+
+    def _ffn_ranks(self, layer, hs, mode: str, load, rows: int):
+        """The EP FFN at n > 1 ranks: on the row shards of a "dist" stack
+        directly; on a replicated stack ("ep_flash", "flash", "xla") rank
+        r takes its row shard of its own copy (rows padded to a multiple of
+        n), and the output shards are gathered to rank 0 and copied back to
+        every rank (the plain all-gather, as those modes' psum is the plain
+        one)."""
+        attn_mode, ffn_mode = self._moe_modes(mode)
+        moe, n = layer.moe, self.mesh.size
+        if attn_mode == "dist":
+            shards = hs
+        else:
+            m = -(-rows // n)
+            shards = [torch.nn.functional.pad(h, (0, 0, 0, n * m - rows))[r * m:(r + 1) * m]
+                      for r, h in enumerate(hs)]
+        out = moe(shards, ffn_mode, rows=rows, return_stats=load is not None)
+        ys, st = out if load is not None else (out, None)
+        if st is not None:
+            load = self._add_load(load, st)
+        if attn_mode != "dist":
+            dev0 = self.mesh.devices[0]
+            ys = self.mesh.replicate(torch.cat([y.to(dev0) for y in ys])[:rows])
+        return [y.to(h.dtype) for y, h in zip(ys, hs)], load
 
     def forward_tokens_slots(self, ids, cache, pos, mode: str = "flash",
                              return_moe_stats: bool = False):

@@ -22,9 +22,9 @@ from typing import Dict, Tuple
 import torch
 
 # the signal pad's layout, shared with csrc/shmem.cuh: slots [0, 8) the
-# barrier (one flag per source rank), then two regions of 8 x 256 data
+# barrier (one flag per source rank), then three regions of 8 x 256 data
 # flags (source rank or ring step x CTA)
-SIGNAL_SLOTS = 64 + 2 * 8 * 256
+SIGNAL_SLOTS = 64 + 3 * 8 * 256
 
 
 @dataclasses.dataclass(eq=False)

@@ -1,7 +1,7 @@
 """What the card checks share (chip_smoke.py, tools/tp_check.py,
 tools/fault_margin.py): the failing check, the launch-count rule, the
-serving traffic, and the margin rule that holds logits and served
-streams to the plain engine.
+serving traffic, a MoE model's capacity switch, and the margin rule that
+holds logits and served streams to the plain engine.
 
 The margin rule: logits within `limit` of the plain engine's largest
 logit, and the greedy token equal to the plain argmax wherever the plain
@@ -33,6 +33,13 @@ def only_launched(counts: dict, allowed, label: str) -> None:
     """Every kernel outside `allowed` launched no time (named keys)."""
     others = {n: c for n, c in counts.items() if n not in allowed and c}
     check(not others, f"{label}: kernels launched outside {sorted(allowed)}: {others}")
+
+
+def set_capacity(model, cf) -> None:
+    """Every MoE layer's capacity factor (a float or "dropless"), in place:
+    one model serves the capacity and the dropless arms."""
+    for ly in model.layers:
+        ly.moe.capacity_factor = cf
 
 
 def serving_requests(m, vocab: int, n: int = N_REQ):

@@ -77,6 +77,20 @@ parameters against TRAIN_GRAD_LIMIT (chip_smoke.py's):
     gemm skips a K panel          every GEMM launch of ag_gemm and gemm_rs
                                   reads A's first 32 columns as zero
 
+    python3 -m triton_dist_tpu_torch.tools.fault_margin --ep [--cards]
+
+holds the fused EP-MoE kernel (ep_moe_fused_device, four ranks emulated
+on one card, or four cards) to its plain version at tp_check.py's shapes,
+clean and with each fault planted in the plain version's inputs or
+outputs (as --tp plants the collectives' faults), against
+tp_check.EP_FUSED_LIMIT:
+
+    ep dropped peer slab         rank 0's slab for the last peer never lands
+    ep stale epoch               the previous call's inputs and panels
+    ep slab in the wrong rank's slot  two origins' slabs for one peer swap
+    ep valid bit flipped         rank 0's first slot is taken for empty
+    ep result to the wrong origin  two origins' results from one peer swap
+
     python3 -m triton_dist_tpu_torch.tools.fault_margin --gdn
 
 holds the GDN forward instead: the gdn_fwd kernel (mode "pallas") at
@@ -240,46 +254,79 @@ def run_config(m, tp_attn, model, kv_dtype, label, B=B, S=S, mega=False):
 
 class RouteTape:
     """Pins the MoE expert selection of one forward onto another. Under
-    record(), every routing call (layers.tp_moe.route) runs as usual and
-    its top-k experts are kept in call order; under replay(), each call
-    takes the next recorded selection in place of its own top-k, weighted
-    by its own softmax renormalised over it (what route gives for that
-    selection). Two paths that differ by bf16 noise then route alike, and
-    their gap is that of their kernels, not of near ties at rank k / k+1
-    flipping and moving a token's whole FFN output."""
+    record(), every routing call (layers.tp_moe.route, and the EP layers'
+    layers.ep_moe.route_ranks, whose ranks' selections are kept as one call
+    of the forward's real rows, in row order) runs as usual and its top-k
+    experts are kept in call order; under replay(), each call takes the
+    next recorded selection in place of its own top-k, weighted by its own
+    softmax renormalised over it (what route gives for that selection).
+    Two paths that differ by bf16 noise then route alike, and their gap is
+    that of their kernels, not of near ties at rank k / k+1 flipping and
+    moving a token's whole FFN output. A one-rank path and an EP path may
+    record and replay each other."""
 
     def __init__(self):
         self.calls, self.used = [], 0
 
     @contextlib.contextmanager
-    def _routing(self, fn):
-        from triton_dist_tpu_torch.layers import tp_moe
-        real, tp_moe.route = tp_moe.route, fn
+    def _routing(self, fn, fn_ranks):
+        from triton_dist_tpu_torch.layers import ep_moe, tp_moe
+        real, real_ranks = tp_moe.route, ep_moe.route_ranks
+        tp_moe.route, ep_moe.route_ranks = fn, fn_ranks
         try:
             yield self
         finally:
-            tp_moe.route = real
+            tp_moe.route, ep_moe.route_ranks = real, real_ranks
 
     def record(self):
         from triton_dist_tpu_torch.kernels.ep_a2a import route
+        from triton_dist_tpu_torch.layers.ep_moe import route_ranks
         self.calls, self.used = [], 0
 
         def rec(logits, k, **kw):
             w, idx = route(logits, k, **kw)
             self.calls.append(idx)
             return w, idx
-        return self._routing(rec)
+
+        def rec_ranks(logits, k, rows=None):
+            out = route_ranks(logits, k, rows)
+            dev = out[0][1].device
+            idx = torch.cat([i.to(dev).reshape(-1, k) for _, i in out])
+            self.calls.append(idx if rows is None else idx[:rows])
+            return out
+        return self._routing(rec, rec_ranks)
+
+    def _next(self, rows: int, k: int):
+        idx = self.calls[self.used]
+        self.used += 1
+        if tuple(idx.shape) != (rows, k):
+            raise ValueError(f"replayed selection {tuple(idx.shape)} for a routing "
+                             f"call of {rows} rows, top-{k}")
+        return idx
 
     def replay(self):
-        def rep(logits, k, norm_topk=True):
-            idx = self.calls[self.used]
-            self.used += 1
-            if tuple(idx.shape) != (logits.shape[0], k):
-                raise ValueError(f"replayed selection {tuple(idx.shape)} for a routing "
-                                 f"call of {logits.shape[0]} rows, top-{k}")
+        def pick(logits, idx, norm_topk=True):
             w = torch.softmax(logits.float(), dim=-1).gather(1, idx.long())
             return (w / w.sum(dim=-1, keepdim=True) if norm_topk else w), idx
-        return self._routing(rep)
+
+        def rep(logits, k, norm_topk=True):
+            return pick(logits, self._next(logits.shape[0], k).to(logits.device), norm_topk)
+
+        def rep_ranks(logits, k, rows=None):
+            sizes = [lg.numel() // lg.shape[-1] for lg in logits]
+            idx = self._next(sum(sizes) if rows is None else rows, k)
+            # padding rows (past `rows`) take experts 0..k-1: they route
+            # nowhere (layers/ep_moe.py)
+            pad = torch.arange(k, device=idx.device).expand(sum(sizes) - idx.shape[0], k)
+            idx = torch.cat([idx, pad.to(idx.dtype)])
+            out, r0 = [], 0
+            for lg, m in zip(logits, sizes):
+                lg2 = lg.reshape(m, lg.shape[-1])
+                w, i = pick(lg2, idx[r0:r0 + m].to(lg.device))
+                out.append((w.reshape(lg.shape[:-1] + (k,)), i.reshape(lg.shape[:-1] + (k,))))
+                r0 += m
+            return out
+        return self._routing(rep, rep_ranks)
 
     def done(self) -> bool:
         """Every recorded call was replayed."""
@@ -779,10 +826,90 @@ def run_tp(m, mesh) -> dict:
     return results
 
 
+def ep_fused_faults(mesh, seed: int = 0) -> dict:
+    """ep_moe_fused_device at tp_check's shapes (the serving layer's bf16
+    and int8 panels, the registry's f32): the kernel's clean gap to its
+    plain version, and each planted fault's, as max |d| over max |plain|
+    over the ranks (see the module docstring)."""
+    from triton_dist_tpu_torch.kernels.ep_fused import (ep_moe_fused_device,
+                                                         ep_moe_fused_device_ref)
+    from triton_dist_tpu_torch.tools import tp_check as tc
+    n = mesh.size
+    dev0 = mesh.devices[0]
+    gen = torch.Generator(device=dev0).manual_seed(seed)
+    E_loc = tc.E_MOE // n
+    _, cap_e = tc._ep_caps(mesh, tc.B // n)
+    results = {}
+    for what, El, ce, Dm, Im, dt, wt in (
+            ("serving layer", E_loc, cap_e, tc.D, tc.I_MOE, torch.bfloat16, "bf16"),
+            ("serving layer", E_loc, cap_e, tc.D, tc.I_MOE, torch.bfloat16, "int8"),
+            ("registry", 2, 16, 128, 128, torch.float32, "f32")):
+        def draw():
+            xs = [(torch.randn(n * El * ce, Dm, generator=gen, device=dev0) * 0.3).to(dt)
+                  .to(d) for d in mesh.devices]
+            wgu = [(torch.randn(El, Dm, 2 * Im, generator=gen, device=dev0) * Dm ** -0.5)
+                   .to(dt) for _ in range(n)]
+            wd = [(torch.randn(El, Im, Dm, generator=gen, device=dev0) * Im ** -0.5).to(dt)
+                  for _ in range(n)]
+            if wt == "int8":
+                from triton_dist_tpu_torch.kernels.quant import quantize_int8
+                wgu, wd = [quantize_int8(w) for w in wgu], [quantize_int8(w) for w in wd]
+            return xs, wgu, wd
+
+        prev = draw()
+        xs, wgu, wd = draw()
+        plain = lambda x_, g_=wgu, d_=wd: ep_moe_fused_device_ref(x_, g_, d_, cap_e=ce)  # noqa
+        ref = plain(xs)
+
+        def gap(outs):
+            return max(_rel(o.float().to(dev0), r.float().to(dev0)) for o, r in zip(outs, ref))
+
+        def slabs(x):
+            return x.reshape(n, El * ce, Dm)
+
+        def edit(fn):
+            out = [x.clone() for x in xs]
+            fn(out)
+            return out
+
+        # a dropped peer slab: rank 0's slab for peer n-1 never lands
+        dropped = edit(lambda o: slabs(o[0])[n - 1].zero_())
+        # a slab landed in the wrong rank's slot: peer 1 takes rank 2's
+        # slab where rank 1's belongs (and the reverse)
+        swapped = [x.clone() for x in xs]
+        slabs(swapped[1])[1], slabs(swapped[2])[1] = slabs(xs[2])[1], slabs(xs[1])[1]
+        # a valid bit flipped: rank 0's first slot taken for empty
+        flipped = edit(lambda o: o[0][0].zero_())
+        wrong_origin = [y.clone() for y in ref]
+        wrong_origin[0][1], wrong_origin[1][1] = ref[1][1], ref[0][1]
+        res = {"ep clean": gap(ep_moe_fused_device(xs, wgu, wd, mesh=mesh, cap_e=ce)),
+               "ep dropped peer slab": gap(plain(dropped)),
+               "ep stale epoch": gap(ep_moe_fused_device_ref(prev[0], prev[1], prev[2],
+                                                             cap_e=ce)),
+               "ep slab in the wrong rank's slot": gap(plain(swapped)),
+               "ep valid bit flipped": gap(plain(flipped)),
+               "ep result to the wrong origin": gap(wrong_origin)}
+        torch.cuda.synchronize()
+        key = f"ep_moe_fused {what} E_loc={El} cap_e={ce} {wt}"
+        results[key] = res
+        print(f"ep kernel {key}: " + "; ".join(
+            f"{c} {g:.3g} ({_caught(g, tc.EP_FUSED_LIMIT)})" for c, g in res.items()),
+            flush=True)
+    return results
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("fault_margin: needs an NVIDIA card", file=sys.stderr)
         return 2
+    if "--ep" in sys.argv[1:]:
+        from triton_dist_tpu_torch.runtime import make_mesh
+        from triton_dist_tpu_torch.tools import tp_check as tc
+        mesh = (make_mesh(4) if "--cards" in sys.argv[1:]
+                else make_mesh(4, devices=["cuda:0"] * 4))
+        print(json.dumps({"limit": tc.EP_FUSED_LIMIT, "ep": ep_fused_faults(mesh)}),
+              flush=True)
+        return 0
     if "--tp" in sys.argv[1:]:
         import triton_dist_tpu_torch.models as m
         from triton_dist_tpu_torch.runtime import make_mesh

@@ -59,7 +59,9 @@ def collective_sol_us(op: str, nbytes: int, n: int, *,
                       spec: Optional[ChipSpec] = None) -> float:
     """Least time for `nbytes` of payload (the whole tensor) over n cards
     joined all to all by NVLink, each sending at the one-direction link
-    rate; 0 at n = 1. ops: ag | rs | ar | a2a | p2p."""
+    rate; 0 at n = 1. ops: ag | rs | ar | a2a | p2p. In an all-to-all each
+    card holds 1/n of the whole tensor and sends (n-1)/n of that (the JAX
+    model's (n-1)/n would have each card send the whole tensor's share)."""
     if n <= 1:
         return 0.0
     spec = spec or chip_specs()
@@ -67,7 +69,7 @@ def collective_sol_us(op: str, nbytes: int, n: int, *,
         "ag": (n - 1) / n,
         "rs": (n - 1) / n,
         "ar": 2 * (n - 1) / n,
-        "a2a": (n - 1) / n,
+        "a2a": (n - 1) / n ** 2,
         "p2p": 1.0,
     }[op]
     return factor * nbytes / (spec.link_gbps * 1e9) * 1e6

@@ -14,7 +14,11 @@ runtime/bootstrap.py make_mesh) it adds the collectives' rows at the JAX
 report's shapes in bf16 (`comm_rows`: all_gather of [256, 4096] shards,
 all_reduce and reduce_scatter of [4 x 256, 4096] partials, gemm_allreduce
 [256, 4096/4] @ [4096/4, 4096], the rings ag_gemm(ring) [256/4, 4096] x 4
-@ [4096, 4096/4] and gemm_rs(ring) [256, 4096/4] @ [4096/4, 4096]),
+@ [4096, 4096/4] and gemm_rs(ring) [256, 4096/4] @ [4096/4, 4096]; the
+expert-parallel rows all_to_all and low_latency_all_to_all of [256,
+4096] a rank, ep_dispatch_combine of 1024 rows of 1024 over 8 experts,
+top-2, and ep_fused, the JAX report's EP_MoE(mode="ep_fused") at E=8,
+D=1024, I=512, 1024 rows, top-2, capacity 1.25),
 against perf_model.collective_sol_us over NVLink plus, for the GEMMs,
 one card's share of the product (gemm_sol_us on the per-card dims). The rows of kernels not yet ported are listed under
 `not_ported`. Each row carries its plain version,
@@ -33,6 +37,7 @@ import os
 import subprocess
 from typing import Callable, NamedTuple
 
+import numpy as np
 import torch
 
 from triton_dist_tpu_torch.tools.perf_model import chip_specs, gemm_sol_us, sol_report
@@ -40,7 +45,7 @@ from triton_dist_tpu_torch.tools.perf_model import chip_specs, gemm_sol_us, sol_
 _REPO = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 # the JAX report's rows of kernels not yet ported
-NOT_PORTED = ("ag_group_gemm", "moe_reduce_rs", "moe_reduce_ar", "ep_fused",
+NOT_PORTED = ("ag_group_gemm", "moe_reduce_rs", "moe_reduce_ar",
               "ulysses_qkv_gemm_a2a", "ulysses_o_a2a_gemm", "pp_gpipe_fwd",
               "sp_ring(ring_shmem)", "sp_ring(ring)")
 
@@ -245,7 +250,76 @@ def comm_rows(spec, mesh) -> list:
                     lambda u, w: K.ag_gemm_ref(u, w), (a_rows, b_cols),
                     gemm_sol_us(M, K_, N // n, spec=spec)
                     + collective_sol_us("ag", M * K_ * 2, n, spec=spec)))
+    return rows + ep_rows(spec, mesh, parts)
+
+
+def _cpu_twin(mesh, fn):
+    """fn's plain version: the same call on a mesh of CPU ranks, the
+    inputs copied there and the outputs back."""
+    cpu = _cpu_mesh(mesh.size)
+
+    def plain(*args):
+        out = fn(cpu, *[[t.cpu() for t in a] for a in args])
+        return [o.to(d) for o, d in zip(out, mesh.devices)]
+    return plain
+
+
+def ep_rows(spec, mesh, parts) -> list:
+    """The expert-parallel rows over `mesh` (bf16; comm_rows's `parts`
+    draws each rank's input): the two exchanges against the NVLink time
+    of the whole payload; ep_dispatch_combine (route, dispatch, combine,
+    no expert) against both exchanges' payload; ep_fused against the
+    expert products of its capacity rows on one card's share plus both
+    exchanges (the JAX report's SOL)."""
+    from triton_dist_tpu_torch import kernels as K
+    from triton_dist_tpu_torch.layers import EP_MoE
+    from triton_dist_tpu_torch.tools.perf_model import collective_sol_us
+    n = mesh.size
+    M, N = 256, 4096
+    x = parts(M, N)
+    full = n * M * N * 2
+    rows = [Row("all_to_all", lambda v: K.all_to_all(v, mesh=mesh), K.all_to_all_ref, (x,),
+                collective_sol_us("a2a", full, n, spec=spec)),
+            Row("low_latency_all_to_all", lambda v: K.low_latency_all_to_all(v, mesh=mesh),
+                _cpu_twin(mesh, lambda m, v: K.low_latency_all_to_all(v, mesh=m)), (x,),
+                collective_sol_us("a2a", n * M * (N + 4), n, spec=spec), "int8 wire")]
+    T, D, E = 1024, 1024, 8
+    xt, lg = parts(T // n, D), parts(T // n, E)
+
+    def edc(m, xs, ls):
+        ctx = K.create_ep_a2a_context(m, num_experts=E, capacity=T // n * 2)
+        return K.ep_dispatch_combine(xs, ls, 2, ctx)
+
+    rows.append(Row("ep_dispatch_combine", lambda u, w: edc(mesh, u, w),
+                    _cpu_twin(mesh, edc), (xt, lg),
+                    2 * collective_sol_us("a2a", n * n * (T // n * 2) * D * 2, n, spec=spec),
+                    "no expert_fn"))
+    # ep_fused at the JAX report's shape, weights drawn as it draws them
+    rng = np.random.RandomState(7)
+    Ee, De, Ie, Te = 8, 1024, 512, 1024
+    bf = torch.bfloat16
+    w = [torch.from_numpy(a.astype(np.float32)).to(bf) for a in (
+        rng.randn(De, Ee) * 0.5, rng.randn(Ee, De, Ie) * De ** -0.5,
+        rng.randn(Ee, De, Ie) * De ** -0.5, rng.randn(Ee, Ie, De) * Ie ** -0.5)]
+    xe = torch.from_numpy((rng.randn(Te, De) * 0.3).astype(np.float32)).to(bf)
+    moe = EP_MoE.init(*[t.to(mesh.devices[0]) for t in w], mesh=mesh, top_k=2,
+                      capacity_factor=1.25)
+    moe_cpu = EP_MoE.init(*w, mesh=_cpu_mesh(n), top_k=2, capacity_factor=1.25)
+    cap_rows = Ee * moe._cap_e(Te // n) * n
+    ep_sol = (gemm_sol_us(cap_rows, De, 2 * Ie, spec=spec) + gemm_sol_us(cap_rows, Ie, De,
+                                                                         spec=spec)
+              + 2 * collective_sol_us("a2a", cap_rows * De * 2, n, spec=spec))
+    rows.append(Row("ep_fused", lambda v: moe(v, "ep_fused"),
+                    lambda v: [o.to(d) for o, d in zip(moe_cpu([t.cpu() for t in v],
+                                                               "ep_fused"), mesh.devices)],
+                    (moe._shard(xe.to(mesh.devices[0])),), ep_sol,
+                    "EP_MoE(mode='ep_fused')"))
     return rows
+
+
+def _cpu_mesh(n: int):
+    from triton_dist_tpu_torch.runtime import make_mesh
+    return make_mesh(n, devices=["cpu"] * n)
 
 
 def run_report(write_json=None, rows=None, mesh=None) -> dict:

@@ -57,10 +57,11 @@ import statistics
 import subprocess
 import time
 
+import numpy as np
 import torch
 
 from triton_dist_tpu_torch.tools.checks import (  # noqa: F401 (GATE: fault_margin.py)
-    GATE, check, margin_gate, only_launched, serving_requests, tf_gate)
+    GATE, check, margin_gate, only_launched, serving_requests, set_capacity, tf_gate)
 
 # gemm_allreduce, ag_gemm and gemm_rs against their plain versions: max
 # |d| over max |plain| (tools/fault_margin.py --tp)
@@ -89,6 +90,12 @@ SOURCES = {
                 "triton_dist_tpu/kernels/allgather_gemm.py:341"),
     "gemm_rs": ("triton_dist_tpu_torch/kernels/csrc/gemm_rs.cu",
                 "triton_dist_tpu/kernels/gemm_reduce_scatter.py:315"),
+    "all_to_all": ("triton_dist_tpu_torch/kernels/csrc/a2a.cu",
+                   "triton_dist_tpu/kernels/all_to_all.py:67"),
+    "dispatch_a2a": ("triton_dist_tpu_torch/kernels/csrc/a2a.cu",
+                     "triton_dist_tpu/kernels/ep_a2a.py:396"),
+    "ep_moe_fused": ("triton_dist_tpu_torch/kernels/csrc/ep_fused.cu",
+                     "triton_dist_tpu/kernels/ep_fused.py:491"),
 }
 # the comm kernels each backend runs (the one-rank GEMM kernel, "gemm",
 # runs on none of them at n > 1)
@@ -142,6 +149,53 @@ def bound_ms(mesh, op: str, nbytes_io: float, payload: int, flops: float = 0.0,
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def measure(rows, mesh, name, case, fresh, kernel, plain, library, nbytes_io, payload, op,
+            tol_rel, flops=0.0, flops_per_s=BF16_FLOPS_PER_S, replicated=True, bound=None):
+    """One kernel row, appended to `rows`: fresh() -> inputs; kernel(inputs)
+    and plain(inputs) -> per-rank lists, held over CALLS calls on fresh
+    inputs. tol_rel None: bitwise, and, where the result is replicated,
+    every rank's copy equal to rank 0's; else max |d| over max |plain| per
+    rank within tol_rel. Then the kernel, its plain version and the
+    library call (None: no PyTorch call computes the function) timed on
+    one more fresh input, beside the bound."""
+    n = mesh.size
+    worst = 0.0
+    for _ in range(CALLS):
+        args = fresh()
+        out, ref = kernel(*args), plain(*args)
+        sync(mesh)
+        for r in range(n):
+            o, p = out[r].to(mesh.devices[0]), ref[r].to(mesh.devices[0])
+            if tol_rel is None:
+                check(torch.equal(o, p), f"{name} [{case}] rank {r}: not bitwise equal "
+                      f"to the plain version (max |d| {(o.float() - p.float()).abs().max()})")
+                check(not replicated or torch.equal(o, out[0].to(mesh.devices[0])),
+                      f"{name} [{case}]: rank {r}'s copy differs from rank 0's")
+            else:
+                err = ((o.float() - p.float()).abs().max()
+                       / p.float().abs().max().clamp_min(1e-30)).item()
+                worst = max(worst, err)
+                check(err <= tol_rel, f"{name} [{case}] rank {r}: {err:.3g} of max > "
+                      f"{tol_rel}")
+    args = fresh()
+    b_ms, b_by = bound or bound_ms(mesh, op, nbytes_io, payload, flops, flops_per_s)
+    src, rep = SOURCES[name]
+    r = dict(name=name, case=case + (" (4 ranks emulated on one card)" if emulated(mesh)
+                                     else f" ({n} cards)"),
+             route="cuda", source=src, replaces=rep, launches=None, max_abs_err=worst,
+             tol=tol_rel if tol_rel is not None else 0.0,
+             ms=cuda_ms(lambda: kernel(*args), mesh),
+             plain_ms=cuda_ms(lambda: plain(*args), mesh, reps=5),
+             bound_ms=b_ms, bound_by=b_by,
+             library_ms=None if library is None else cuda_ms(lambda: library(*args), mesh))
+    rows.append(r)
+    gap = "bitwise" if tol_rel is None else f"{worst:.3g} of max"
+    print(f"kernel {name} [{r['case']}]: {gap} over {CALLS} calls, ms {r['ms']:.4f} "
+          f"plain_ms {r['plain_ms']:.4f} library_ms "
+          f"{r['library_ms'] if library is None else round(r['library_ms'], 4)} bound_ms "
+          f"{b_ms:.4f} ({b_by})", flush=True)
+
+
 def kernel_rows(mesh, seed: int = 0) -> list:
     """The kernel rows (launches left None for the caller), each held to
     its plain version over CALLS calls on fresh inputs."""
@@ -157,46 +211,8 @@ def kernel_rows(mesh, seed: int = 0) -> list:
     def parts(shape, dtype, scale=1.0):
         return [randn(*shape, dtype=dtype, scale=scale).to(d) for d in mesh.devices]
 
-    def row(name, case, fresh, kernel, plain, library, nbytes_io, payload, op, tol_rel,
-            flops=0.0, flops_per_s=BF16_FLOPS_PER_S):
-        """fresh() -> inputs; kernel(inputs) and plain(inputs) -> per-rank
-        lists. tol_rel None: bitwise, and every rank's copy equal where
-        the result is replicated (all but reduce_scatter)."""
-        worst = 0.0
-        for _ in range(CALLS):
-            args = fresh()
-            out, ref = kernel(*args), plain(*args)
-            sync(mesh)
-            for r in range(n):
-                o, p = out[r].to(mesh.devices[0]), ref[r].to(mesh.devices[0])
-                if tol_rel is None:
-                    check(torch.equal(o, p), f"{name} [{case}] rank {r}: not bitwise equal "
-                          f"to the plain version (max |d| {(o.float() - p.float()).abs().max()})")
-                    check(name == "reduce_scatter" or torch.equal(o, out[0].to(mesh.devices[0])),
-                          f"{name} [{case}]: rank {r}'s copy differs from rank 0's")
-                else:
-                    err = ((o.float() - p.float()).abs().max()
-                           / p.float().abs().max().clamp_min(1e-30)).item()
-                    worst = max(worst, err)
-                    check(err <= tol_rel, f"{name} [{case}] rank {r}: {err:.3g} of max > "
-                          f"{tol_rel}")
-        args = fresh()
-        b_ms, b_by = bound_ms(mesh, op, nbytes_io, payload, flops, flops_per_s)
-        src, rep = SOURCES[name]
-        r = dict(name=name, case=case + (" (4 ranks emulated on one card)" if emulated(mesh)
-                                         else f" ({n} cards)"),
-                 route="cuda", source=src, replaces=rep, launches=None, max_abs_err=worst,
-                 tol=tol_rel if tol_rel is not None else 0.0,
-                 ms=cuda_ms(lambda: kernel(*args), mesh),
-                 plain_ms=cuda_ms(lambda: plain(*args), mesh, reps=5),
-                 bound_ms=b_ms, bound_by=b_by,
-                 library_ms=None if library is None else cuda_ms(lambda: library(*args), mesh))
-        rows.append(r)
-        gap = "bitwise" if tol_rel is None else f"{worst:.3g} of max"
-        print(f"kernel {name} [{r['case']}]: {gap} over {CALLS} calls, ms {r['ms']:.4f} "
-              f"plain_ms {r['plain_ms']:.4f} library_ms "
-              f"{r['library_ms'] if library is None else round(r['library_ms'], 4)} bound_ms "
-              f"{b_ms:.4f} ({b_by})", flush=True)
+    def row(*args, **kw):
+        measure(rows, mesh, *args, **kw)
 
     one = emulated(mesh)
     if not one:
@@ -239,7 +255,7 @@ def kernel_rows(mesh, seed: int = 0) -> list:
             lambda M=M, cols=cols, dt=dt: parts((M, cols), dt),
             lambda *xs, m=method: K.reduce_scatter(list(xs), mesh=mesh, method=m),
             lambda *xs, m=method: K.reduce_scatter_ref(list(xs), method=m), None,
-            (n * M + M) * cols * es, M * cols * es, "rs", None)
+            (n * M + M) * cols * es, M * cols * es, "rs", None, replicated=False)
     # gemm_allreduce: the O projection [M, Hq*hd/n] @ [Hq*hd/n, D] and the
     # down projection [M, I/n] @ [I/n, D], M = 128 (engine) and 64 (serving),
     # bf16 and int8 panels; the registry's f32 [8, 128/n] @ [128/n, 128]
@@ -501,6 +517,486 @@ def run(mesh, *, card: str, n_layers=None, n_req: int = N_REQ) -> dict:
     return dict(rows=rows, counts=counts)
 
 
+# ----------------------------------------------------------------------
+# expert parallelism: Qwen3-30B-A3B over the mesh (Engine "ep"/"ep_flash")
+# ----------------------------------------------------------------------
+
+# ep_moe_fused against its plain version: max |d| over max |plain|
+# (tools/fault_margin.py --ep); the EP engines against the one-rank plain
+# engine, dropless with the routing pinned: logits (MOE_LIMIT) and served
+# tokens (MOE_SERVE_LIMIT), chip_smoke.py's MoE limits
+EP_FUSED_LIMIT = 2e-2
+MOE_LIMIT, MOE_SERVE_LIMIT = 3e-2, 2e-2
+E_MOE, TOPK, I_MOE = 128, 8, 768
+EP_TF_B, EP_TF_S = 4, 64                       # the dropless teacher-forced arm
+# the dropless serving arm: one wave of requests on as many slots, each
+# asking for at most EP_DL_GEN tokens (one tick), every stream
+# teacher-forced (at 48 layers an EP step of four slots is host-bound at
+# about 0.65 s: the one-rank MoE arm's 8 requests on 4 slots and 32-64
+# tokens would take 80 s a backend)
+EP_DL_REQS, EP_DL_SLOTS, EP_DL_GEN = 4, 4, 16
+# the capacity-2.0 serving arms: the traffic's first n_req requests, each
+# asking for at most EP_SERVE_GEN tokens (two ticks of SERVE_CHUNK; the
+# traffic asks for 32-64)
+EP_SERVE_GEN = 32
+
+
+def _ep_caps(mesh, t_loc: int, cf=2.0, payload_int8=False):
+    """EP_MoE._caps / _cap_e of Qwen3-30B-A3B's layer over `mesh`."""
+    from triton_dist_tpu_torch.layers import EP_MoE
+    lay = EP_MoE(w_router=[torch.empty((D, E_MOE), device="meta")], w_gate_up=[],
+                 w_down=[], mesh=mesh, top_k=TOPK, capacity_factor=cf,
+                 payload_int8=payload_int8)
+    return lay._caps(t_loc), lay._cap_e(t_loc)
+
+
+def ep_kernel_rows(mesh, seed: int = 0) -> list:
+    """Rows 18-20 at the EP path's shapes (launches left None): the
+    combine all_to_all and the dispatch_a2a (payload and metadata) at the
+    decode step's capacities (B=128 rows, capacity 2.0) and the prefill's
+    (B*S rows), in bf16 and on the int8 wire (pack_rows_int8 rows), and at
+    the registry's f32 shapes (low_latency_all_to_all's packed rows too),
+    all bitwise to their plain versions; ep_moe_fused_device at the
+    serving layer's shape (the decode step's 32 rows a rank, capacity
+    2.0), bf16 and int8 panels, and the registry's f32 shape, within
+    EP_FUSED_LIMIT."""
+    from triton_dist_tpu_torch import kernels as K
+    from triton_dist_tpu_torch.kernels import ep_a2a
+    from triton_dist_tpu_torch.kernels.ep_fused import (ep_moe_fused_device,
+                                                         ep_moe_fused_device_ref)
+    n = mesh.size
+    one = emulated(mesh)
+    dev0 = mesh.devices[0]
+    gen = torch.Generator(device=dev0).manual_seed(seed)
+    rows = []
+
+    def randn(*shape, dtype=torch.bfloat16, scale=1.0):
+        t = torch.randn(shape, generator=gen, device=dev0, dtype=torch.float32)
+        return (t * scale).to(dtype)
+
+    def parts(shape, dtype, scale=1.0):
+        return [randn(*shape, dtype=dtype, scale=scale).to(d) for d in mesh.devices]
+
+    def int8_parts(shape):
+        return [torch.randint(-127, 128, shape, generator=gen, device=dev0,
+                              dtype=torch.int8).to(d) for d in mesh.devices]
+
+    def meta_parts(R):
+        return [torch.stack([torch.randint(0, E_MOE // n, (R,), generator=gen, device=dev0),
+                             torch.randint(0, 2, (R,), generator=gen, device=dev0)], 1)
+                .to(torch.int32).to(d) for d in mesh.devices]
+
+    def cat_lib(xs):
+        """One torch.cat of every rank's chunks in destination order: the
+        whole exchange into one buffer (ranks emulated on one card)."""
+        C = xs[0].shape[0] // n
+        return torch.cat([xs[p][d * C:(d + 1) * C] for d in range(n) for p in range(n)])
+
+    def as_bytes(pairs):
+        return [torch.cat([x.reshape(-1).view(torch.uint8), m.reshape(-1).view(torch.uint8)])
+                for x, m in zip(*pairs)]
+
+    cases = []
+    for label, M in (("decode", B), ("prefill", B * S)):
+        (pair, _), _ = _ep_caps(mesh, M // n)
+        (pair8, _), _ = _ep_caps(mesh, M // n, payload_int8=True)
+        cases += [(f"{label} [{n}x{pair}, {D}] bf16", n * pair, (D,), torch.bfloat16),
+                  (f"{label} int8 wire [{n}x{pair8}, {D}+4]", n * pair8, (D + 4,), torch.int8)]
+    cases.append((f"registry [{n}x8, 128] f32", n * 8, (128,), torch.float32))
+    for case, R, cols, dt in cases:
+        es = torch.finfo(dt).bits // 8 if dt.is_floating_point else 1
+        fresh = ((lambda R=R, cols=cols: (int8_parts((R,) + cols),)) if dt == torch.int8 else
+                 (lambda R=R, cols=cols, dt=dt: (parts((R,) + cols, dt),)))
+        nb = R * cols[0] * es
+        measure(rows, mesh, "all_to_all", case, fresh,
+                lambda xs: K.all_to_all(xs, mesh=mesh), lambda xs: K.all_to_all_ref(xs),
+                (lambda xs: cat_lib(xs)) if one else None, 2 * n * nb, n * nb, "a2a", None,
+                replicated=False)
+        measure(rows, mesh, "dispatch_a2a", case + f" + [{R}, 2] int32 metadata",
+                lambda fresh=fresh, R=R: (fresh()[0], meta_parts(R)),
+                lambda xs, ms: as_bytes(ep_a2a.dispatch_a2a(xs, ms, mesh=mesh)),
+                lambda xs, ms: as_bytes((K.all_to_all_ref(xs), K.all_to_all_ref(ms))),
+                (lambda xs, ms: (cat_lib(xs), cat_lib(ms))) if one else None,
+                2 * n * (nb + R * 8), n * (nb + R * 8), "a2a", None, replicated=False)
+    # low_latency_all_to_all at the registry's shape: pack, exchange, unpack
+    measure(rows, mesh, "all_to_all", f"low_latency_all_to_all registry [{n}, 8, 128] f32",
+            lambda: (parts((n, 8, 128), torch.float32, 0.1),),
+            lambda xs: K.low_latency_all_to_all(xs, mesh=mesh),
+            lambda xs: [ep_a2a.unpack_rows_int8(p, 128, torch.float32).reshape(n, 8, 128)
+                        for p in K.all_to_all_ref([ep_a2a.pack_rows_int8(x.reshape(-1, 128))
+                                                   for x in xs])],
+            None, 2 * n * n * 8 * 132, n * n * 8 * 132, "a2a", None, replicated=False)
+
+    # row 20 at the serving layer's shape and the registry's f32 shape
+    E_loc = E_MOE // n
+    _, cap_e = _ep_caps(mesh, B // n)
+    fused = [("serving layer", E_loc, cap_e, D, I_MOE, torch.bfloat16, "bf16"),
+             ("serving layer", E_loc, cap_e, D, I_MOE, torch.bfloat16, "int8"),
+             ("registry", 2, 16, 128, 128, torch.float32, "f32")]
+    for what, El, ce, Dm, Im, dt, wt in fused:
+        rows_x = n * El * ce
+        es = torch.finfo(dt).bits // 8
+
+        def fresh(El=El, ce=ce, Dm=Dm, Im=Im, dt=dt, wt=wt):
+            xs = parts((n * El * ce, Dm), dt, 0.3 if dt == torch.bfloat16 else 0.1)
+            wgu = [randn(El, Dm, 2 * Im, dtype=dt, scale=Dm ** -0.5) for _ in range(n)]
+            wd = [randn(El, Im, Dm, dtype=dt, scale=Im ** -0.5) for _ in range(n)]
+            if wt == "int8":
+                wgu, wd = [K.quantize_int8(w) for w in wgu], [K.quantize_int8(w) for w in wd]
+                wgu = [K.QuantW(q=w.q.to(d), s=w.s.to(d)) for w, d in zip(wgu, mesh.devices)]
+                wd = [K.QuantW(q=w.q.to(d), s=w.s.to(d)) for w, d in zip(wd, mesh.devices)]
+            else:
+                wgu = [w.to(d) for w, d in zip(wgu, mesh.devices)]
+                wd = [w.to(d) for w, d in zip(wd, mesh.devices)]
+            return xs, wgu, wd
+
+        wes = 1 if wt == "int8" else es
+        w_bytes = 3 * El * Dm * Im * wes + (El * (2 * Im + Dm) * 4 if wt == "int8" else 0)
+        x_bytes = rows_x * Dm * es
+        flops = 2.0 * rows_x * Dm * 3 * Im                 # one rank's products
+        peak = BF16_FLOPS_PER_S if dt == torch.bfloat16 else F32_FLOPS_PER_S
+        if one:
+            t_b = n * (2 * x_bytes + w_bytes) / HBM_BYTES_PER_S * 1e3
+            t_o = n * flops / peak * 1e3
+        else:
+            from triton_dist_tpu_torch.tools.perf_model import collective_sol_us
+            t_b = max((2 * x_bytes + w_bytes) / HBM_BYTES_PER_S * 1e3,
+                      2 * collective_sol_us("a2a", n * x_bytes, n) / 1e3)
+            t_o = flops / peak * 1e3
+        measure(rows, mesh, "ep_moe_fused",
+                f"{what} E_loc={El} cap_e={ce} D={Dm} I={Im} x[{rows_x}, {Dm}] "
+                f"{str(dt)[6:]}" + (" int8 panels" if wt == "int8" else ""), fresh,
+                lambda xs, wgu, wd, ce=ce: ep_moe_fused_device(xs, wgu, wd, mesh=mesh,
+                                                               cap_e=ce),
+                lambda xs, wgu, wd, ce=ce: ep_moe_fused_device_ref(xs, wgu, wd, cap_e=ce),
+                None, 0, 0, "a2a", EP_FUSED_LIMIT, replicated=False,
+                bound=(t_b, "bytes") if t_b >= t_o else (t_o, "operations"))
+    return rows
+
+
+def ep_allowed(backend: str) -> tuple:
+    """The kernels an EP forward may launch: the attention's ("ep": the
+    "dist" rings; "ep_flash": the flash kernels), the grouped GEMM and the
+    two exchanges."""
+    attn = ("ag_gemm", "gemm_rs") if backend == "ep" else ()
+    return ("flash_decode", "kv_update", "grouped_gemm", "dispatch_a2a",
+            "all_to_all") + attn
+
+
+def ep_engine_check(m, k, mesh, model, ids, backend: str, card: str) -> dict:
+    """Engine(backend) on the EP model at capacity 2.0: prefill B x S and
+    GEN decode steps, timed, with exact launch counts of the EP kernels
+    (one dispatch_a2a, one all_to_all and two grouped_gemm, over the
+    experts of the device's ranks, a layer and forward, per distinct
+    device) and the attention rings' on "ep"; then the idle share of one
+    profiled step."""
+    eng = m.Engine(model, max_seq=S + GEN + 8, backend=backend, device=mesh.devices[0])
+    eng.decode(*eng.prefill(ids[:, :8]), 2)                 # warm-up
+    sync(mesh)
+    k.reset_launch_counts()
+    t0 = time.perf_counter()
+    logits, cache = eng.prefill(ids)
+    sync(mesh)
+    prefill_s = time.perf_counter() - t0
+    c_prefill = k.launch_counts()
+    k.reset_launch_counts()
+    t0 = time.perf_counter()
+    toks = eng.decode(logits, cache, GEN)
+    sync(mesh)
+    decode_s = time.perf_counter() - t0
+    c_decode = k.launch_counts()
+    L, n = model.config.num_layers, mesh.size
+    per_call = len(mesh.device_groups())
+    for label, c, fw in (("prefill", c_prefill, 1), ("decode", c_decode, GEN)):
+        want = {"dispatch_a2a": L * per_call * fw, "all_to_all": L * per_call * fw,
+                "grouped_gemm": 2 * L * per_call * fw}
+        if backend == "ep":
+            want.update(ag_gemm=L * per_call * fw, gemm_rs=L * per_call * fw)
+        for name, w in want.items():
+            check(c[name] == w, f"ep engine {backend} {label}: {name} launched {c[name]} "
+                  f"times, want {w} ({c})")
+        check(c["flash_decode"] > 0, f"ep engine {backend} {label}: no flash_decode ({c})")
+        only_launched(c, ep_allowed(backend), f"ep engine {backend} {label}")
+    check(tuple(toks.shape) == (B, GEN) and bool(torch.isfinite(logits).all()),
+          f"ep engine {backend}: tokens {tuple(toks.shape)}, logits finite "
+          f"{bool(torch.isfinite(logits).all())}")
+    step_ms = decode_s * 1e3 / GEN
+    # one profiled step: key_averages over 27,000 launches is itself seconds
+    idle = idle_share(lambda: eng.decode_step(toks[:, 0], cache), 1, decode_s / GEN,
+                      f"ep {backend} decode")
+    print(f"engine ep={n} {backend} on {card}: prefill {prefill_s * 1e3:.1f} ms (B={B}, "
+          f"S={S}), decode {GEN} steps {decode_s * 1e3:.1f} ms ({step_ms:.2f} ms/step, "
+          f"{B * GEN / decode_s:.1f} tok/s), launches a step "
+          f"{sum(c_decode.values()) // GEN}; prefill {c_prefill} decode {c_decode}", flush=True)
+    return dict(prefill=c_prefill, decode=c_decode, ms_per_step=step_ms, idle=idle,
+                prefill_ms=prefill_s * 1e3)
+
+
+def ep_gate(m, mesh, one, model, ids, backend: str) -> dict:
+    """Dropless, routing pinned (tools/fault_margin.py RouteTape: the EP
+    forward records, the one-rank plain engine replays): prefill EP_TF_B
+    x EP_TF_S and TF_STEPS teacher-forced steps by the margin rule at
+    MOE_LIMIT; then four slot-chunk steps on each, whose routing loads
+    [expert_tokens, drops] must be equal, with no drop."""
+    from triton_dist_tpu_torch.tools.fault_margin import RouteTape
+    dev = mesh.devices[0]
+    ids_tf = ids[:EP_TF_B, :EP_TF_S]
+    max_seq = EP_TF_S + TF_STEPS + 8
+    ref = m.Engine(one, max_seq=max_seq, backend="xla", device=dev)
+    eng = m.Engine(model, max_seq=max_seq, backend=backend, device=dev)
+    tape, errs, forced = RouteTape(), [], 0
+    with tape.record():
+        lf, cf = eng.prefill(ids_tf)
+    with tape.replay():
+        lr, cr = ref.prefill(ids_tf)
+    for t in range(TF_STEPS + 1):
+        check(tape.done(), f"ep {backend} dropless: step {t} replayed {tape.used} of "
+                           f"{len(tape.calls)} routing calls")
+        err, _, n_sure = margin_gate(lf, lr, f"ep {backend} dropless step {t}", MOE_LIMIT)
+        errs.append(round(err / lr.abs().max().item(), 5))
+        forced += n_sure
+        if t < TF_STEPS:
+            tok = torch.argmax(lr, -1)
+            with tape.record():
+                lf = eng.decode_step(tok, cf)
+            with tape.replay():
+                lr = ref.decode_step(tok, cr)
+    check(forced > 0, f"ep {backend} dropless: no token passed the margin rule")
+    pos = torch.full((EP_TF_B,), EP_TF_S + TF_STEPS, dtype=torch.int32, device=dev)
+    act = torch.ones(EP_TF_B, dtype=torch.bool, device=dev)
+    with tape.record():
+        load_f = eng.slot_chunk(lf, cf, pos, act, chunk=4)[4].cpu()
+    with tape.replay():
+        load_r = ref.slot_chunk(lr, cr, pos, act, chunk=4)[4].cpu()
+    L = model.config.num_layers
+    check(torch.equal(load_f, load_r) and int(load_f[-1]) == 0
+          and int(load_f[:-1].sum()) == EP_TF_B * TOPK * L * 4,
+          f"ep {backend} dropless: slot-chunk load {load_f.tolist()} against the plain "
+          f"engine's {load_r.tolist()}")
+    print(f"engine ep {backend} dropless: teacher-forced vs one-rank plain, routing pinned, "
+          f"B={EP_TF_B} S={EP_TF_S} and {TF_STEPS} steps: max|d logits| / max|logit| per "
+          f"step {errs} (limit {MOE_LIMIT}), {forced} greedy tokens checked; a 4-step slot "
+          f"chunk's load equal to the plain engine's ({int(load_f[:-1].sum())} routed "
+          f"entries, {int(load_f[-1])} dropped)", flush=True)
+    del cf, cr
+    return dict(gaps=errs)
+
+
+def ep_served_check(m, mesh, one, model, backend, reqs, out, label) -> tuple:
+    """The served streams of `reqs`, teacher-forced: the EP model's slot
+    forward (mode `backend`, contiguous slots over the mesh) along prompt +
+    served tokens, the one-rank plain engine replaying its expert
+    selection (RouteTape). Each served token must be the EP forward's
+    argmax wherever its top-2 margin exceeds twice MOE_SERVE_LIMIT of its
+    largest logit, and the EP logits stay within MOE_LIMIT of the plain
+    ones. Returns (tokens checked, the largest relative logit gap)."""
+    from triton_dist_tpu_torch.tools.fault_margin import RouteTape
+    dev = mesh.devices[0]
+    n = len(reqs)
+    eng = m.Engine(model, max_seq=SERVE_MAX_SEQ, backend=backend, device=dev)
+    ref = m.Engine(one, max_seq=SERVE_MAX_SEQ, backend="xla", device=dev)
+    cf, cr, tape = eng.make_slot_cache(n), ref.make_slot_cache(n), RouteTape()
+    lf, lr = [], []
+    for b, r in enumerate(reqs):
+        with tape.record():
+            lf.append(eng.prefill_into_slot(cf, b, r.ids)[0])
+        with tape.replay():
+            lr.append(ref.prefill_into_slot(cr, b, r.ids)[0])
+    lf, lr = torch.stack(lf), torch.stack(lr)
+    lens = torch.tensor([r.gen_len for r in reqs], device=dev)
+    gen = max(r.gen_len for r in reqs)
+    toks = torch.zeros((n, gen), dtype=torch.int64, device=dev)
+    for b, r in enumerate(reqs):
+        toks[b, :r.gen_len] = torch.as_tensor(np.asarray(out[r.rid]), device=dev)
+    pos = torch.tensor([len(r.ids) for r in reqs], dtype=torch.int32, device=dev)
+    forced, worst = 0, 0.0
+    for t in range(gen):
+        live = t < lens
+        gap = ((lf - lr).abs().amax(-1) / lr.abs().amax(-1))[live].max().item()
+        check(tape.done() and gap <= MOE_LIMIT,
+              f"{label}: step {t} EP logits max|d| / max|logit| {gap} > {MOE_LIMIT} "
+              "(routing pinned)")
+        worst = max(worst, gap)
+        top2 = lf.topk(2, dim=-1).values
+        sure = ((top2[:, 0] - top2[:, 1]) > 2 * MOE_SERVE_LIMIT * lf.abs().amax(-1)) & live
+        check(bool((torch.argmax(lf, -1) == toks[:, t])[sure].all()),
+              f"{label}: step {t}: a served token differs from the EP forward's argmax where "
+              "the margin exceeds the tolerance")
+        forced += int(sure.sum())
+        if t + 1 < gen:
+            with tape.record():
+                lf, cf = model.forward_tokens_slots(toks[:, t:t + 1], cf, pos, mode=backend)
+            with tape.replay():
+                lr, cr = one.forward_tokens_slots(toks[:, t:t + 1], cr, pos, mode="xla")
+            pos = torch.clamp(pos + 1, max=SERVE_MAX_SEQ - 1)
+    check(forced > 0, f"{label}: no served token passed the margin rule")
+    del cf, cr
+    return forced, worst
+
+
+def ep_serving_check(m, k, mesh, model, reqs, backend: str, card: str, batch: int):
+    """ContinuousScheduler(paged=True) at `batch` slots on the EP engine:
+    the admissions (through the backend itself) and the ticks each launch
+    dispatch_a2a and all_to_all and only the EP path's kernels; every
+    request served in full; the routing load read back: the ticks' routed
+    entries = layers x top-k x slots x steps. Returns (launch counts,
+    streams, the scheduler's stats)."""
+    eng = m.Engine(model, max_seq=SERVE_MAX_SEQ, backend=backend, device=mesh.devices[0])
+    admit, steps = {}, [0]
+    inner, tick = eng.admit_slot_paged, eng.paged_slot_chunk
+
+    def counted_admit(*a, **kw):
+        before = k.launch_counts()
+        out = inner(*a, **kw)
+        for c, v in k.launch_counts().items():
+            admit[c] = admit.get(c, 0) + v - before[c]
+        return out
+
+    def counted_tick(*a, chunk, **kw):
+        steps[0] += chunk
+        return tick(*a, chunk=chunk, **kw)
+
+    eng.admit_slot_paged, eng.paged_slot_chunk = counted_admit, counted_tick
+    sched = m.ContinuousScheduler(eng, batch=batch, chunk=SERVE_CHUNK, paged=True, page=PAGE)
+    k.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = sched.run([m.Request(r.rid, r.ids, r.gen_len) for r in reqs])
+    sync(mesh)
+    wall = time.perf_counter() - t0
+    counts = k.launch_counts()
+    ticks = {c: v - admit.get(c, 0) for c, v in counts.items()}
+    for part, c in (("admissions", admit), ("ticks", ticks)):
+        for name in ("dispatch_a2a", "all_to_all", "grouped_gemm"):
+            check(c.get(name, 0) > 0, f"ep serving {backend} {part}: no {name} ({c})")
+        only_launched(c, ep_allowed(backend) + ("flash_decode_paged",),
+                      f"ep serving {backend} {part}")
+    for r in reqs:
+        check(len(out[r.rid]) == r.gen_len, f"ep serving {backend}: rid {r.rid} served "
+              f"{len(out[r.rid])} of {r.gen_len}")
+    st = sched.stats()
+    E, L = model.config.num_experts, model.config.num_layers
+    routed = sum(st.get(f"expert_tokens{{expert={e}}}", 0) for e in range(E))
+    check(routed == L * TOPK * batch * steps[0],
+          f"ep serving {backend}: {routed} routed entries over {steps[0]} tick steps of "
+          f"{batch} slots, want {L * TOPK * batch * steps[0]}")
+    toks = sum(len(out[r.rid]) for r in reqs)
+    print(f"serving ep={mesh.size} paged {backend} on {card}: {len(reqs)} requests over "
+          f"{batch} slots, {toks} tokens in {wall:.2f} s ({toks / wall:.1f} tok/s); MoE "
+          f"drops {st['moe_capacity_drops']} of {routed} routed entries, imbalance "
+          f"{st['expert_load_imbalance']:.3f}; launches admissions {admit} ticks {ticks}",
+          flush=True)
+    return counts, out, st
+
+
+def ep_layer_check(mesh, model) -> dict:
+    """Layer 0 of the EP model at the serving layer's shape (B=128 rows):
+    EP_MoE(mode="ep_fused") with its bf16 panels and with int8 panels
+    (quantize_int8_experts) against fwd_ep on the same rows, dropless (the
+    same routing and no drop on either path; max |d| over max |fwd_ep|,
+    MOE_LIMIT, 0.1 for the int8 weights' rounding), then each timed at
+    capacity 2.0 beside the fwd_ep chain."""
+    from triton_dist_tpu_torch import kernels as K
+    lay = model.layers[0].moe
+    dev = mesh.devices[0]
+    gen = torch.Generator(device=dev).manual_seed(3)
+    x = (torch.randn((B, D), generator=gen, device=dev) * 0.5).to(model.config.torch_dtype)
+    xs = lay._shard(x)
+    layers = (("bf16", lay), ("int8 panels", lay.quantize_int8_experts()))
+    out = {}
+    cf = lay.capacity_factor
+    for _, l_ in layers:
+        l_.capacity_factor = "dropless"
+    try:
+        ref = lay(xs, "ep")
+        K.reset_launch_counts()
+        for label, l_ in layers:
+            k0 = K.launch_counts()["ep_moe_fused"]
+            got = l_(xs, "ep_fused")
+            sync(mesh)
+            check(K.launch_counts()["ep_moe_fused"] - k0 == len(mesh.device_groups()),
+                  f"ep layer ep_fused {label}: launches")
+            if label == "int8 panels":
+                out["launches"] = K.launch_counts()
+                only_launched(out["launches"], ("ep_moe_fused",), "ep layer ep_fused")
+            err = max(((g.float() - r.float()).abs().max() / r.float().abs().max()).item()
+                      for g, r in zip(got, ref))
+            limit = MOE_LIMIT if label == "bf16" else 0.1
+            check(err <= limit, f"ep layer ep_fused {label} vs fwd_ep: {err} > {limit}")
+            out[f"ep_fused {label}"] = err
+    finally:
+        for _, l_ in layers:
+            l_.capacity_factor = cf
+    out["ep ms"] = cuda_ms(lambda: lay(xs, "ep"), mesh, reps=10)
+    for label, l_ in layers:
+        out[f"ep_fused {label} ms"] = cuda_ms(lambda: l_(xs, "ep_fused"), mesh, reps=10)
+    print(f"ep layer 0, B={B} rows: dropless, ep_fused bf16 {out['ep_fused bf16']:.4g} and "
+          f"int8 panels {out['ep_fused int8 panels']:.4g} of max from fwd_ep; at capacity "
+          f"{cf}: fwd_ep chain {out['ep ms']:.4f} ms, ep_fused bf16 "
+          f"{out['ep_fused bf16 ms']:.4f} ms, int8 panels {out['ep_fused int8 panels ms']:.4f} "
+          "ms", flush=True)
+    return out
+
+
+def run_ep(mesh, *, card: str, one=None, n_layers=None, n_req: int = N_REQ) -> dict:
+    """Every EP check on `mesh`: the kernel rows of rows 18-20; then
+    Qwen3-30B-A3B (`one`, the one-rank model at capacity 2.0, or drawn
+    here from seed 0, bf16) split over the mesh (its expert panels views of
+    the one-rank model's): per backend "ep" and "ep_flash" the engine at
+    B=128, the dropless gate, paged serving of the traffic's first n_req
+    requests (at most EP_SERVE_GEN tokens each) at 64 slots, and the
+    dropless serving arm (EP_DL_REQS
+    requests on EP_DL_SLOTS slots, at most EP_DL_GEN tokens each) whose
+    streams are held to the plain engine; then ep_fused at the serving
+    layer. Returns
+    the kernel rows and the launch counts and metrics of each phase."""
+    import triton_dist_tpu_torch.kernels as k
+    import triton_dist_tpu_torch.models as m
+    t0 = time.perf_counter()
+    rows = ep_kernel_rows(mesh)
+    print(f"[ep {time.perf_counter() - t0:.1f} s] kernel rows done", flush=True)
+    cfg = m.qwen3_30b_a3b()
+    if one is None:
+        if n_layers is not None:
+            import dataclasses
+            cfg = dataclasses.replace(cfg, num_layers=n_layers)
+        one = m.AutoLLM.from_config(cfg, device=mesh.devices[0], seed=0, capacity_factor=2.0)
+    cfg = one.config
+    model = one.to_mesh(mesh, "ep")
+    gen = torch.Generator(device=mesh.devices[0]).manual_seed(0)
+    ids = torch.randint(0, cfg.vocab_size, (B, S), generator=gen, device=mesh.devices[0])
+    reqs = [m.Request(r.rid, r.ids, min(r.gen_len, EP_SERVE_GEN))
+            for r in serving_requests(m, cfg.vocab_size, max(n_req, EP_DL_REQS))]
+    res = {}
+    for backend in m.engine.EP_BACKENDS:
+        res[backend] = ep_engine_check(m, k, mesh, model, ids, backend, card)
+        print(f"[ep {time.perf_counter() - t0:.1f} s] engine {backend} done", flush=True)
+        c, _, st = ep_serving_check(m, k, mesh, model, reqs[:n_req], backend, card, SERVE_B)
+        res[backend]["paged"] = c
+        print(f"[ep {time.perf_counter() - t0:.1f} s] serving {backend} done", flush=True)
+        set_capacity(one, "dropless")
+        set_capacity(model, "dropless")
+        try:
+            res[backend].update(ep_gate(m, mesh, one, model, ids, backend))
+            dl = [m.Request(r.rid, r.ids, min(r.gen_len, EP_DL_GEN)) for r in reqs[:EP_DL_REQS]]
+            _, out, st = ep_serving_check(m, k, mesh, model, dl, backend, card, EP_DL_SLOTS)
+            check(st["moe_capacity_drops"] == 0,
+                  f"ep serving {backend} dropless: {st['moe_capacity_drops']} drops")
+            forced, worst = ep_served_check(m, mesh, one, model, backend, dl, out,
+                                            f"ep serving {backend} dropless")
+            print(f"serving ep {backend} dropless: {forced} served tokens of {len(dl)} "
+                  f"requests checked against the EP forward's argmax (margin rule at "
+                  f"{MOE_SERVE_LIMIT}), its logits within {worst:.5f} of the one-rank plain "
+                  f"engine's (routing pinned, limit {MOE_LIMIT})", flush=True)
+        finally:
+            set_capacity(one, 2.0)
+            set_capacity(model, 2.0)
+        print(f"[ep {time.perf_counter() - t0:.1f} s] dropless {backend} done", flush=True)
+    res["layer"] = ep_layer_check(mesh, model)
+    print(f"[ep {time.perf_counter() - t0:.1f} s] ep_fused layer done", flush=True)
+    del model
+    return dict(rows=rows, counts=res)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--cards", type=int, default=1,
@@ -508,6 +1004,8 @@ def main() -> int:
     ap.add_argument("--layers", type=int, default=None, help="cut the model's depth")
     ap.add_argument("--requests", type=int, default=N_REQ)
     ap.add_argument("--json", default=None, help="write the rows and summary here")
+    ap.add_argument("--ep", action="store_true",
+                    help="the expert-parallel checks alone (run_ep, Qwen3-30B-A3B)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise RuntimeError("tp_check needs an NVIDIA card")
@@ -529,10 +1027,11 @@ def main() -> int:
         mesh = make_mesh(4, devices=["cuda:0"] * 4)
     else:
         raise ValueError("--cards is 1 or 4")
-    res = run(mesh, card=card.replace("\n", "; "), n_layers=args.layers,
-              n_req=args.requests)
+    fn = run_ep if args.ep else run
+    res = fn(mesh, card=card.replace("\n", "; "), n_layers=args.layers, n_req=args.requests)
     summary = {b: {kk: v for kk, v in c.items()
-                   if kk in ("ms_per_step", "idle", "gaps", "prefill_ms")}
+                   if kk in ("ms_per_step", "idle", "gaps", "prefill_ms") or "ms" in kk
+                   or kk.startswith("ep_fused")}
                for b, c in res["counts"].items()}
     if args.json:
         with open(args.json, "w") as f:
