@@ -191,9 +191,11 @@ NVIDIA card: the quickest proof that the port still starts on the GPU.
    launching the backend's comm kernels alone, every served stream of
    the three backends held to the one-rank plain engine.
 12. Expert-parallel phase (tools/tp_check.py `run_ep`), on the MoE
-   phases' model, its experts split over four ranks emulated on the card
-   (Qwen3MoE.to_mesh(mesh, "ep"): the expert panels views of the
-   one-rank model's, 32 experts a rank; full width and 48 layers). Kernel
+   phases' model cut to its first MOE_MESH_LAYERS = 24 of 48 layers (a
+   Qwen3MoE over layers[:24], the same storage; 48 until the
+   tensor-parallel MoE phase came), its experts split over four ranks
+   emulated on the card (Qwen3MoE.to_mesh(mesh, "ep"): the expert panels
+   views of the one-rank model's, 32 experts a rank; full width). Kernel
    rows 18-20: all_to_all (the combine) and dispatch_a2a (payload and
    metadata) at the decode step's and the prefill's capacities, bf16 and
    the int8 wire, and the registry's f32 shapes (low_latency_all_to_all's
@@ -217,7 +219,30 @@ NVIDIA card: the quickest proof that the port still starts on the GPU.
    Then row 20 through EP_MoE(mode="ep_fused") at the serving layer (bf16
    and int8 panels) against fwd_ep, dropless, timed beside the fwd_ep
    chain.
-13. Prints one JSON line of per-kernel results, then, last, the device
+13. Tensor-parallel MoE phase (tools/tp_check.py `run_tp_moe`), on the
+   same 24 layers, each expert's intermediate columns split over four
+   ranks emulated on the card (Qwen3MoE.to_mesh(mesh, "tp"): rank r's
+   [gate_r | up_r] two column blocks of the one-rank [gate | up] panel and
+   its w_down rows, views, 192 columns a rank). Kernel rows 21-23:
+   ag_group_gemm and moe_reduce_rs at the fused form's capacities of the
+   decode step (B=128 rows) and the prefill (B*S), moe_reduce_ar at
+   fused_ar's of the decode step and of tp_check.TP_MOE_AR_ROWS rows, each
+   on the rank panels' views in bf16 and at the registry's f32 shape,
+   within tp_check.TP_MOE_LIMIT of its plain version
+   (tools/fault_margin.py --tp-moe). Engine "dist" (prefill through
+   itself) and "gemm_ar" (prefill on "flash"): B=128 x S=128 and 16 decode
+   steps at capacity 2.0, exactly two grouped_gemm a rank and, on "dist",
+   one ag_gemm, gemm_rs, all_gather and reduce_scatter, on "gemm_ar" one
+   gemm_allreduce, a layer and forward; paged serving on "dist" of the
+   traffic's first 16 requests, at most 32 tokens each, at 64 slots; then
+   dropless, per backend: the gate against the one-rank plain engine with
+   the routing pinned (MOE_LIMIT; a slot chunk's load equal) and a serving
+   wave of 8 requests on 4 slots, 16 tokens each, whose streams are
+   teacher-forced against the plain engine (MOE_SERVE_LIMIT, MOE_LIMIT).
+   Then TP_MoE(mode="fused") and mode="fused_ar" at the serving layer (128
+   rows), each within TP_MOE_LIMIT of the same form on the plain kernels,
+   timed beside the fwd_dist and fwd_local chains.
+14. Prints one JSON line of per-kernel results, then, last, the device
    line {"ok": true, "device": {...}}.
 
 Exits non-zero, printing no result, if there is no CUDA device, if the
@@ -328,6 +353,9 @@ SP_RANKS = 4
 # the tensor-parallel phase's depth: Qwen3-1.7B cut from 28 layers to make
 # room for the expert-parallel phase (its checks do not depend on depth)
 TP_LAYERS = 14
+# the expert-parallel and tensor-parallel MoE phases' depth: Qwen3-30B-A3B
+# cut from 48 layers (the same storage) to make room for the second
+MOE_MESH_LAYERS = 24
 
 
 def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
@@ -2583,7 +2611,8 @@ def tp_phase(k, card):
     torch.cuda.synchronize()
     c_reg = k.launch_counts()
     kernels = ("all_gather", "reduce_scatter", "all_reduce", "gemm_allreduce", "ag_gemm",
-               "gemm_rs", "all_to_all", "dispatch_a2a", "ep_moe_fused")
+               "gemm_rs", "all_to_all", "dispatch_a2a", "ep_moe_fused", "ag_group_gemm",
+               "moe_reduce_rs", "moe_reduce_ar")
     for n in kernels:
         check(c_reg[n] > 0, f"tp registry: {n} did not run ({c_reg})")
     only_launched(c_reg, kernels, "tp registry")
@@ -2594,7 +2623,9 @@ def tp_phase(k, card):
     # tp_check's rows
     limits = {"gemm_ar": tp_check.GEMM_AR_LIMIT, "ag_gemm": tp_check.AG_GEMM_LIMIT,
               "gemm_rs": tp_check.GEMM_RS_LIMIT, "ep_fused": tp_check.EP_FUSED_LIMIT,
-              "ep_dispatch_combine": 1e-5, "low_latency_all_to_all": 1e-6}
+              "ep_dispatch_combine": 1e-5, "low_latency_all_to_all": 1e-6,
+              "ag_group_gemm": tp_check.TP_MOE_LIMIT, "moe_reduce_rs": tp_check.TP_MOE_LIMIT,
+              "moe_reduce_ar": tp_check.TP_MOE_LIMIT}
     for name, spec in comm.items():
         fn, args = spec.build(cpu_mesh)
         tol = limits.get(name, 0.0)
@@ -2623,7 +2654,7 @@ def ep_phase(k, card, model):
     from triton_dist_tpu_torch.runtime import make_mesh, symm_mem
     from triton_dist_tpu_torch.tools import tp_check
     mesh = make_mesh(4, devices=["cuda:0"] * 4)
-    res = tp_check.run_ep(mesh, card=card, one=model)
+    res = tp_check.run_ep(mesh, card=card, one=model, n_layers=MOE_MESH_LAYERS)
     ep = res["counts"]["ep"]
     counts = {"ep engine": {n: ep["prefill"][n] + ep["decode"][n] for n in ep["decode"]},
               "ep layer": res["counts"]["layer"]["launches"]}
@@ -2631,6 +2662,28 @@ def ep_phase(k, card, model):
            "ep_moe_fused": "ep layer"}
     symm_mem.clear_registry()
     return [(r, ("ep", key[r["name"]])) for r in res["rows"]], counts
+
+
+def tp_moe_phase(k, card, model):
+    """The tensor-parallel MoE phase (13. above) on the MoE phases' model.
+    Returns its kernel rows with their launch-count keys and the counts
+    they read."""
+    from triton_dist_tpu_torch.runtime import make_mesh, symm_mem
+    from triton_dist_tpu_torch.tools import tp_check
+    mesh = make_mesh(4, devices=["cuda:0"] * 4)
+    res = tp_check.run_tp_moe(mesh, card=card, one=model, n_layers=MOE_MESH_LAYERS)
+    dist = res["counts"]["dist"]
+    counts = {"dist engine": {n: dist["prefill"][n] + dist["decode"][n] for n in dist["decode"]},
+              "fused layer": res["counts"]["layer"]["launches"]}
+    # rows 21-23 run in the fused layer forms (no engine mode reaches
+    # them, as in the JAX package); grouped_gemm, all_gather and
+    # reduce_scatter in the "dist" engine
+    for n in ("ag_group_gemm", "moe_reduce_rs", "moe_reduce_ar"):
+        check(counts["fused layer"][n] > 0, f"tp-moe phase: {n} did not run")
+    for n in ("grouped_gemm", "all_gather", "reduce_scatter"):
+        check(counts["dist engine"][n] > 0, f"tp-moe phase: {n} did not run in the engine")
+    symm_mem.clear_registry()
+    return [(r, ("tp_moe", "fused layer")) for r in res["rows"]], counts
 
 
 def main() -> int:
@@ -2782,6 +2835,11 @@ def main() -> int:
     ep_rows, counts["ep"] = ep_phase(k, card, model)
     rows += ep_rows
     stamp("expert-parallel phase")
+    gc.collect()
+    torch.cuda.empty_cache()
+    tp_moe_rows, counts["tp_moe"] = tp_moe_phase(k, card, model)
+    rows += tp_moe_rows
+    stamp("tensor-parallel MoE phase")
 
     out = []
     for r, (kvt, phase) in rows:

@@ -245,9 +245,10 @@ def _gate_cases():
         # (moe_axis) waits
         "moe": lambda: AutoLLM.from_config(tiny_qwen3_moe(1), device="cpu", moe_impl="ep",
                                            moe_axis="expert"),
-        # "dist" runs dense models; a MoE model's FFN has no "dist" form yet
-        "mode_dist": lambda: moe().forward_tokens(
-            torch.zeros(1, 1, dtype=torch.long), moe().make_cache(1, 8), mode="dist"),
+        # a MoE model runs "dist" since TP-MoE was ported; its training
+        # forward (on "dist" too) waits
+        "mode_dist": lambda: moe().forward_train(torch.zeros(1, 2, dtype=torch.long),
+                                                 mode="dist"),
         "train_mode_dist": lambda: model().forward_train(torch.zeros(1, 2, dtype=torch.long),
                                                          mode="dist"),
         "train_int8": lambda: model().quantize_int8().requires_grad_(),

@@ -311,8 +311,9 @@ def test_forward_tokens_matches_jax(jax_ep, mode):
 
 
 def _one_rank(jax_ep):
+    # the JAX EP model keeps each expert's [gate | up] whole
     return from_jax_arrays(tiny_qwen3_moe(N), jax_ep["model"]["arrays"], device="cpu",
-                           capacity_factor="dropless", jax_tp=N)
+                           capacity_factor="dropless", jax_tp=N, jax_moe_impl="ep")
 
 
 def _requests(n_req=6, gen=None):
@@ -419,8 +420,9 @@ def test_ep_unported_forms_raise(case):
         "slice_axis": lambda: EP_MoE.init(torch.zeros(8, 8), torch.zeros(8, 8, 4),
                                           torch.zeros(8, 8, 4), torch.zeros(8, 4, 8),
                                           mesh=mesh, top_k=2, slice_axis="dcn"),
+        # TP-MoE runs over a mesh; its training form waits
         "tp_impl_mesh": lambda: Qwen3MoE.random_init(tiny_qwen3_moe(4), device="cpu",
-                                                     mesh=mesh),
+                                                     mesh=mesh).layers[0].moe(x, "train"),
         "moe_axis": lambda: Qwen3MoE.random_init(tiny_qwen3_moe(4), device="cpu", mesh=mesh,
                                                  moe_impl="ep", moe_axis="expert"),
         "fused_block_i": lambda: lay(x, "ep_fused", fused_block_i=128),

@@ -421,7 +421,9 @@ def test_moe_not_ported_paths_raise(case):
     """What a MoE model does not run yet raises NotImplementedError("... not
     yet ported"); the expert-parallel backends, ported, refuse a TP_MoE
     model as the JAX engine does (ValueError naming moe_impl), and an EP
-    model's two-tier mode is what stays unported of moe_impl="ep"."""
+    model's two-tier mode is what stays unported of moe_impl="ep". The
+    layer's "dist" mode runs since TP-MoE was ported: case mode_dist is now
+    its training mode, which waits."""
     m = _moe_model()
     calls = {
         "ep_backend": lambda: Engine(m, backend="ep", device="cpu"),
@@ -430,7 +432,7 @@ def test_moe_not_ported_paths_raise(case):
                                                    moe_impl="ep").layers[0].moe(
             torch.zeros(1, 64), "ep_2d"),
         "forward_train": lambda: m.forward_train(None),
-        "mode_dist": lambda: m.layers[0].moe(torch.zeros(1, 64), "dist"),
+        "mode_dist": lambda: m.layers[0].moe(torch.zeros(1, 64), "train"),
         "quantize_int8": m.quantize_int8,
     }
     if case in ("ep_backend", "ep_flash_backend"):

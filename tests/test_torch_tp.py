@@ -309,12 +309,15 @@ def test_unported_forms_raise_at_tp4():
                 sched.run(_requests(Request))
     with pytest.raises(NotImplementedError):
         m4.forward_train(torch.from_numpy(IDS).long())
+    # a TP-MoE model splits over the mesh and serves the comm backends; its
+    # training and an expert-parallel model on those backends wait
+    moe4 = AutoLLM.from_config(tiny_qwen3_moe(N), device="cpu").to_mesh(_mesh())
     with pytest.raises(NotImplementedError):
-        AutoLLM.from_config(tiny_qwen3_moe(N), device="cpu").to_mesh(_mesh())
-    moe = AutoLLM.from_config(tiny_qwen3_moe(N), device="cpu")
+        moe4.forward_train(torch.from_numpy(IDS).long())
+    ep = AutoLLM.from_config(tiny_qwen3_moe(N), device="cpu", mesh=_mesh(), moe_impl="ep")
     for backend in ("gemm_ar", "dist"):
         with pytest.raises(NotImplementedError):
-            Engine(moe, max_seq=MAX_SEQ, backend=backend, device="cpu")
+            Engine(ep, max_seq=MAX_SEQ, backend=backend, device="cpu")
 
 
 @pytest.mark.slow

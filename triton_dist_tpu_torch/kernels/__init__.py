@@ -1,7 +1,8 @@
 """Kernels of the port: each hand-written CUDA kernel (csrc/) beside its
 plain PyTorch version (the collectives all_gather, reduce_scatter,
 all_reduce, gemm_allreduce and all_to_all over a mesh of ranks among
-them, the EP dispatch and the fused EP-MoE), the differentiable training
+them, the EP dispatch, the fused EP-MoE and the tensor-parallel MoE's
+ag_group_gemm, moe_reduce_rs and moe_reduce_ar), the differentiable training
 ops built on them (flash_attn_train.py, grad.py), plus the int8
 quantizers, `qmm`, the MoE routing and EP planning helpers (ep_a2a.py)
 and the kernel registry (registry.py)."""
@@ -11,6 +12,8 @@ from triton_dist_tpu_torch.kernels._build import (  # noqa: F401
 from triton_dist_tpu_torch.kernels.allgather import (  # noqa: F401
     AllGatherMethod, all_gather, all_gather_ref, get_auto_all_gather_method)
 from triton_dist_tpu_torch.kernels.allgather_gemm import ag_gemm, ag_gemm_ref  # noqa: F401
+from triton_dist_tpu_torch.kernels.ag_group_gemm import (  # noqa: F401
+    ag_group_gemm, ag_group_gemm_ref)
 from triton_dist_tpu_torch.kernels.all_to_all import (  # noqa: F401
     all_to_all, all_to_all_ref, low_latency_all_to_all)
 from triton_dist_tpu_torch.kernels.allreduce import (  # noqa: F401
@@ -32,6 +35,10 @@ from triton_dist_tpu_torch.kernels.gemm_reduce_scatter import gemm_rs, gemm_rs_r
 from triton_dist_tpu_torch.kernels.grad import ag_gemm_grad, gemm_rs_grad  # noqa: F401
 from triton_dist_tpu_torch.kernels.group_gemm import (  # noqa: F401
     grouped_gemm, grouped_gemm_ref)
+from triton_dist_tpu_torch.kernels.moe_reduce_ar import (  # noqa: F401
+    moe_reduce_ar, moe_reduce_ar_ref)
+from triton_dist_tpu_torch.kernels.moe_reduce_rs import (  # noqa: F401
+    moe_reduce_rs, moe_reduce_rs_ref)
 from triton_dist_tpu_torch.kernels.paged_kv import (  # noqa: F401
     PageAllocator, flash_decode_paged, flash_decode_paged_partial,
     flash_decode_paged_partial_ref, flash_decode_paged_ref)

@@ -72,6 +72,52 @@ def ring_gemm_operands(what: str, a, b, mesh):
     return bq, scales
 
 
+def moe_operands(what: str, a, w, mesh, rows_divide: bool):
+    """Check the TP-MoE comm GEMMs' operands, one per rank: A [E, M, K]
+    (contiguous, bf16 or f32; M a multiple of n where rows_divide) and B
+    rank r's [E, K, N_r] panel in A's dtype, a strided view or a pair of
+    column blocks with equal strides (grouped_gemm's forms), the same widths
+    on every rank. Returns (block 0 of each rank, block 1 of each rank or an
+    empty list, the expert strides, the row strides, N, block 0's width)."""
+    from triton_dist_tpu_torch.kernels.group_gemm import column_blocks
+    if any(isinstance(b, QuantW) for wr in w for b in column_blocks(wr)):
+        raise NotImplementedError(f"{what} with int8 QuantW panels: not yet ported")
+    check_parts(a, mesh, f"{what} A", ndim=3)
+    E, M, K = a[0].shape
+    blocks = [column_blocks(wr) for wr in w]
+    if len(blocks) != mesh.size or len({len(b) for b in blocks}) != 1 or len(blocks[0]) > 2:
+        raise ValueError(f"{what}: one panel (or one pair of column blocks) per rank")
+    widths = tuple(b.shape[2] for b in blocks[0])
+    for r, (bs, d) in enumerate(zip(blocks, mesh.devices)):
+        for b in bs:
+            if (b.dim() != 3 or tuple(b.shape[:2]) != (E, K) or b.dtype != a[0].dtype
+                    or b.device != d or b.stride() != bs[0].stride()):
+                raise ValueError(f"{what}: rank {r}'s B {tuple(b.shape)} {b.dtype} on "
+                                 f"{b.device} strides {b.stride()}, want [{E}, {K}, .] "
+                                 f"{a[0].dtype} on {d}, its blocks' strides equal")
+        if tuple(b.shape[2] for b in bs) != widths:
+            raise ValueError(f"{what}: rank {r}'s column widths differ from rank 0's")
+    if rows_divide and M % mesh.size:
+        raise ValueError(f"{what}: {M} rows an expert, not divisible by the axis size "
+                         f"{mesh.size}")
+    N, vec = sum(widths), 16 // a[0].element_size()
+    dt = a[0].dtype
+    if a[0].device.type == "cuda":
+        if (dt not in (torch.bfloat16, torch.float32) or K % vec
+                or any(wd % vec for wd in widths)
+                or (dt == torch.bfloat16 and any(
+                    bs[0].stride(0) % 8 or bs[0].stride(1) % 8 for bs in blocks))
+                or any(bs[0].stride(2) != 1 or any(b.data_ptr() % 16 for b in bs)
+                       for bs in blocks)):
+            raise ValueError(f"{what}: A {dt} [E, M, {K}], B widths {widths}; the kernel "
+                             "takes bf16 or f32 with B in A's dtype, unit column stride, "
+                             f"K and the widths multiples of {vec}, blocks at 16-byte aligned "
+                             "addresses, in bf16 B's row and expert strides multiples of 8")
+    return ([bs[0] for bs in blocks], [bs[1] for bs in blocks] if len(widths) == 2 else [],
+            [bs[0].stride(0) for bs in blocks], [bs[0].stride(1) for bs in blocks], N,
+            widths[0])
+
+
 def ctas(mesh, work: int) -> int:
     """CTAs per rank, the same on every device: enough for `work` units of
     512 vectors (or tiles), at most one CTA per SM for the ranks of the

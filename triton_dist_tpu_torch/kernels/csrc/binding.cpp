@@ -107,10 +107,11 @@ void gdn_fwd(int dtype, int64_t q, int64_t k, int64_t v, int64_t g, int64_t beta
                               DV, C, stream(st)));
 }
 
-void grouped_gemm(int64_t x, int64_t x_es, int64_t w, int64_t out, int E, int C, int D,
-                  int F, int64_t st) {
+void grouped_gemm(int64_t x, int64_t x_es, int64_t w, int64_t w1, int64_t w_es, int64_t w_ld,
+                  int split, int64_t out, int E, int C, int D, int F, int64_t st) {
   C10_CUDA_CHECK(tdt::grouped_gemm(ptr<const void>(x), x_es, ptr<const void>(w),
-                                   ptr<void>(out), E, C, D, F, stream(st)));
+                                   ptr<const void>(w1), w_es, w_ld, split, ptr<void>(out), E, C,
+                                   D, F, stream(st)));
 }
 
 void kv_update(int64_t cache, int64_t src, int pos, int B, int H, int T, int S,
@@ -315,6 +316,58 @@ void ep_moe_fused(int dtype, int w_dtype, const Ptrs& x, const Ptrs& wgu, const 
   C10_CUDA_CHECK(tdt::ep_moe_fused(dtype, w_dtype, f, ctas, stream(st)));
 }
 
+tdt::MoeCommArgs moe_args(const Ptrs& in, const Ptrs& b0, const Ptrs& b1, const Ptrs& b_es,
+                          const Ptrs& b_ld, const Ptrs& out, const Ptrs& out2, const Ptrs& land,
+                          const Ptrs& sig, int first_rank, int n_local, int64_t epoch, int E,
+                          int M, int N, int K, int split) {
+  tdt::MoeCommArgs m{};
+  m.c = comm_args(in, b0, {}, out, out2, land, sig, first_rank, n_local, epoch);
+  TORCH_CHECK((b1.empty() || static_cast<int>(b1.size()) == m.c.n) &&
+                  static_cast<int>(b_es.size()) == m.c.n && static_cast<int>(b_ld.size()) == m.c.n,
+              "moe comm GEMM: one B block and stride pair per rank");
+  for (size_t r = 0; r < b1.size(); ++r) m.b1[r] = ptr<const void>(b1[r]);
+  for (int r = 0; r < m.c.n; ++r) {
+    m.b_es[r] = b_es[r];
+    m.b_ld[r] = b_ld[r];
+  }
+  m.E = E;
+  m.M = M;
+  m.N = N;
+  m.K = K;
+  m.split = split;
+  return m;
+}
+
+void ag_group_gemm(int dtype, const Ptrs& x, const Ptrs& b0, const Ptrs& b1, const Ptrs& b_es,
+                   const Ptrs& b_ld, const Ptrs& gathered, const Ptrs& c, const Ptrs& sig,
+                   int first_rank, int n_local, int64_t epoch, int E, int M, int N, int K,
+                   int split, int64_t cv, int ctas, int64_t st) {
+  C10_CUDA_CHECK(tdt::ag_group_gemm(
+      dtype, moe_args(x, b0, b1, b_es, b_ld, gathered, c, {}, sig, first_rank, n_local, epoch, E,
+                      M, N, K, split),
+      cv, ctas, stream(st)));
+}
+
+void moe_reduce_rs(int dtype, const Ptrs& h, const Ptrs& w, const Ptrs& w_es, const Ptrs& w_ld,
+                   const Ptrs& out, const Ptrs& partial, const Ptrs& land, const Ptrs& sig,
+                   int first_rank, int n_local, int64_t epoch, int E, int M, int N, int K,
+                   int64_t cvec, int ctas, int64_t st) {
+  C10_CUDA_CHECK(tdt::moe_reduce_rs(
+      dtype, moe_args(h, w, {}, w_es, w_ld, out, partial, land, sig, first_rank, n_local, epoch,
+                      E, M, N, K, N),
+      cvec, ctas, stream(st)));
+}
+
+void moe_reduce_ar(int dtype, const Ptrs& h, const Ptrs& w, const Ptrs& w_es, const Ptrs& w_ld,
+                   const Ptrs& out, const Ptrs& land, const Ptrs& sig, int first_rank,
+                   int n_local, int64_t epoch, int E, int M, int N, int K, int ctas,
+                   int64_t st) {
+  C10_CUDA_CHECK(tdt::moe_reduce_ar(
+      dtype, moe_args(h, w, {}, w_es, w_ld, out, {}, land, sig, first_rank, n_local, epoch, E,
+                      M, N, K, N),
+      ctas, stream(st)));
+}
+
 // peer access from device `dev` to `peer` (a mesh of distinct cards);
 // enabling it twice is not an error
 void enable_peer_access(int dev, int peer) {
@@ -355,5 +408,8 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("all_to_all", &all_to_all);
   m.def("dispatch_a2a", &dispatch_a2a);
   m.def("ep_moe_fused", &ep_moe_fused);
+  m.def("ag_group_gemm", &ag_group_gemm);
+  m.def("moe_reduce_rs", &moe_reduce_rs);
+  m.def("moe_reduce_ar", &moe_reduce_ar);
   m.def("enable_peer_access", &enable_peer_access);
 }

@@ -22,7 +22,8 @@
 // inputs (TF32).
 //
 // RowTile<T, BT> picks one of the two for the comm kernels' row-major A
-// (T) and B (BT) and leaves the tile in shared memory as floats; tile_vec
+// (T) and B (BT), with their row strides or packed (compute_ld, compute),
+// and leaves the tile in shared memory as floats; tile_vec
 // (their epilogues' and gemm.cu's) reads one 16-byte vector of it back,
 // scaled per column and rounded to T.
 #pragma once
@@ -225,7 +226,12 @@ template <typename T, typename BT> struct RowTile {
   static constexpr int kSmem = Tile<true, true>::kSmemBytes;
   __device__ static void compute(const T* a, const BT* b, int M, int N, int K, int m0, int n0,
                                  unsigned char* smem) {
-    product_tile<true, true, BT>(a, K, b, N, M, N, K, m0, n0, smem);
+    compute_ld(a, K, b, N, M, N, K, m0, n0, smem);
+  }
+  // the same with row strides (elements) lda of A and ldb of B, multiples of 8
+  __device__ static void compute_ld(const T* a, long long lda, const BT* b, long long ldb, int M,
+                                    int N, int K, int m0, int n0, unsigned char* smem) {
+    product_tile<true, true, BT>(a, lda, b, ldb, M, N, K, m0, n0, smem);
   }
 };
 
@@ -234,8 +240,12 @@ template <typename BT> struct RowTile<float, BT> {
   static constexpr int kSmem = BM * LD * 4;
   __device__ static void compute(const float* a, const BT* b, int M, int N, int K, int m0,
                                  int n0, unsigned char* smem) {
+    compute_ld(a, K, b, N, M, N, K, m0, n0, smem);
+  }
+  __device__ static void compute_ld(const float* a, long long lda, const BT* b, long long ldb,
+                                    int M, int N, int K, int m0, int n0, unsigned char* smem) {
     float acc[4][4];
-    product_tile_f32<BT>(a, K, 1, b, N, 1, M, N, K, m0, n0, acc);
+    product_tile_f32<BT>(a, lda, 1, b, ldb, 1, M, N, K, m0, n0, acc);
     float* Cs = reinterpret_cast<float*>(smem);
     const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
     __syncthreads();  // the previous tile's readers are done with Cs

@@ -106,10 +106,13 @@ cudaError_t swiglu(int dtype, const void* x, void* out, long long M, int I, long
                    cudaStream_t stream);
 
 // csrc/grouped_gemm.cu. x: [E, C, D] bf16, rows contiguous, expert stride
-// x_es (elements); w: [E, D, F] and out: [E, C, F] bf16 contiguous. D a
-// multiple of 32, F of 8.
-cudaError_t grouped_gemm(const void* x, long long x_es, const void* w, void* out, int E,
-                         int C, int D, int F, cudaStream_t stream);
+// x_es (elements); out: [E, C, F] bf16 contiguous; w: expert e's [D, F]
+// panel at w + e * w_es, rows at stride w_ld, its columns [0, split) there
+// and, when w1 is not null, [split, F) from w1 (same strides; split == F
+// otherwise). D a multiple of 32; F, split, w_es and w_ld of 8.
+cudaError_t grouped_gemm(const void* x, long long x_es, const void* w, const void* w1,
+                         long long w_es, long long w_ld, int split, void* out, int E, int C,
+                         int D, int F, cudaStream_t stream);
 
 // One decode layer per launch (csrc/mega_layer.cuh; mega_decode.cu over
 // the contiguous cache, mega_paged_decode.cu over the page pool). All
@@ -237,5 +240,43 @@ struct EpFusedArgs {
 };
 cudaError_t ep_moe_fused(int dtype, int w_dtype, const EpFusedArgs& a, int ctas,
                          cudaStream_t stream);
+
+// The tensor-parallel MoE comm GEMMs (csrc/moe_tile.cuh; ag_group_gemm.cu,
+// moe_reduce_rs.cu, moe_reduce_ar.cu), per expert e C_e = A_e [M, K] @ B_e
+// [K, N] in one dtype (bf16 or f32), A packed [E, M, K]. c.in2[r] is rank r's
+// B: expert e's panel at e * b_es[r], rows at stride b_ld[r] (elements), its
+// columns [0, split) there and [split, N) from b1[r] (ag_group_gemm's two
+// column blocks; split == N and b1 null otherwise).
+// ag_group_gemm: c.in = each rank's chunk [E, M / n, K] (cv: the 16-byte
+// vectors of one expert's chunk); c.out = each rank's symmetric gathered
+// [E, M, K]; c.out2 = each rank's C [E, M, N].
+// moe_reduce_rs: c.in = each rank's A; c.out2 = its partial [n, E, M / n,
+// N] (local); c.land = its symmetric (n - 1)-slot landing buffer; c.out =
+// its rows of the sum [E, M / n, N] (cvec: the vectors of one chunk, E M N
+// / n of them).
+// moe_reduce_ar: c.in = each rank's A; c.land = its symmetric landing
+// buffer [n, E, M, N]; c.out = each rank's sum [E, M, N].
+struct MoeCommArgs {
+  CommArgs c;
+  const void* b1[kMaxRanks];
+  long long b_es[kMaxRanks], b_ld[kMaxRanks];
+  int E, M, N, K, split;
+};
+// the shapes they take: N, split and N - split multiples of the 16-byte
+// vector (8 bf16, 4 f32), and in bf16 K and the B strides multiples of 8
+inline bool moe_shapes_ok(int dtype, const MoeCommArgs& m) {
+  const int v = dtype == kBF16 ? 8 : 4;
+  if (m.N % v || m.split % v || m.split < 1 || m.split > m.N || m.K < 1) return false;
+  if (dtype != kBF16) return true;
+  if (m.K % 8) return false;
+  for (int r = 0; r < m.c.n; ++r)
+    if (m.b_es[r] % 8 || m.b_ld[r] % 8) return false;
+  return true;
+}
+cudaError_t ag_group_gemm(int dtype, const MoeCommArgs& m, long long cv, int ctas,
+                          cudaStream_t stream);
+cudaError_t moe_reduce_rs(int dtype, const MoeCommArgs& m, long long cvec, int ctas,
+                          cudaStream_t stream);
+cudaError_t moe_reduce_ar(int dtype, const MoeCommArgs& m, int ctas, cudaStream_t stream);
 
 }  // namespace tdt

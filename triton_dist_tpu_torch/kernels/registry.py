@@ -5,9 +5,10 @@ Counterpart of triton_dist_tpu/kernels/__init__.py (`KernelSpec`,
 `_b_flash_decode_paged`, `_b_kv_update`, `_b_grouped_gemm`, `_b_swiglu`,
 `_b_gdn`, `_b_flash_attention`, and the collectives' `_b_allgather`,
 `_b_reduce_scatter`, `_b_allreduce`, `_b_ag_gemm`, `_b_gemm_rs`,
-`_b_gemm_ar`, `_b_all_to_all`, `_b_ep_dispatch_combine`, `_b_ep_fused`):
-the eight specs whose `min_devices` is 1, whose build takes a device,
-and the thirteen of the ported collectives (min_devices 2, kind "comm"),
+`_b_gemm_ar`, `_b_all_to_all`, `_b_ep_dispatch_combine`, `_b_ep_fused`,
+`_b_ag_group_gemm`, `_b_moe_reduce`): the eight specs whose `min_devices`
+is 1, whose build takes a device, and the sixteen of the ported
+collectives (min_devices 2, kind "comm"),
 whose build takes a mesh (runtime/bootstrap.py) and returns one input
 per rank.
 Each build function draws its inputs from the same
@@ -243,6 +244,33 @@ def _b_ep_fused(mesh):
             tuple(_split(x, mesh) + _split(wgu, mesh) + _split(wd, mesh)))
 
 
+def _b_ag_group_gemm(mesh):
+    """x_e [2, 8n, 128] sharded on its capacity rows, w [2, 128, 128] on
+    its columns (seed 10, the JAX order); args: the n chunks, then the n
+    column panels."""
+    from triton_dist_tpu_torch.kernels.ag_group_gemm import ag_group_gemm
+    n = mesh.size
+    rng = np.random.RandomState(10)
+    xe, we = _f32(rng, 2, 8 * n, 128), _f32(rng, 2, 128, 128)
+    return ((lambda *a: ag_group_gemm(list(a[:n]), list(a[n:]), mesh=mesh)),
+            tuple(_split(xe, mesh, 1) + _split(we, mesh, 2)))
+
+
+def _b_moe_reduce(which: str):
+    """h [2, 8n, 128] sharded on its columns, w2 [2, 128, 128] on its rows
+    (seed 11, the JAX order); args: the n h shards, then the n w2 shards."""
+    def build(mesh):
+        from triton_dist_tpu_torch.kernels.moe_reduce_ar import moe_reduce_ar
+        from triton_dist_tpu_torch.kernels.moe_reduce_rs import moe_reduce_rs
+        n = mesh.size
+        rng = np.random.RandomState(11)
+        h, w2 = _f32(rng, 2, 8 * n, 128), _f32(rng, 2, 128, 128)
+        op = moe_reduce_ar if which == "ar" else moe_reduce_rs
+        return ((lambda *a: op(list(a[:n]), list(a[n:]), mesh=mesh)),
+                tuple(_split(h, mesh, 2) + _split(w2, mesh, 1)))
+    return build
+
+
 @functools.lru_cache(maxsize=None)
 def kernel_registry() -> dict:
     """The canonical enumeration of the port's kernels: name -> KernelSpec."""
@@ -281,5 +309,11 @@ def kernel_registry() -> dict:
         KernelSpec("ep_dispatch_combine", "kernels.ep_a2a", "comm", _b_ep_dispatch_combine,
                    min_devices=2),
         KernelSpec("ep_fused", "kernels.ep_fused", "comm", _b_ep_fused, min_devices=2),
+        KernelSpec("ag_group_gemm", "kernels.ag_group_gemm", "comm", _b_ag_group_gemm,
+                   min_devices=2),
+        KernelSpec("moe_reduce_rs", "kernels.moe_reduce_rs", "comm", _b_moe_reduce("rs"),
+                   min_devices=2),
+        KernelSpec("moe_reduce_ar", "kernels.moe_reduce_ar", "comm", _b_moe_reduce("ar"),
+                   min_devices=2),
     ]
     return {s.name: s for s in specs}

@@ -13,14 +13,16 @@ where a weight quantized to int8 (QuantW) comes as `{name}.q` and
 model's parameters or their gradients, under the same names. The packed layouts ([q | k | v], [gate | up], per expert
 [gate | up]) are the JAX package's at tensor-parallel size 1, so they
 are copied as they are. A JAX model built over a mesh of n > 1 ranks
-packs w_qkv and w_gate_up as n per-rank blocks (shard_cols_packed): give
-its size as `jax_tp`, and they are unpacked to the one-rank layout first
-(a QuantW's scales with its columns). With `mesh`, the port's model is
-then split over it (DenseLLM.to_mesh), whatever the JAX model's size; a
-MoE config with moe_impl="ep" is split by Qwen3MoE.to_mesh (experts by
-rank, over `mesh` or the device's one-rank mesh). The JAX EP model keeps
-each expert's [gate | up] whole along 2I (its panels split along E), so
-its expert panels need no unpacking.
+packs w_qkv and w_gate_up as n per-rank blocks (shard_cols_packed), and
+its TP-MoE layers each expert's w_gate_up likewise (the JAX
+`_pack_expert_cols`): give its size as `jax_tp`, and they are unpacked to
+the one-rank layout first (a QuantW's scales with its columns). With
+`mesh`, the port's model is then split over it (DenseLLM.to_mesh, or
+Qwen3MoE.to_mesh for a MoE config), whatever the JAX model's size; a MoE
+config with moe_impl="ep" is split by experts over `mesh` or the device's
+one-rank mesh. The JAX EP model keeps each expert's [gate | up] whole
+along 2I (its panels split along E), so its expert panels need no
+unpacking.
 This module sees numpy arrays only, never a jax object.
 """
 
@@ -53,10 +55,13 @@ def to_torch(a: np.ndarray, device=None) -> torch.Tensor:
 
 def from_jax_arrays(cfg: ModelConfig, arrays: dict, device=None,
                     capacity_factor=2.0, *, mesh=None, jax_tp: int = 1,
-                    moe_impl: str = "tp") -> DenseLLM:
+                    moe_impl: str = "tp", jax_moe_impl=None) -> DenseLLM:
     """The port's DenseLLM, or Qwen3MoE for a MoE config (with
     capacity_factor and moe_impl), holding the given parameters on
-    `device` (with a mesh, on its rank 0's device, then split over it)."""
+    `device` (with a mesh, on its rank 0's device, then split over it).
+    jax_moe_impl: the JAX MoE model's own moe_impl, which lays out its
+    expert panels ("tp" packs them per rank at jax_tp > 1, "ep" keeps them
+    whole); by default the port model's."""
     dev = resolve_device(mesh.devices[0] if mesh is not None else device)
 
     def get(name):
@@ -84,9 +89,13 @@ def from_jax_arrays(cfg: ModelConfig, arrays: dict, device=None,
                        head_dim=cfg.head_dim)
         norms = dict(ln_attn=get(p + "ln_attn"), ln_mlp=get(p + "ln_mlp"))
         if cfg.is_moe:
-            moe = TP_MoE(w_router=get(p + "moe.w_router"),
-                         w_gate_up=get(p + "moe.w_gate_up"), w_down=get(p + "moe.w_down"),
-                         top_k=cfg.num_experts_per_tok, capacity_factor=capacity_factor)
+            gu = get(p + "moe.w_gate_up")
+            if jax_tp > 1 and (jax_moe_impl or moe_impl) == "tp":
+                I = cfg.moe_intermediate_size
+                gu = torch.stack([unpack_cols_packed(g, (I, I), jax_tp) for g in gu])
+            moe = TP_MoE(w_router=get(p + "moe.w_router"), w_gate_up=gu,
+                         w_down=get(p + "moe.w_down"), top_k=cfg.num_experts_per_tok,
+                         capacity_factor=capacity_factor)
             layers.append(MoELayer(attn=attn, moe=moe, **norms))
         else:
             I = cfg.intermediate_size

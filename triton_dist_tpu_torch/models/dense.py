@@ -190,12 +190,10 @@ class DenseLLM:
         """This one-rank model split over `mesh` (layers/tp_attn.py and
         tp_mlp.py `to_mesh`; norms, rope tables, embedding and head as
         the module docstring says); rank 0's device holds the embedding
-        and the head. A mesh of one rank returns the model itself."""
+        and the head. A mesh of one rank returns the model itself. A MoE
+        model splits through its own `to_mesh` (models/qwen_moe.py)."""
         if self.mesh is not None:
             raise ValueError("the model is already split over a mesh")
-        if self.config.is_moe:
-            raise NotImplementedError("MoE models at tensor-parallel size > 1: not yet "
-                                      "ported")
         if mesh.size == 1:
             return self
         d0 = mesh.devices[0]

@@ -12,11 +12,12 @@ tensor-parallel mesh (runtime/bootstrap.py; the model's `to_mesh`).
 Backends: "flash" runs the CUDA kernels (flash-decode, the paged
 flash-decode, kv_update, SwiGLU, and for a Qwen3MoE model the grouped
 GEMM of its expert FFNs); "xla" runs their plain PyTorch versions (the
-JAX package's oracle backend); "ar" and "gemm_ar" (dense models, any
-tensor-parallel size) end each layer's O and down projections in the
-all_reduce kernel or the gemm_allreduce kernel, and prefill and admit
-on "xla", as in the JAX engine, so the hand collectives run in the
-decode ticks; "dist" (dense models, any tensor-parallel size) runs the
+JAX package's oracle backend); "ar" and "gemm_ar" (dense and TP-MoE
+models, any tensor-parallel size) end each layer's O and down
+projections in the all_reduce kernel or the gemm_allreduce kernel, and
+prefill and admit on "xla" (or `prefill_backend`), as in the JAX engine,
+so the hand collectives run in the decode ticks; "dist" (dense and
+TP-MoE models, any tensor-parallel size) runs the
 QKV and gate/up projections through the ag_gemm ring and the O and down
 projections through the gemm_rs ring on a row-sharded residual stream,
 and prefills and admits through itself (the JAX engine's
@@ -33,7 +34,11 @@ counter). Over a mesh of n > 1 ranks, "flash" and "xla" end the
 projections in the psum's plain version, the caches are head-sharded
 (models/kv_cache.py), the page table's host side, allocator and radix
 tree stay one, and the logits, tokens and positions live on rank 0's
-device; the window programs and "mega" stay at one rank. The JAX engine
+device; the window programs and "mega" stay at one rank. A Qwen3MoE
+built with moe_impl="tp" serves "ar", "gemm_ar" and "dist" at any size:
+its FFN runs TP_MoE's form of the mode (layers/tp_moe.py), the grouped GEMM
+on each rank's columns; `prefill_backend="flash"` keeps an "ar"/"gemm_ar"
+prefill of many rows off the dense all-experts oracle. The JAX engine
 rounds an EP model's max_seq and prefill buckets up to lcm(8, ep), since
 its EP forwards take row counts the mesh divides; the port runs exact
 row counts, padded with rows that route nowhere (layers/ep_moe.py), so
@@ -101,11 +106,14 @@ def _not_ported(what: str) -> NotImplementedError:
 
 class Engine:
     def __init__(self, model, *, max_seq: int = 256, backend: str = "flash",
-                 kv_dtype=None, sampling: str = "greedy", device=None):
+                 prefill_backend=None, kv_dtype=None, sampling: str = "greedy", device=None):
         """Serve `model` on `device` (default "cuda"; the model must live
         there). kv_dtype=torch.int8 stores the KV cache quantized per
-        position; pair it with model.quantize_int8(). Unsupported
-        combinations raise here, at construction."""
+        position; pair it with model.quantize_int8(). prefill_backend: the
+        mode of prefill and the admissions (the JAX engine's; by default
+        the backend itself for "flash", "dist", "ep" and "ep_flash", "flash"
+        for "mega", "xla" for the rest); "flash", "xla" or the backend.
+        Unsupported combinations raise here, at construction."""
         dev = resolve_device(device)
         if model.device != dev:
             raise ValueError(f"the model lives on {model.device}, the engine "
@@ -119,8 +127,9 @@ class Engine:
                 raise _not_ported("backend='mega' at tensor-parallel size > 1 (the TP "
                                   "megakernel)")
             _check_mega(model, kv_dtype, sampling)
-        if backend in COMM_BACKENDS and model.config.is_moe:
-            raise _not_ported(f"backend={backend!r} for MoE models (TP-MoE comm kernels)")
+        if backend in COMM_BACKENDS and getattr(model, "moe_impl", None) == "ep":
+            raise _not_ported(f"backend={backend!r} for an expert-parallel model (its FFN "
+                              "as the dense oracle beside the comm-kernel attention)")
         if backend in EP_BACKENDS:
             _check_ep(model, backend)
         if sampling != "greedy":
@@ -137,8 +146,11 @@ class Engine:
         # admissions and prefill: mega fuses decode only; "ar"/"gemm_ar"
         # prefill on "xla", "dist", "ep" and "ep_flash" through themselves,
         # as the JAX engine's default prefill_backend
-        self.prefill_backend = ("flash" if backend == "mega" else
-                                "xla" if backend in ("ar", "gemm_ar") else backend)
+        if prefill_backend not in (None, "flash", "xla", backend) or prefill_backend == "mega":
+            raise ValueError(f"prefill_backend {prefill_backend!r}: want None, 'flash', "
+                             f"'xla' or the backend ({backend!r})")
+        self.prefill_backend = prefill_backend or (
+            "flash" if backend == "mega" else "xla" if backend in ("ar", "gemm_ar") else backend)
         # slot programs dispatched through a comm backend
         self.comm_kernel_dispatches = 0
         self._paged_scratch = None      # admit_slot_paged's 1-row cache

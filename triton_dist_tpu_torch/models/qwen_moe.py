@@ -10,9 +10,16 @@ place of the dense MLP. The attention, the cache and the slot layer
 loops are DenseLLM's (models/dense.py): Qwen3MoE overrides its FFN hooks
 and its attention mode. Two FFN forms, chosen at construction
 (`moe_impl`), as in the JAX package:
-- "tp": TP_MoE (layers/tp_moe.py) at one rank: modes "flash" (the
-  grouped-GEMM expert dispatch, TP_MoE.fwd_local) and "xla" (the dense
-  all-experts oracle).
+- "tp": TP_MoE (layers/tp_moe.py), at one rank or over a mesh of n ranks
+  (`to_mesh(mesh, "tp")`, or `random_init(..., mesh=)`): the attention
+  split by heads as DenseLLM.to_mesh splits it, each expert's
+  intermediate columns split by rank (views of the one-rank model's
+  panels), the router on every rank. The FFN runs the model's mode (the
+  JAX `_moe_modes`): "flash", "ar" and "gemm_ar" TP_MoE.fwd_local on the
+  replicated stream (the grouped-GEMM kernel on each rank's columns, the
+  partials summed), "dist" TP_MoE.fwd_dist on the row-sharded stream
+  (all_gather, the grouped GEMMs, reduce_scatter; padding rows cut before
+  the routing), "xla" the dense all-experts oracle.
 - "ep": EP_MoE (layers/ep_moe.py), the experts split over a mesh of n
   ranks (`to_mesh`, or `random_init(..., mesh=)`): the attention split by
   heads as DenseLLM.to_mesh splits it, the expert panels by rank (views
@@ -37,10 +44,9 @@ The window forms route every row of the window, padding included, as
 the JAX forwards do: padding rows take expert capacity and count in the
 routing load (compute load, not emitted tokens); they run at one rank.
 
-Not ported yet, and raising NotImplementedError: moe_impl="tp" at n > 1
-(TP-MoE over a mesh), the hybrid EP + TP mesh (`moe_axis`), and
-`forward_train`. The JAX Qwen3MoE has no int8-weight form, so neither
-has this one.
+Not ported yet, and raising NotImplementedError: the hybrid EP + TP mesh
+(`moe_axis`) and `forward_train`. The JAX Qwen3MoE has no int8-weight
+form, so neither has this one.
 """
 
 from __future__ import annotations
@@ -88,15 +94,14 @@ class Qwen3MoE(DenseLLM):
         model dtype on `device` (default "cuda") from a torch.Generator
         seeded with `seed`; scales as the JAX package's (1/sqrt of the
         input width, 0.02 for the router, embedding and head). moe_impl
-        "ep": the one-rank model of the seed drawn on the mesh's rank 0
-        (or on `device`, a one-rank mesh), then split (`to_mesh`)."""
+        "ep", or a mesh of n > 1 ranks: the one-rank model of the seed drawn
+        on the mesh's rank 0 (or on `device`, a one-rank mesh), then split
+        (`to_mesh`)."""
         _check_impl(moe_impl, moe_axis)
-        if moe_impl == "ep":
+        if moe_impl == "ep" or (mesh is not None and mesh.size > 1):
             dev = mesh.devices[0] if mesh is not None else device
             one = Qwen3MoE.random_init(cfg, dev, seed, capacity_factor=capacity_factor)
-            return one.to_mesh(mesh if mesh is not None else mesh_of(one.device), "ep")
-        if mesh is not None and mesh.size > 1:
-            raise _not_ported("moe_impl='tp' at tensor-parallel size > 1 (TP-MoE)")
+            return one.to_mesh(mesh if mesh is not None else mesh_of(one.device), moe_impl)
         dev = resolve_device(device)
         gen = torch.Generator(device=dev).manual_seed(seed)
         D, I = cfg.hidden_size, cfg.moe_intermediate_size
@@ -138,12 +143,10 @@ class Qwen3MoE(DenseLLM):
         from safetensors.torch import load_file
 
         _check_impl(moe_impl, moe_axis)
-        if moe_impl == "ep":
+        if moe_impl == "ep" or (mesh is not None and mesh.size > 1):
             one = Qwen3MoE.from_hf(path, mesh.devices[0] if mesh is not None else device,
                                    capacity_factor=capacity_factor)
-            return one.to_mesh(mesh if mesh is not None else mesh_of(one.device), "ep")
-        if mesh is not None and mesh.size > 1:
-            raise _not_ported("moe_impl='tp' at tensor-parallel size > 1 (TP-MoE)")
+            return one.to_mesh(mesh if mesh is not None else mesh_of(one.device), moe_impl)
         dev = resolve_device(device)
         cfg = ModelConfig.from_hf_config(path)
         dt = cfg.torch_dtype
@@ -191,29 +194,28 @@ class Qwen3MoE(DenseLLM):
                         lm_head=lm_head, cos=cos, sin=sin, config=cfg, moe_impl=moe_impl)
 
     def to_mesh(self, mesh, moe_impl: Optional[str] = None) -> "Qwen3MoE":
-        """This one-rank TP_MoE model over `mesh`: with moe_impl "ep" its
-        experts split over the mesh: each layer's attention split by heads
-        (TP_Attn.to_mesh; a mesh of one rank keeps it whole), norms and
-        the router on every rank, rank r's expert panels experts [r*E/n,
-        (r+1)*E/n) of the model's packed panels, views of the same storage
-        where the device is the same (EP_MoE.from_packed). The embedding,
-        the head and the rope tables stay as they are, on rank 0. moe_impl
-        None is the model's own ("tp": the model itself at one rank; TP-MoE
-        over more is not ported)."""
+        """This one-rank TP_MoE model over `mesh`: each layer's attention
+        split by heads (TP_Attn.to_mesh; a mesh of one rank keeps it whole),
+        norms and the router on every rank, and the experts split by
+        moe_impl (None: the model's own): "tp" each expert's intermediate
+        columns by rank (TP_MoE.to_mesh), "ep" the experts by rank, rank r
+        taking experts [r*E/n, (r+1)*E/n) (EP_MoE.from_packed); either way
+        rank r's panels are views of the model's where its device is the
+        same. The embedding, the head and the rope tables stay as they are,
+        on rank 0. A "tp" split over one rank returns the model itself."""
         moe_impl = moe_impl or self.moe_impl
-        if moe_impl != "ep":
-            _check_impl(moe_impl)
-            if mesh.size == 1:
-                return self
-            raise _not_ported("moe_impl='tp' at tensor-parallel size > 1 (TP-MoE)")
+        _check_impl(moe_impl)
         if self.moe_impl != "tp" or self.mesh is not None:
             raise ValueError("to_mesh takes the one-rank TP_MoE model")
         split = mesh.size > 1
+        if moe_impl == "tp" and not split:
+            return self
         layers = []
         for ly in self.layers:
             tp = ly.moe
-            moe = EP_MoE.from_packed(tp.w_router, tp.w_gate_up, tp.w_down, mesh=mesh,
-                                     top_k=tp.top_k, capacity_factor=tp.capacity_factor)
+            moe = (tp.to_mesh(mesh) if moe_impl == "tp" else
+                   EP_MoE.from_packed(tp.w_router, tp.w_gate_up, tp.w_down, mesh=mesh,
+                                      top_k=tp.top_k, capacity_factor=tp.capacity_factor))
             layers.append(MoELayer(
                 attn=ly.attn.to_mesh(mesh) if split else ly.attn, moe=moe,
                 ln_attn=mesh.replicate(ly.ln_attn) if split else ly.ln_attn,
@@ -223,7 +225,7 @@ class Qwen3MoE(DenseLLM):
         return Qwen3MoE(embed=self.embed.to(d0), layers=layers,
                         final_norm=self.final_norm.to(d0), lm_head=self.lm_head.to(d0),
                         cos=self.cos.to(d0), sin=self.sin.to(d0), config=self.config,
-                        mesh=mesh if split else None, rope=rope, moe_impl="ep")
+                        mesh=mesh if split else None, rope=rope, moe_impl=moe_impl)
 
     @property
     def ep_axis(self) -> str:
@@ -277,14 +279,23 @@ class Qwen3MoE(DenseLLM):
         return y.to(h.dtype), self._add_load(load, st)
 
     def _ffn_ranks(self, layer, hs, mode: str, load, rows: int):
-        """The EP FFN at n > 1 ranks: on the row shards of a "dist" stack
-        directly; on a replicated stack ("ep_flash", "flash", "xla") rank
-        r takes its row shard of its own copy (rows padded to a multiple of
-        n), and the output shards are gathered to rank 0 and copied back to
-        every rank (the plain all-gather, as those modes' psum is the plain
-        one)."""
+        """The FFN at n > 1 ranks on the stack's lists. TP_MoE: the mode's
+        form on the ranks' rows as the stack holds them (row shards on
+        "dist", with the `rows` real ones; copies otherwise). EP_MoE: on the
+        row shards of a "dist" stack directly; on a replicated stack
+        ("ep_flash", "flash", "xla") rank r takes its row shard of its own
+        copy (rows padded to a multiple of n), and the output shards are
+        gathered to rank 0 and copied back to every rank (the plain
+        all-gather, as those modes' psum is the plain one)."""
         attn_mode, ffn_mode = self._moe_modes(mode)
         moe, n = layer.moe, self.mesh.size
+        if self.moe_impl == "tp":
+            kw = {"rows": rows} if ffn_mode == "dist" else {}
+            out = moe(hs, ffn_mode, return_stats=load is not None, **kw)
+            ys, st = out if load is not None else (out, None)
+            if st is not None:
+                load = self._add_load(load, st)
+            return [y.to(h.dtype) for y, h in zip(ys, hs)], load
         if attn_mode == "dist":
             shards = hs
         else:

@@ -136,6 +136,31 @@ zeroed; the previous epilogue's output of the same shape returned; rank
 1's partial added again to the first M/n rows, on "dist" to rank 0's row
 shard), against tp_check.GATE.
 
+    python3 -m triton_dist_tpu_torch.tools.fault_margin --tp-moe [--cards 4] [--layers 24]
+
+holds the tensor-parallel MoE path over four ranks (emulated on one card,
+or four cards) instead. First rows 21-23 at tp_check.py's decode shapes
+(Qwen3-30B-A3B's panels cut as a rank takes them, bf16): ag_group_gemm,
+moe_reduce_rs and moe_reduce_ar, each against its plain version, the
+clean gap beside the gap of the plain version run with a fault planted
+in its inputs or outputs, against tp_check.TP_MOE_LIMIT:
+
+    tp-moe drop a rank      rank n-1's chunk (ag_group_gemm) or partial
+                            (the reductions) is left out
+    tp-moe stale epoch      the previous call's inputs and panels are read
+    tp-moe chunk twice      ag_group_gemm: chunk 1 also lands in chunk 2's
+                            slot; moe_reduce_rs: rank 1's partial is added
+                            twice to chunk 0; moe_reduce_ar: rank 1's first
+                            tile is added twice on every rank
+
+Then the engine: Qwen3-30B-A3B (its first 24 layers, or --layers; dropless)
+over the mesh with moe_impl="tp" on "dist" and "gemm_ar", teacher-forced
+against the one-rank "xla" engine with the routing pinned (RouteTape), clean
+and with each fault planted in every layer's rank partials by wrapping
+layers/tp_moe.py `TP_MoE._expert_mlp_sharded` (the last rank's zeroed; the
+previous call's of the same shape returned; rank 1's added to rank 0's),
+against MOE_LIMIT.
+
 Prints one line per configuration and case with the largest relative gap
 over the steps and whether a limit of LIMIT times the largest logit
 catches it; needs one card.
@@ -898,6 +923,148 @@ def ep_fused_faults(mesh, seed: int = 0) -> dict:
     return results
 
 
+def tp_moe_kernel_faults(mesh, seed: int = 0) -> dict:
+    """Rows 21-23 at tp_check.py's decode shapes (Qwen3-30B-A3B's panels as
+    a rank takes them, views of one panel, bf16): the kernel's clean gap to
+    its plain version and each planted fault's, as max |d| over max |plain|
+    over the ranks (see the module docstring)."""
+    from triton_dist_tpu_torch import kernels as K
+    from triton_dist_tpu_torch.kernels.group_gemm import grouped_gemm_ref
+    from triton_dist_tpu_torch.tools import tp_check as tc
+    n = mesh.size
+    dev0 = mesh.devices[0]
+    gen = torch.Generator(device=dev0).manual_seed(seed)
+    lay = tc._tp_moe_layer()
+    E, D, i = tc.E_MOE, tc.D, tc.I_MOE // n
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(shape, generator=gen, device=dev0) * scale).bfloat16()
+
+    def draw(name):
+        if name == "ag_group_gemm":
+            c = lay._cap(tc.B // n)
+            w = randn(E, D, 2 * i * n, scale=D ** -0.5)
+            ws = [(w[:, :, r * i:(r + 1) * i].to(d), w[:, :, n * i + r * i:n * i + (r + 1) * i]
+                   .to(d)) for r, d in enumerate(mesh.devices)]
+            return [randn(E, c, D, scale=0.3).to(d) for d in mesh.devices], ws
+        capT = n * lay._cap(tc.B // n) if name == "moe_reduce_rs" else lay._cap(tc.B)
+        w = randn(E, i * n, D, scale=(i * n) ** -0.5)
+        return ([randn(E, capT, i, scale=0.3).to(d) for d in mesh.devices],
+                [w[:, r * i:(r + 1) * i].to(d) for r, d in enumerate(mesh.devices)])
+
+    def with_rank(xs, r, x):
+        return xs[:r] + [x] + xs[r + 1:]
+
+    results = {}
+    for name, kernel, plain in (("ag_group_gemm", K.ag_group_gemm, K.ag_group_gemm_ref),
+                                ("moe_reduce_rs", K.moe_reduce_rs, K.moe_reduce_rs_ref),
+                                ("moe_reduce_ar", K.moe_reduce_ar, K.moe_reduce_ar_ref)):
+        prev = draw(name)
+        a, w = draw(name)
+        ref = plain(a, w)
+
+        def gap(outs):
+            return max(_rel(o.float().to(dev0), r.float().to(dev0)) for o, r in zip(outs, ref))
+
+        if name == "ag_group_gemm":      # chunk 1 also lands in chunk 2's slot
+            twice = plain(with_rank(a, 2, a[1].to(a[2].device)), w)
+        elif name == "moe_reduce_rs":    # rank 1's partial added twice to chunk 0
+            m = ref[0].shape[1]
+            extra = grouped_gemm_ref(a[1][:, :m], w[1]).to(dev0)
+            twice = [(ref[0].float() + extra.float()).to(ref[0].dtype)] + ref[1:]
+        else:                            # rank 1's first tile added twice
+            tile = grouped_gemm_ref(a[1], w[1])[:1, :128, :128].to(dev0)
+            twice = [o.clone() for o in ref]
+            for o in twice:
+                o[:1, :128, :128] = (o[:1, :128, :128].float() + tile.float().to(o.device)
+                                     ).to(o.dtype)
+        res = {"tp-moe clean": gap(kernel(a, w, mesh=mesh)),
+               "tp-moe drop a rank": gap(plain(with_rank(a, n - 1, torch.zeros_like(a[-1])),
+                                               w)),
+               "tp-moe stale epoch": gap(plain(*prev)),
+               "tp-moe chunk twice": gap(twice)}
+        torch.cuda.synchronize()
+        results[name] = res
+        print(f"tp-moe kernel {name}: " + "; ".join(
+            f"{c} {g:.3g} ({_caught(g, tc.TP_MOE_LIMIT)})" for c, g in res.items()), flush=True)
+        del prev, a, w, ref, twice
+    return results
+
+
+@contextlib.contextmanager
+def _tp_moe_fault(case: str):
+    """Plant `case` in every TP_MoE layer's rank partials
+    (layers/tp_moe.py `_expert_mlp_sharded`, what fwd_dist reduce-scatters
+    and fwd_local sums)."""
+    from triton_dist_tpu_torch.layers.tp_moe import TP_MoE
+    real = TP_MoE._expert_mlp_sharded
+    last = {}
+
+    def faulty(self, x_e, gemm=None):
+        parts = real(self, x_e, gemm)
+        if case == "tp-moe drop a rank":
+            return parts[:-1] + [torch.zeros_like(parts[-1])]
+        if case == "tp-moe stale epoch":
+            key = tuple(parts[0].shape)
+            prev, last[key] = last.get(key), parts
+            return parts if prev is None else prev
+        if case == "tp-moe chunk twice":
+            return [parts[0] + parts[1].to(parts[0].device)] + parts[1:]
+        return parts
+
+    TP_MoE._expert_mlp_sharded = faulty
+    try:
+        yield
+    finally:
+        TP_MoE._expert_mlp_sharded = real
+
+
+def run_tp_moe(m, mesh, n_layers: int) -> dict:
+    """Rows 21-23's faults, then the TP-MoE engine gate's: Qwen3-30B-A3B
+    (its first n_layers layers, dropless) over the mesh on "dist" and
+    "gemm_ar", teacher-forced against the one-rank plain engine with the
+    routing pinned (RouteTape), clean and with each fault planted in the
+    rank partials, against MOE_LIMIT."""
+    from triton_dist_tpu_torch.tools import tp_check as tc
+    results = {"kernel": tp_moe_kernel_faults(mesh)}
+    dev = mesh.devices[0]
+    one = tc.cut_layers(m.AutoLLM.from_config(m.qwen3_30b_a3b(), device=dev, seed=0,
+                                              capacity_factor="dropless"), n_layers)
+    model = one.to_mesh(mesh, "tp")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    ids = torch.randint(0, one.config.vocab_size, (tc.EP_TF_B, tc.EP_TF_S), generator=gen,
+                        device=dev)
+    max_seq = tc.EP_TF_S + STEPS + 8
+    ref = m.Engine(one, max_seq=max_seq, backend="xla", device=dev)
+    for backend, pre in tc.TP_MOE_BACKENDS.items():
+        eng = m.Engine(model, max_seq=max_seq, backend=backend, prefill_backend=pre,
+                       device=dev)
+        res = {}
+        for case in ("tp-moe clean", "tp-moe drop a rank", "tp-moe stale epoch",
+                     "tp-moe chunk twice"):
+            tape, gaps = RouteTape(), []
+            with _tp_moe_fault(case):
+                with tape.record():
+                    lf, cf = eng.prefill(ids)
+                with tape.replay():
+                    lr, cr = ref.prefill(ids)
+                for t in range(STEPS + 1):
+                    gaps.append(_rel(lf, lr))
+                    if t < STEPS:
+                        tok = torch.argmax(lr, -1)
+                        with tape.record():
+                            lf = eng.decode_step(tok, cf)
+                        with tape.replay():
+                            lr = ref.decode_step(tok, cr)
+            res[case] = max(gaps)
+            print(f"tp-moe engine {backend} {case}: worst step gap {res[case]:.4g} "
+                  f"({_caught(res[case], MOE_LIMIT)}); per step "
+                  f"{[round(g, 4) for g in gaps]}", flush=True)
+            del cf, cr
+        results[f"engine {backend}"] = res
+    return results
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("fault_margin: needs an NVIDIA card", file=sys.stderr)
@@ -909,6 +1076,17 @@ def main() -> int:
                 else make_mesh(4, devices=["cuda:0"] * 4))
         print(json.dumps({"limit": tc.EP_FUSED_LIMIT, "ep": ep_fused_faults(mesh)}),
               flush=True)
+        return 0
+    if "--tp-moe" in sys.argv[1:]:
+        import triton_dist_tpu_torch.models as m
+        from triton_dist_tpu_torch.runtime import make_mesh
+        from triton_dist_tpu_torch.tools import tp_check as tc
+        mesh = (make_mesh(4) if "--cards" in sys.argv[1:]
+                else make_mesh(4, devices=["cuda:0"] * 4))
+        args = sys.argv[1:]
+        n_layers = int(args[args.index("--layers") + 1]) if "--layers" in args else 24
+        print(json.dumps({"kernel limit": tc.TP_MOE_LIMIT, "engine limit": MOE_LIMIT,
+                          "tp-moe": run_tp_moe(m, mesh, n_layers)}), flush=True)
         return 0
     if "--tp" in sys.argv[1:]:
         import triton_dist_tpu_torch.models as m

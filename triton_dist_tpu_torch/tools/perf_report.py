@@ -18,7 +18,9 @@ all_reduce and reduce_scatter of [4 x 256, 4096] partials, gemm_allreduce
 expert-parallel rows all_to_all and low_latency_all_to_all of [256,
 4096] a rank, ep_dispatch_combine of 1024 rows of 1024 over 8 experts,
 top-2, and ep_fused, the JAX report's EP_MoE(mode="ep_fused") at E=8,
-D=1024, I=512, 1024 rows, top-2, capacity 1.25),
+D=1024, I=512, 1024 rows, top-2, capacity 1.25; the tensor-parallel MoE
+rows ag_group_gemm, moe_reduce_rs and moe_reduce_ar at E=8, capT=512,
+D=N=1024),
 against perf_model.collective_sol_us over NVLink plus, for the GEMMs,
 one card's share of the product (gemm_sol_us on the per-card dims). The rows of kernels not yet ported are listed under
 `not_ported`. Each row carries its plain version,
@@ -45,8 +47,7 @@ from triton_dist_tpu_torch.tools.perf_model import chip_specs, gemm_sol_us, sol_
 _REPO = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 # the JAX report's rows of kernels not yet ported
-NOT_PORTED = ("ag_group_gemm", "moe_reduce_rs", "moe_reduce_ar",
-              "ulysses_qkv_gemm_a2a", "ulysses_o_a2a_gemm", "pp_gpipe_fwd",
+NOT_PORTED = ("ulysses_qkv_gemm_a2a", "ulysses_o_a2a_gemm", "pp_gpipe_fwd",
               "sp_ring(ring_shmem)", "sp_ring(ring)")
 
 # registry name -> this report's row name, where they differ (the JAX
@@ -250,7 +251,35 @@ def comm_rows(spec, mesh) -> list:
                     lambda u, w: K.ag_gemm_ref(u, w), (a_rows, b_cols),
                     gemm_sol_us(M, K_, N // n, spec=spec)
                     + collective_sol_us("ag", M * K_ * 2, n, spec=spec)))
-    return rows + ep_rows(spec, mesh, parts)
+    return rows + ep_rows(spec, mesh, parts) + tp_moe_rows(spec, mesh, parts)
+
+
+def tp_moe_rows(spec, mesh, parts) -> list:
+    """The tensor-parallel MoE rows over `mesh` at the JAX report's shape
+    (E=8 experts, capT=512 rows an expert, D=N=1024, bf16; each rank's
+    panel its own columns or rows): ag_group_gemm against one card's share
+    of the product plus the gathered tokens' NVLink time, moe_reduce_rs and
+    moe_reduce_ar against their share plus the partials' (the JAX report's
+    SOL)."""
+    from triton_dist_tpu_torch import kernels as K
+    from triton_dist_tpu_torch.tools.perf_model import collective_sol_us
+    n = mesh.size
+    E, capT, Dm, Nm = 8, 512, 1024, 1024
+    xe = [t.reshape(E, capT // n, Dm) for t in parts(E * capT // n, Dm, sc=0.1)]
+    we = [t.reshape(E, Dm, Nm // n) for t in parts(E * Dm, Nm // n, sc=0.1)]
+    he = [t.reshape(E, capT, Nm // n) for t in parts(E * capT, Nm // n, sc=0.1)]
+    w2 = [t.reshape(E, Nm // n, Dm) for t in parts(E * Nm // n, Dm, sc=0.1)]
+    prod = gemm_sol_us(E * capT, Nm // n, Dm, spec=spec)
+    return [Row("ag_group_gemm", lambda u, w: K.ag_group_gemm(u, w, mesh=mesh),
+                lambda u, w: K.ag_group_gemm_ref(u, w), (xe, we),
+                gemm_sol_us(E * capT, Dm, Nm // n, spec=spec)
+                + collective_sol_us("ag", E * capT * Dm * 2, n, spec=spec)),
+            Row("moe_reduce_rs", lambda u, w: K.moe_reduce_rs(u, w, mesh=mesh),
+                lambda u, w: K.moe_reduce_rs_ref(u, w), (he, w2),
+                prod + collective_sol_us("rs", E * capT * Dm * 2, n, spec=spec)),
+            Row("moe_reduce_ar", lambda u, w: K.moe_reduce_ar(u, w, mesh=mesh),
+                lambda u, w: K.moe_reduce_ar_ref(u, w), (he, w2),
+                prod + collective_sol_us("ar", E * capT * Dm * 2, n, spec=spec))]
 
 
 def _cpu_twin(mesh, fn):

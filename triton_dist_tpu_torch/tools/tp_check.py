@@ -52,6 +52,7 @@ Checks, each failing the run (tools/checks.py CheckFailed):
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import statistics
 import subprocess
@@ -96,6 +97,12 @@ SOURCES = {
                      "triton_dist_tpu/kernels/ep_a2a.py:396"),
     "ep_moe_fused": ("triton_dist_tpu_torch/kernels/csrc/ep_fused.cu",
                      "triton_dist_tpu/kernels/ep_fused.py:491"),
+    "ag_group_gemm": ("triton_dist_tpu_torch/kernels/csrc/ag_group_gemm.cu",
+                      "triton_dist_tpu/kernels/ag_group_gemm.py:285"),
+    "moe_reduce_rs": ("triton_dist_tpu_torch/kernels/csrc/moe_reduce_rs.cu",
+                      "triton_dist_tpu/kernels/moe_reduce_rs.py:293"),
+    "moe_reduce_ar": ("triton_dist_tpu_torch/kernels/csrc/moe_reduce_ar.cu",
+                      "triton_dist_tpu/kernels/moe_reduce_ar.py:215"),
 }
 # the comm kernels each backend runs (the one-rank GEMM kernel, "gemm",
 # runs on none of them at n > 1)
@@ -732,27 +739,28 @@ def ep_engine_check(m, k, mesh, model, ids, backend: str, card: str) -> dict:
                 prefill_ms=prefill_s * 1e3)
 
 
-def ep_gate(m, mesh, one, model, ids, backend: str) -> dict:
-    """Dropless, routing pinned (tools/fault_margin.py RouteTape: the EP
-    forward records, the one-rank plain engine replays): prefill EP_TF_B
-    x EP_TF_S and TF_STEPS teacher-forced steps by the margin rule at
-    MOE_LIMIT; then four slot-chunk steps on each, whose routing loads
-    [expert_tokens, drops] must be equal, with no drop."""
+def moe_gate(m, mesh, one, model, ids, backend: str, label: str = "ep", **eng_kw) -> dict:
+    """Dropless, routing pinned (tools/fault_margin.py RouteTape: the mesh
+    model's forward records, the one-rank plain engine replays): prefill
+    EP_TF_B x EP_TF_S and TF_STEPS teacher-forced steps by the margin rule
+    at MOE_LIMIT; then four slot-chunk steps on each, whose routing loads
+    [expert_tokens, drops] must be equal, with no drop. eng_kw: the mesh
+    engine's (prefill_backend)."""
     from triton_dist_tpu_torch.tools.fault_margin import RouteTape
     dev = mesh.devices[0]
     ids_tf = ids[:EP_TF_B, :EP_TF_S]
     max_seq = EP_TF_S + TF_STEPS + 8
     ref = m.Engine(one, max_seq=max_seq, backend="xla", device=dev)
-    eng = m.Engine(model, max_seq=max_seq, backend=backend, device=dev)
+    eng = m.Engine(model, max_seq=max_seq, backend=backend, device=dev, **eng_kw)
     tape, errs, forced = RouteTape(), [], 0
     with tape.record():
         lf, cf = eng.prefill(ids_tf)
     with tape.replay():
         lr, cr = ref.prefill(ids_tf)
     for t in range(TF_STEPS + 1):
-        check(tape.done(), f"ep {backend} dropless: step {t} replayed {tape.used} of "
+        check(tape.done(), f"{label} {backend} dropless: step {t} replayed {tape.used} of "
                            f"{len(tape.calls)} routing calls")
-        err, _, n_sure = margin_gate(lf, lr, f"ep {backend} dropless step {t}", MOE_LIMIT)
+        err, _, n_sure = margin_gate(lf, lr, f"{label} {backend} dropless step {t}", MOE_LIMIT)
         errs.append(round(err / lr.abs().max().item(), 5))
         forced += n_sure
         if t < TF_STEPS:
@@ -761,7 +769,7 @@ def ep_gate(m, mesh, one, model, ids, backend: str) -> dict:
                 lf = eng.decode_step(tok, cf)
             with tape.replay():
                 lr = ref.decode_step(tok, cr)
-    check(forced > 0, f"ep {backend} dropless: no token passed the margin rule")
+    check(forced > 0, f"{label} {backend} dropless: no token passed the margin rule")
     pos = torch.full((EP_TF_B,), EP_TF_S + TF_STEPS, dtype=torch.int32, device=dev)
     act = torch.ones(EP_TF_B, dtype=torch.bool, device=dev)
     with tape.record():
@@ -771,9 +779,9 @@ def ep_gate(m, mesh, one, model, ids, backend: str) -> dict:
     L = model.config.num_layers
     check(torch.equal(load_f, load_r) and int(load_f[-1]) == 0
           and int(load_f[:-1].sum()) == EP_TF_B * TOPK * L * 4,
-          f"ep {backend} dropless: slot-chunk load {load_f.tolist()} against the plain "
+          f"{label} {backend} dropless: slot-chunk load {load_f.tolist()} against the plain "
           f"engine's {load_r.tolist()}")
-    print(f"engine ep {backend} dropless: teacher-forced vs one-rank plain, routing pinned, "
+    print(f"engine {label} {backend} dropless: teacher-forced vs one-rank plain, routing pinned, "
           f"B={EP_TF_B} S={EP_TF_S} and {TF_STEPS} steps: max|d logits| / max|logit| per "
           f"step {errs} (limit {MOE_LIMIT}), {forced} greedy tokens checked; a 4-step slot "
           f"chunk's load equal to the plain engine's ({int(load_f[:-1].sum())} routed "
@@ -782,18 +790,18 @@ def ep_gate(m, mesh, one, model, ids, backend: str) -> dict:
     return dict(gaps=errs)
 
 
-def ep_served_check(m, mesh, one, model, backend, reqs, out, label) -> tuple:
-    """The served streams of `reqs`, teacher-forced: the EP model's slot
+def moe_served_check(m, mesh, one, model, backend, reqs, out, label, **eng_kw) -> tuple:
+    """The served streams of `reqs`, teacher-forced: the mesh model's slot
     forward (mode `backend`, contiguous slots over the mesh) along prompt +
     served tokens, the one-rank plain engine replaying its expert
-    selection (RouteTape). Each served token must be the EP forward's
+    selection (RouteTape). Each served token must be the mesh forward's
     argmax wherever its top-2 margin exceeds twice MOE_SERVE_LIMIT of its
-    largest logit, and the EP logits stay within MOE_LIMIT of the plain
+    largest logit, and its logits stay within MOE_LIMIT of the plain
     ones. Returns (tokens checked, the largest relative logit gap)."""
     from triton_dist_tpu_torch.tools.fault_margin import RouteTape
     dev = mesh.devices[0]
     n = len(reqs)
-    eng = m.Engine(model, max_seq=SERVE_MAX_SEQ, backend=backend, device=dev)
+    eng = m.Engine(model, max_seq=SERVE_MAX_SEQ, backend=backend, device=dev, **eng_kw)
     ref = m.Engine(one, max_seq=SERVE_MAX_SEQ, backend="xla", device=dev)
     cf, cr, tape = eng.make_slot_cache(n), ref.make_slot_cache(n), RouteTape()
     lf, lr = [], []
@@ -814,13 +822,13 @@ def ep_served_check(m, mesh, one, model, backend, reqs, out, label) -> tuple:
         live = t < lens
         gap = ((lf - lr).abs().amax(-1) / lr.abs().amax(-1))[live].max().item()
         check(tape.done() and gap <= MOE_LIMIT,
-              f"{label}: step {t} EP logits max|d| / max|logit| {gap} > {MOE_LIMIT} "
+              f"{label}: step {t} logits max|d| / max|logit| {gap} > {MOE_LIMIT} "
               "(routing pinned)")
         worst = max(worst, gap)
         top2 = lf.topk(2, dim=-1).values
         sure = ((top2[:, 0] - top2[:, 1]) > 2 * MOE_SERVE_LIMIT * lf.abs().amax(-1)) & live
         check(bool((torch.argmax(lf, -1) == toks[:, t])[sure].all()),
-              f"{label}: step {t}: a served token differs from the EP forward's argmax where "
+              f"{label}: step {t}: a served token differs from the forward's argmax where "
               "the margin exceeds the tolerance")
         forced += int(sure.sum())
         if t + 1 < gen:
@@ -834,14 +842,19 @@ def ep_served_check(m, mesh, one, model, backend, reqs, out, label) -> tuple:
     return forced, worst
 
 
-def ep_serving_check(m, k, mesh, model, reqs, backend: str, card: str, batch: int):
-    """ContinuousScheduler(paged=True) at `batch` slots on the EP engine:
-    the admissions (through the backend itself) and the ticks each launch
-    dispatch_a2a and all_to_all and only the EP path's kernels; every
-    request served in full; the routing load read back: the ticks' routed
-    entries = layers x top-k x slots x steps. Returns (launch counts,
-    streams, the scheduler's stats)."""
-    eng = m.Engine(model, max_seq=SERVE_MAX_SEQ, backend=backend, device=mesh.devices[0])
+def moe_serving_check(m, k, mesh, model, reqs, backend: str, card: str, batch: int,
+                      need=None, allowed=None, label: str = "ep", **eng_kw):
+    """ContinuousScheduler(paged=True) at `batch` slots on the mesh
+    model's engine: the admissions and the ticks each launch the kernels
+    of `need` (by default the EP path's dispatch_a2a, all_to_all and
+    grouped_gemm) and only those of `allowed` (the EP path's and the paged
+    decode); every request served in full; the routing load read back: the
+    ticks' routed entries = layers x top-k x slots x steps. Returns (launch
+    counts, streams, the scheduler's stats)."""
+    need = need or ("dispatch_a2a", "all_to_all", "grouped_gemm")
+    allowed = allowed or ep_allowed(backend) + ("flash_decode_paged",)
+    eng = m.Engine(model, max_seq=SERVE_MAX_SEQ, backend=backend, device=mesh.devices[0],
+                   **eng_kw)
     admit, steps = {}, [0]
     inner, tick = eng.admit_slot_paged, eng.paged_slot_chunk
 
@@ -866,21 +879,20 @@ def ep_serving_check(m, k, mesh, model, reqs, backend: str, card: str, batch: in
     counts = k.launch_counts()
     ticks = {c: v - admit.get(c, 0) for c, v in counts.items()}
     for part, c in (("admissions", admit), ("ticks", ticks)):
-        for name in ("dispatch_a2a", "all_to_all", "grouped_gemm"):
-            check(c.get(name, 0) > 0, f"ep serving {backend} {part}: no {name} ({c})")
-        only_launched(c, ep_allowed(backend) + ("flash_decode_paged",),
-                      f"ep serving {backend} {part}")
+        for name in need:
+            check(c.get(name, 0) > 0, f"{label} serving {backend} {part}: no {name} ({c})")
+        only_launched(c, allowed, f"{label} serving {backend} {part}")
     for r in reqs:
-        check(len(out[r.rid]) == r.gen_len, f"ep serving {backend}: rid {r.rid} served "
+        check(len(out[r.rid]) == r.gen_len, f"{label} serving {backend}: rid {r.rid} served "
               f"{len(out[r.rid])} of {r.gen_len}")
     st = sched.stats()
     E, L = model.config.num_experts, model.config.num_layers
     routed = sum(st.get(f"expert_tokens{{expert={e}}}", 0) for e in range(E))
     check(routed == L * TOPK * batch * steps[0],
-          f"ep serving {backend}: {routed} routed entries over {steps[0]} tick steps of "
+          f"{label} serving {backend}: {routed} routed entries over {steps[0]} tick steps of "
           f"{batch} slots, want {L * TOPK * batch * steps[0]}")
     toks = sum(len(out[r.rid]) for r in reqs)
-    print(f"serving ep={mesh.size} paged {backend} on {card}: {len(reqs)} requests over "
+    print(f"serving {label}={mesh.size} paged {backend} on {card}: {len(reqs)} requests over "
           f"{batch} slots, {toks} tokens in {wall:.2f} s ({toks / wall:.1f} tok/s); MoE "
           f"drops {st['moe_capacity_drops']} of {routed} routed entries, imbalance "
           f"{st['expert_load_imbalance']:.3f}; launches admissions {admit} ticks {ticks}",
@@ -960,6 +972,7 @@ def run_ep(mesh, *, card: str, one=None, n_layers=None, n_req: int = N_REQ) -> d
             import dataclasses
             cfg = dataclasses.replace(cfg, num_layers=n_layers)
         one = m.AutoLLM.from_config(cfg, device=mesh.devices[0], seed=0, capacity_factor=2.0)
+    one = cut_layers(one, n_layers)
     cfg = one.config
     model = one.to_mesh(mesh, "ep")
     gen = torch.Generator(device=mesh.devices[0]).manual_seed(0)
@@ -970,19 +983,19 @@ def run_ep(mesh, *, card: str, one=None, n_layers=None, n_req: int = N_REQ) -> d
     for backend in m.engine.EP_BACKENDS:
         res[backend] = ep_engine_check(m, k, mesh, model, ids, backend, card)
         print(f"[ep {time.perf_counter() - t0:.1f} s] engine {backend} done", flush=True)
-        c, _, st = ep_serving_check(m, k, mesh, model, reqs[:n_req], backend, card, SERVE_B)
+        c, _, st = moe_serving_check(m, k, mesh, model, reqs[:n_req], backend, card, SERVE_B)
         res[backend]["paged"] = c
         print(f"[ep {time.perf_counter() - t0:.1f} s] serving {backend} done", flush=True)
         set_capacity(one, "dropless")
         set_capacity(model, "dropless")
         try:
-            res[backend].update(ep_gate(m, mesh, one, model, ids, backend))
+            res[backend].update(moe_gate(m, mesh, one, model, ids, backend))
             dl = [m.Request(r.rid, r.ids, min(r.gen_len, EP_DL_GEN)) for r in reqs[:EP_DL_REQS]]
-            _, out, st = ep_serving_check(m, k, mesh, model, dl, backend, card, EP_DL_SLOTS)
+            _, out, st = moe_serving_check(m, k, mesh, model, dl, backend, card, EP_DL_SLOTS)
             check(st["moe_capacity_drops"] == 0,
                   f"ep serving {backend} dropless: {st['moe_capacity_drops']} drops")
-            forced, worst = ep_served_check(m, mesh, one, model, backend, dl, out,
-                                            f"ep serving {backend} dropless")
+            forced, worst = moe_served_check(m, mesh, one, model, backend, dl, out,
+                                             f"ep serving {backend} dropless")
             print(f"serving ep {backend} dropless: {forced} served tokens of {len(dl)} "
                   f"requests checked against the EP forward's argmax (margin rule at "
                   f"{MOE_SERVE_LIMIT}), its logits within {worst:.5f} of the one-rank plain "
@@ -997,6 +1010,347 @@ def run_ep(mesh, *, card: str, one=None, n_layers=None, n_req: int = N_REQ) -> d
     return dict(rows=rows, counts=res)
 
 
+# ----------------------------------------------------------------------
+# tensor-parallel MoE: Qwen3-30B-A3B (moe_impl="tp") over the mesh
+# ----------------------------------------------------------------------
+
+# ag_group_gemm, moe_reduce_rs and moe_reduce_ar against their plain
+# versions, and TP_MoE's fused forms against the same forms on the plain
+# kernels: max |d| over max |plain| (tools/fault_margin.py --tp-moe)
+TP_MOE_LIMIT = 2e-2
+# the backends the TP-MoE engine arms drive, and their prefill: "gemm_ar"
+# prefills on "flash" (its default, "xla", would run the dense all-experts
+# oracle over B x S rows: [E, B S, D] a rank)
+TP_MOE_BACKENDS = {"dist": None, "gemm_ar": "flash"}
+# the dropless serving arm: requests on slots, at most EP_DL_GEN tokens each
+TP_MOE_DL_REQS, TP_MOE_DL_SLOTS = 8, 4
+# row 23's large case: moe_reduce_ar lands every rank's [E, cap, D]
+# partial on every rank, n^2 E cap D elements on one card (17 GB at the
+# B x S prefill's capacity); B x S / 8 rows fit beside the model
+TP_MOE_AR_ROWS = B * S // 8
+
+
+def _tp_moe_layer(cf=2.0, top_k=TOPK):
+    """A meta-device TP_MoE of Qwen3-30B-A3B's shape (for its capacities)."""
+    from triton_dist_tpu_torch.layers import TP_MoE
+    meta = torch.empty((D, E_MOE), device="meta")
+    return TP_MoE(w_router=meta, w_gate_up=meta, w_down=meta, top_k=top_k,
+                  capacity_factor=cf)
+
+
+def tp_moe_kernel_rows(mesh, seed: int = 0) -> list:
+    """Rows 21-23 at the TP-MoE path's shapes (launches left None), each
+    within TP_MOE_LIMIT of its plain version over CALLS calls: ag_group_gemm
+    and moe_reduce_rs at the fused form's capacities (rank-local routing of
+    B/n and B S/n rows at capacity 2.0, the n chunks gathered), moe_reduce_ar
+    at fused_ar's (B rows replicated, and TP_MOE_AR_ROWS), all on
+    Qwen3-30B-A3B's panels as a rank takes them (views: gate_r and up_r two
+    column blocks of one [E, D, 2I] panel, w_down's rows), bf16; and the
+    registry's f32 shapes. The library call is one torch.bmm on the gathered
+    (row 21) or concatenated (rows 22-23) operands on one card."""
+    from triton_dist_tpu_torch import kernels as K
+    n = mesh.size
+    dev0 = mesh.devices[0]
+    one = emulated(mesh)
+    gen = torch.Generator(device=dev0).manual_seed(seed)
+    rows = []
+    lay = _tp_moe_layer()
+
+    def randn(*shape, dtype=torch.bfloat16, scale=1.0):
+        t = torch.randn(shape, generator=gen, device=dev0, dtype=torch.float32)
+        return (t * scale).to(dtype)
+
+    def parts(shape, dtype, scale=1.0):
+        return [randn(*shape, dtype=dtype, scale=scale).to(d) for d in mesh.devices]
+
+    def panels(E, K_, N_, dtype, kind):
+        """Each rank's panel, cut from one whole panel as a rank takes it:
+        "pair" the column blocks (gate_r, up_r) of [E, K, n N] (N_ = 2 i
+        columns a rank), "cols" the columns of [E, K, n N], "rows" the rows
+        of [E, n K, N] (w_down's slab); views on rank 0's device, copies on
+        the others'. Returns (the ranks' panels, rank 0's as one tensor,
+        the whole)."""
+        if kind == "rows":
+            w = randn(E, K_ * n, N_, dtype=dtype, scale=(K_ * n) ** -0.5)
+            return [w[:, r * K_:(r + 1) * K_].to(d) for r, d in enumerate(mesh.devices)], w
+        w = randn(E, K_, N_ * n, dtype=dtype, scale=K_ ** -0.5)
+        if kind == "cols":
+            return [w[:, :, r * N_:(r + 1) * N_].to(d) for r, d in enumerate(mesh.devices)], \
+                w[:, :, :N_]
+        i = N_ // 2
+        ws = [(w[:, :, r * i:(r + 1) * i].to(d), w[:, :, n * i + r * i:n * i + (r + 1) * i].to(d))
+              for r, d in enumerate(mesh.devices)]
+        return ws, torch.cat(ws[0], 2)
+
+    from triton_dist_tpu_torch.runtime import symm_mem
+    I_r = I_MOE // n
+    cap_dec, cap_pre = lay._cap(B // n), lay._cap(B * S // n)
+    bf16, f32 = torch.bfloat16, torch.float32
+    for what, E, c, D_, N_, dt in (("decode", E_MOE, cap_dec, D, 2 * I_r, bf16),
+                                   ("prefill", E_MOE, cap_pre, D, 2 * I_r, bf16),
+                                   ("registry", 2, 8, 128, 128 // n, f32)):
+        es = torch.finfo(dt).bits // 8
+        capT = n * c
+        ws, w0 = panels(E, D_, N_, dt, "pair" if dt == bf16 else "cols")
+        measure(rows, mesh, "ag_group_gemm",
+                f"{what} E={E} capT={n}x{c} D={D_} N={N_}x{n} {str(dt)[6:]}"
+                + (" [gate_r | up_r] views" if dt == bf16 else ""),
+                lambda E=E, c=c, D_=D_, dt=dt, ws=ws: (parts((E, c, D_), dt, 0.3), ws),
+                lambda xs, ws: K.ag_group_gemm(xs, ws, mesh=mesh),
+                lambda xs, ws: K.ag_group_gemm_ref(xs, ws),
+                (lambda xs, ws, w0=w0: torch.bmm(torch.cat(xs, 1), w0)) if one else None,
+                n * (E * c * D_ + E * D_ * N_ + E * capT * N_) * es, E * capT * D_ * es, "ag",
+                TP_MOE_LIMIT, flops=2.0 * E * capT * D_ * N_ * n,
+                flops_per_s=BF16_FLOPS_PER_S if dt == bf16 else F32_FLOPS_PER_S)
+        del ws, w0
+        symm_mem.clear_registry()          # the gathered tokens' workspace
+    for name, cases in (
+            ("moe_reduce_rs", (("decode", E_MOE, n * cap_dec, I_r, D, bf16),
+                               ("prefill", E_MOE, n * cap_pre, I_r, D, bf16),
+                               ("registry", 2, 8 * n, 128 // n, 128, f32))),
+            ("moe_reduce_ar", (("decode", E_MOE, lay._cap(B), I_r, D, bf16),
+                               (f"{TP_MOE_AR_ROWS} rows", E_MOE, lay._cap(TP_MOE_AR_ROWS), I_r,
+                                D, bf16),
+                               ("registry", 2, 8 * n, 128 // n, 128, f32)))):
+        rs = name == "moe_reduce_rs"
+        op = K.moe_reduce_rs if rs else K.moe_reduce_ar
+        ref = K.moe_reduce_rs_ref if rs else K.moe_reduce_ar_ref
+        for what, E, capT, F_, D_, dt in cases:
+            es = torch.finfo(dt).bits // 8
+            ws, whole = panels(E, F_, D_, dt, "rows")
+            measure(rows, mesh, name,
+                    f"{what} E={E} capT={capT} F={F_}x{n} D={D_} {str(dt)[6:]}"
+                    + (" w_down row views" if dt == bf16 else ""),
+                    lambda E=E, capT=capT, F_=F_, dt=dt, ws=ws: (parts((E, capT, F_), dt, 0.3),
+                                                                 ws),
+                    lambda hs, ws, op=op: op(hs, ws, mesh=mesh),
+                    lambda hs, ws, ref=ref: ref(hs, ws),
+                    (lambda hs, ws, whole=whole: torch.bmm(torch.cat(hs, 2), whole))
+                    if one else None,
+                    n * (E * capT * F_ + E * F_ * D_ + E * (capT // n if rs else capT) * D_) * es,
+                    E * capT * D_ * es, "rs" if rs else "ar", TP_MOE_LIMIT,
+                    flops=2.0 * E * capT * F_ * D_ * n,
+                    flops_per_s=BF16_FLOPS_PER_S if dt == bf16 else F32_FLOPS_PER_S,
+                    replicated=not rs)
+            del ws, whole
+            symm_mem.clear_registry()      # the partials' and landing workspaces
+    return rows
+
+
+def tp_moe_allowed(backend: str) -> tuple:
+    """The kernels a TP-MoE forward may launch: the attention's ("dist": its
+    two rings; "gemm_ar": gemm_allreduce; "flash" none but the attention
+    kernels), the grouped GEMM and, on "dist", the FFN's all_gather and
+    reduce_scatter."""
+    comm = {"dist": ("ag_gemm", "gemm_rs", "all_gather", "reduce_scatter"),
+            "gemm_ar": ("gemm_allreduce",), "ar": ("all_reduce",)}.get(backend, ())
+    return ("flash_decode", "kv_update", "grouped_gemm") + comm
+
+
+def tp_moe_engine_check(m, k, mesh, model, ids, backend: str, card: str) -> dict:
+    """Engine(backend) on the TP-MoE model at capacity 2.0: prefill B x S
+    (on "dist" through itself, on "gemm_ar" on "flash") and GEN decode
+    steps, timed, with exact launch counts a layer and forward (grouped_gemm
+    two a rank; on "dist" ag_gemm, gemm_rs, all_gather and reduce_scatter
+    one each, on "gemm_ar" gemm_allreduce one, per distinct device); then
+    the idle share of one profiled step."""
+    pre = TP_MOE_BACKENDS[backend]
+    eng = m.Engine(model, max_seq=S + GEN + 8, backend=backend, prefill_backend=pre,
+                   device=mesh.devices[0])
+    eng.decode(*eng.prefill(ids[:, :8]), 2)                 # warm-up
+    sync(mesh)
+    k.reset_launch_counts()
+    t0 = time.perf_counter()
+    logits, cache = eng.prefill(ids)
+    sync(mesh)
+    prefill_s = time.perf_counter() - t0
+    c_prefill = k.launch_counts()
+    k.reset_launch_counts()
+    t0 = time.perf_counter()
+    toks = eng.decode(logits, cache, GEN)
+    sync(mesh)
+    decode_s = time.perf_counter() - t0
+    c_decode = k.launch_counts()
+    L, n = model.config.num_layers, mesh.size
+    per_call = len(mesh.device_groups())
+    for label, c, fw, mode in (("prefill", c_prefill, 1, eng.prefill_backend),
+                               ("decode", c_decode, GEN, backend)):
+        want = {"grouped_gemm": 2 * n * L * fw}
+        comm = {"dist": ("ag_gemm", "gemm_rs", "all_gather", "reduce_scatter"),
+                "gemm_ar": ("gemm_allreduce",)}.get(mode, ())
+        want.update({name: L * per_call * fw for name in comm})
+        for name, w in want.items():
+            check(c[name] == w, f"tp-moe engine {backend} {label}: {name} launched {c[name]} "
+                  f"times, want {w} ({c})")
+        check(c["flash_decode"] > 0, f"tp-moe engine {backend} {label}: no flash_decode ({c})")
+        only_launched(c, tp_moe_allowed(mode), f"tp-moe engine {backend} {label}")
+    check(tuple(toks.shape) == (B, GEN) and bool(torch.isfinite(logits).all()),
+          f"tp-moe engine {backend}: tokens {tuple(toks.shape)}, logits finite "
+          f"{bool(torch.isfinite(logits).all())}")
+    step_ms = decode_s * 1e3 / GEN
+    idle = idle_share(lambda: eng.decode_step(toks[:, 0], cache), 1, decode_s / GEN,
+                      f"tp-moe {backend} decode")
+    print(f"engine tp-moe tp={n} {backend} on {card}: prefill {prefill_s * 1e3:.1f} ms (B={B}, "
+          f"S={S}, on {eng.prefill_backend}), decode {GEN} steps {decode_s * 1e3:.1f} ms "
+          f"({step_ms:.2f} ms/step, {B * GEN / decode_s:.1f} tok/s), launches a step "
+          f"{sum(c_decode.values()) // GEN}; prefill {c_prefill} decode {c_decode}", flush=True)
+    return dict(prefill=c_prefill, decode=c_decode, ms_per_step=step_ms, idle=idle,
+                prefill_ms=prefill_s * 1e3)
+
+
+@contextlib.contextmanager
+def plain_kernels():
+    """TP_MoE's kernels swapped for their plain versions (the layer calls
+    them through layers/tp_moe.py's module names): the same forms, the
+    plain arithmetic."""
+    from triton_dist_tpu_torch import kernels as K
+    from triton_dist_tpu_torch.layers import tp_moe
+    names = ("grouped_gemm", "ag_group_gemm", "moe_reduce_rs", "moe_reduce_ar")
+    real = {nm: getattr(tp_moe, nm) for nm in names}
+    plain = {"grouped_gemm": K.grouped_gemm_ref,
+             "ag_group_gemm": lambda x, w, mesh: K.ag_group_gemm_ref(x, w),
+             "moe_reduce_rs": lambda h, w, mesh: K.moe_reduce_rs_ref(h, w),
+             "moe_reduce_ar": lambda h, w, mesh: K.moe_reduce_ar_ref(h, w)}
+    for nm in names:
+        setattr(tp_moe, nm, plain[nm])
+    try:
+        yield
+    finally:
+        for nm in names:
+            setattr(tp_moe, nm, real[nm])
+
+
+def tp_moe_layer_check(mesh, model) -> dict:
+    """Layer 0 of the TP-MoE model at the serving layer's shape (B=128
+    rows), capacity 2.0: TP_MoE(mode="fused") (ag_group_gemm,
+    moe_reduce_rs) and mode="fused_ar" (grouped_gemm, moe_reduce_ar), each
+    against the same form on the plain kernels (the same routing: the
+    router products are the same ops on the same rows) within
+    TP_MOE_LIMIT, with exact launch counts; then each timed beside the
+    serving forms' chains (fwd_dist, fwd_local)."""
+    from triton_dist_tpu_torch import kernels as K
+    lay = model.layers[0].moe
+    dev = mesh.devices[0]
+    n, per_call = mesh.size, len(mesh.device_groups())
+    gen = torch.Generator(device=dev).manual_seed(3)
+    x = (torch.randn((B, D), generator=gen, device=dev) * 0.5).to(model.config.torch_dtype)
+    shards, copies = list(x.chunk(n)), mesh.replicate(x)
+    shards = [s.to(d) for s, d in zip(shards, mesh.devices)]
+    out = {}
+    want = {"fused": {"ag_group_gemm": per_call, "moe_reduce_rs": per_call},
+            "fused_ar": {"grouped_gemm": n, "moe_reduce_ar": per_call}}
+    K.reset_launch_counts()
+    for mode, xs in (("fused", shards), ("fused_ar", copies)):
+        before = K.launch_counts()
+        got = lay(xs, mode)
+        sync(mesh)
+        c = {nm: v - before[nm] for nm, v in K.launch_counts().items()}
+        for nm, w in want[mode].items():
+            check(c[nm] == w, f"tp-moe layer {mode}: {nm} launched {c[nm]} times, want {w}")
+        only_launched(c, tuple(want[mode]), f"tp-moe layer {mode}")
+        with plain_kernels():
+            ref = lay(xs, mode)
+        err = max(((g.float() - r.float()).abs().max() / r.float().abs().max()).item()
+                  for g, r in zip(got, ref))
+        check(err <= TP_MOE_LIMIT, f"tp-moe layer {mode} vs plain kernels: {err} > "
+              f"{TP_MOE_LIMIT}")
+        out[mode] = err
+    out["launches"] = K.launch_counts()
+    for mode, xs in (("fused", shards), ("dist", shards), ("fused_ar", copies),
+                     ("flash", copies)):
+        out[f"{mode} ms"] = cuda_ms(lambda mode=mode, xs=xs: lay(xs, mode), mesh, reps=10)
+    print(f"tp-moe layer 0, B={B} rows, capacity {lay.capacity_factor}: fused "
+          f"{out['fused']:.4g} and fused_ar {out['fused_ar']:.4g} of max from the plain "
+          f"kernels; ms fused {out['fused ms']:.4f} (fwd_dist chain {out['dist ms']:.4f}), "
+          f"fused_ar {out['fused_ar ms']:.4f} (fwd_local chain {out['flash ms']:.4f})",
+          flush=True)
+    return out
+
+
+def cut_layers(model, n_layers):
+    """`model` over its first n_layers layers (the same storage), or the
+    model itself."""
+    if n_layers is None or n_layers >= model.config.num_layers:
+        return model
+    import dataclasses
+    return dataclasses.replace(model, layers=model.layers[:n_layers],
+                               config=dataclasses.replace(model.config, num_layers=n_layers))
+
+
+def run_tp_moe(mesh, *, card: str, one=None, n_layers=None, n_req: int = N_REQ) -> dict:
+    """Every TP-MoE check on `mesh`: the kernel rows of rows 21-23; then
+    Qwen3-30B-A3B (`one`, the one-rank model at capacity 2.0, or drawn here
+    from seed 0, bf16; cut to its first n_layers layers, the same storage)
+    split over the mesh with moe_impl="tp" (its rank panels views of the
+    one-rank model's): per backend of TP_MOE_BACKENDS the engine at B=128;
+    paged serving on "dist" of the traffic's first n_req requests (at most
+    EP_SERVE_GEN tokens each) at 64 slots; dropless, the gate with the
+    routing pinned and the serving arm (TP_MOE_DL_REQS requests on
+    TP_MOE_DL_SLOTS slots, at most EP_DL_GEN tokens each) whose streams are
+    held to the plain engine; then the fused layer forms. Returns the kernel
+    rows and the launch counts and metrics of each phase."""
+    import triton_dist_tpu_torch.kernels as k
+    import triton_dist_tpu_torch.models as m
+    t0 = time.perf_counter()
+    rows = tp_moe_kernel_rows(mesh)
+    print(f"[tp-moe {time.perf_counter() - t0:.1f} s] kernel rows done", flush=True)
+    cfg = m.qwen3_30b_a3b()
+    if one is None:
+        if n_layers is not None:
+            import dataclasses
+            cfg = dataclasses.replace(cfg, num_layers=n_layers)
+        one = m.AutoLLM.from_config(cfg, device=mesh.devices[0], seed=0, capacity_factor=2.0)
+    one = cut_layers(one, n_layers)
+    cfg = one.config
+    model = one.to_mesh(mesh, "tp")
+    gen = torch.Generator(device=mesh.devices[0]).manual_seed(0)
+    ids = torch.randint(0, cfg.vocab_size, (B, S), generator=gen, device=mesh.devices[0])
+    reqs = [m.Request(r.rid, r.ids, min(r.gen_len, EP_SERVE_GEN))
+            for r in serving_requests(m, cfg.vocab_size, max(n_req, TP_MOE_DL_REQS))]
+    res = {}
+    for backend in TP_MOE_BACKENDS:
+        res[backend] = tp_moe_engine_check(m, k, mesh, model, ids, backend, card)
+        print(f"[tp-moe {time.perf_counter() - t0:.1f} s] engine {backend} done", flush=True)
+    dist_kernels = ("grouped_gemm", "ag_gemm", "gemm_rs", "all_gather", "reduce_scatter")
+    res["dist"]["paged"], _, _ = moe_serving_check(
+        m, k, mesh, model, reqs[:n_req], "dist", card, SERVE_B, dist_kernels,
+        tp_moe_allowed("dist") + ("flash_decode_paged",), "tp-moe")
+    print(f"[tp-moe {time.perf_counter() - t0:.1f} s] serving dist done", flush=True)
+    set_capacity(one, "dropless")
+    set_capacity(model, "dropless")
+    try:
+        for backend, pre in TP_MOE_BACKENDS.items():
+            kw = {} if pre is None else {"prefill_backend": pre}
+            res[backend].update(moe_gate(m, mesh, one, model, ids, backend, "tp-moe", **kw))
+            dl = [m.Request(r.rid, r.ids, min(r.gen_len, EP_DL_GEN))
+                  for r in reqs[:TP_MOE_DL_REQS]]
+            # the admissions run on the prefill backend ("gemm_ar": "flash",
+            # no comm kernel), the ticks on the backend
+            _, out, st = moe_serving_check(
+                m, k, mesh, model, dl, backend, card, TP_MOE_DL_SLOTS,
+                dist_kernels if backend == "dist" else ("grouped_gemm",),
+                tp_moe_allowed(backend) + tp_moe_allowed(pre or backend)
+                + ("flash_decode_paged",), "tp-moe", **kw)
+            check(st["moe_capacity_drops"] == 0,
+                  f"tp-moe serving {backend} dropless: {st['moe_capacity_drops']} drops")
+            forced, worst = moe_served_check(m, mesh, one, model, backend, dl, out,
+                                             f"tp-moe serving {backend} dropless", **kw)
+            res[backend]["served"] = dict(forced=forced, worst=worst)
+            print(f"serving tp-moe {backend} dropless: {forced} served tokens of {len(dl)} "
+                  f"requests checked against the forward's argmax (margin rule at "
+                  f"{MOE_SERVE_LIMIT}), its logits within {worst:.5f} of the one-rank plain "
+                  f"engine's (routing pinned, limit {MOE_LIMIT})", flush=True)
+            print(f"[tp-moe {time.perf_counter() - t0:.1f} s] dropless {backend} done",
+                  flush=True)
+    finally:
+        set_capacity(one, 2.0)
+        set_capacity(model, 2.0)
+    res["layer"] = tp_moe_layer_check(mesh, model)
+    print(f"[tp-moe {time.perf_counter() - t0:.1f} s] fused layer forms done", flush=True)
+    del model
+    return dict(rows=rows, counts=res)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--cards", type=int, default=1,
@@ -1006,6 +1360,8 @@ def main() -> int:
     ap.add_argument("--json", default=None, help="write the rows and summary here")
     ap.add_argument("--ep", action="store_true",
                     help="the expert-parallel checks alone (run_ep, Qwen3-30B-A3B)")
+    ap.add_argument("--tp-moe", action="store_true",
+                    help="the tensor-parallel MoE checks alone (run_tp_moe, Qwen3-30B-A3B)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise RuntimeError("tp_check needs an NVIDIA card")
@@ -1027,11 +1383,11 @@ def main() -> int:
         mesh = make_mesh(4, devices=["cuda:0"] * 4)
     else:
         raise ValueError("--cards is 1 or 4")
-    fn = run_ep if args.ep else run
+    fn = run_tp_moe if args.tp_moe else run_ep if args.ep else run
     res = fn(mesh, card=card.replace("\n", "; "), n_layers=args.layers, n_req=args.requests)
     summary = {b: {kk: v for kk, v in c.items()
-                   if kk in ("ms_per_step", "idle", "gaps", "prefill_ms") or "ms" in kk
-                   or kk.startswith("ep_fused")}
+                   if kk in ("ms_per_step", "idle", "gaps", "prefill_ms", "served") or "ms" in kk
+                   or kk.startswith(("ep_fused", "fused"))}
                for b, c in res["counts"].items()}
     if args.json:
         with open(args.json, "w") as f:
