@@ -191,9 +191,10 @@ NVIDIA card: the quickest proof that the port still starts on the GPU.
    launching the backend's comm kernels alone, every served stream of
    the three backends held to the one-rank plain engine.
 12. Expert-parallel phase (tools/tp_check.py `run_ep`), on the MoE
-   phases' model cut to its first MOE_MESH_LAYERS = 24 of 48 layers (a
-   Qwen3MoE over layers[:24], the same storage; 48 until the
-   tensor-parallel MoE phase came), its experts split over four ranks
+   phases' model cut to its first MOE_MESH_LAYERS = 16 of 48 layers (a
+   Qwen3MoE over layers[:16], the same storage; 48 until the
+   tensor-parallel MoE phase came, 24 until the sequence-parallel phase
+   came; the checks do not depend on depth), its experts split over four ranks
    emulated on the card (Qwen3MoE.to_mesh(mesh, "ep"): the expert panels
    views of the one-rank model's, 32 experts a rank; full width). Kernel
    rows 18-20: all_to_all (the combine) and dispatch_a2a (payload and
@@ -220,7 +221,7 @@ NVIDIA card: the quickest proof that the port still starts on the GPU.
    and int8 panels) against fwd_ep, dropless, timed beside the fwd_ep
    chain.
 13. Tensor-parallel MoE phase (tools/tp_check.py `run_tp_moe`), on the
-   same 24 layers, each expert's intermediate columns split over four
+   same 16 layers, each expert's intermediate columns split over four
    ranks emulated on the card (Qwen3MoE.to_mesh(mesh, "tp"): rank r's
    [gate_r | up_r] two column blocks of the one-rank [gate | up] panel and
    its w_down rows, views, 192 columns a rank). Kernel rows 21-23:
@@ -242,7 +243,34 @@ NVIDIA card: the quickest proof that the port still starts on the GPU.
    Then TP_MoE(mode="fused") and mode="fused_ar" at the serving layer (128
    rows), each within TP_MOE_LIMIT of the same form on the plain kernels,
    timed beside the fwd_dist and fwd_local chains.
-14. Prints one JSON line of per-kernel results, then, last, the device
+14. Sequence-parallel phase (tools/sp_check.py `run_sp`; it runs right
+   after the tensor-parallel phase, before the MoE phases take the card's
+   memory), over four ranks emulated on the card. Kernel rows 24-26:
+   lse_combine (the serving tick's 8 slots and the SPAttn decode, f32
+   partials, rows that own no key giving 0), kv_scatter (the SPAttn
+   prefill's 4096-position blocks into 8192-position windows, bf16,
+   bitwise) and ring_attn (B=1 x S=16384, Hq=16, Hkv=8, d=128, bf16,
+   causal), each within sp_check.SP_KERNEL_LIMIT of its plain version
+   (tools/fault_margin.py --sp) and timed beside its plain version, the
+   library call (kv_scatter: one copy_ of the block; ring_attn:
+   scaled_dot_product_attention over the whole sequence, is_causal,
+   enable_gqa) and its bound; the registry's three SP specs (f32) held to
+   the same specs on a CPU mesh. SPAttn at Qwen3-1.7B's attention widths
+   (D=2048, Hq=16, Hkv=8, hd=128, QK-norms, bf16): B=1 x S=16384 over the
+   ranks into a T=32768 cache, prefill(mode="ring_shmem") against
+   prefill(mode="ring") (one ring_attn and two kv_scatter, nothing else),
+   then 16 decode steps with combine "dist" against "xla". Serving:
+   Qwen3-1.7B at all 28 layers, bf16, sp_combine "dist",
+   Engine(backend="flash"), ContinuousScheduler(paged=True, page=16) at 8
+   slots: 8 requests sharing a 1024-token system prompt (prompts of
+   3072-4096 tokens), 32 tokens each, the prefix cache hitting across the
+   shards, only the SP path's kernels launched; every served stream held
+   to the one-rank plain engine by the margin rule at sp_check.SP_GATE;
+   every shard's residency 0 once the radix tree is dropped; the same
+   prompts admitted by hand and 4 decode steps whose "dist" logits are
+   held to "xla"; one bare tick with no host sync, then profiled (tok/s,
+   TTFT, ms per step, launches per step, idle share).
+15. Prints one JSON line of per-kernel results, then, last, the device
    line {"ok": true, "device": {...}}.
 
 Exits non-zero, printing no result, if there is no CUDA device, if the
@@ -354,8 +382,9 @@ SP_RANKS = 4
 # room for the expert-parallel phase (its checks do not depend on depth)
 TP_LAYERS = 14
 # the expert-parallel and tensor-parallel MoE phases' depth: Qwen3-30B-A3B
-# cut from 48 layers (the same storage) to make room for the second
-MOE_MESH_LAYERS = 24
+# cut from 48 layers (the same storage) to make room for the second, then
+# from 24 to make room for the sequence-parallel phase
+MOE_MESH_LAYERS = 16
 
 
 def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
@@ -2602,7 +2631,10 @@ def tp_phase(k, card):
     from triton_dist_tpu_torch.tools import tp_check
     mesh = make_mesh(4, devices=["cuda:0"] * 4)
     cpu_mesh = make_mesh(4, devices=["cpu"] * 4)
-    comm = {n: s_ for n, s_ in k.kernel_registry().items() if s_.min_devices > 1}
+    # the sequence-parallel specs run in the SP phase
+    from triton_dist_tpu_torch.tools.sp_check import SP_SPECS
+    comm = {n: s_ for n, s_ in k.kernel_registry().items()
+            if s_.min_devices > 1 and n not in SP_SPECS}
     k.reset_launch_counts()
     outs = {}
     for name, spec in comm.items():
@@ -2684,6 +2716,22 @@ def tp_moe_phase(k, card, model):
         check(counts["dist engine"][n] > 0, f"tp-moe phase: {n} did not run in the engine")
     symm_mem.clear_registry()
     return [(r, ("tp_moe", "fused layer")) for r in res["rows"]], counts
+
+
+def sp_phase(k, card):
+    """The sequence-parallel phase (14. above). Returns its kernel rows with
+    their launch-count keys and the counts they read."""
+    from triton_dist_tpu_torch.runtime import make_mesh, symm_mem
+    from triton_dist_tpu_torch.tools import sp_check
+    mesh = make_mesh(4, devices=["cuda:0"] * 4)
+    res = sp_check.run_sp(mesh, card=card)
+    c = res["counts"]
+    counts = {"prefill": c["layer"]["prefill ring_shmem"], "serving": c["serving"]["serving"]}
+    key = {"lse_combine": "serving", "kv_scatter": "prefill", "ring_attn": "prefill"}
+    for n, ph in key.items():
+        check(counts[ph][n] > 0, f"sp phase: {n} did not run in the {ph}")
+    symm_mem.clear_registry()
+    return [(r, ("sp", key[r["name"]])) for r in res["rows"]], counts
 
 
 def main() -> int:
@@ -2798,6 +2846,11 @@ def main() -> int:
     tp_rows, counts["tp"] = tp_phase(k, card)
     rows += tp_rows
     stamp("tensor-parallel phase")
+    gc.collect()
+    torch.cuda.empty_cache()
+    sp_rows, counts["sp"] = sp_phase(k, card)
+    rows += sp_rows
+    stamp("sequence-parallel phase")
 
     # MoE: Qwen3-30B-A3B, about 61 GB of bf16 weights, built once every
     # dense model is gone

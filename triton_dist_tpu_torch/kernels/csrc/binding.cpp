@@ -368,6 +368,47 @@ void moe_reduce_ar(int dtype, const Ptrs& h, const Ptrs& w, const Ptrs& w_es, co
       ctas, stream(st)));
 }
 
+void lse_combine(const Ptrs& acc, const Ptrs& st, const Ptrs& out, const Ptrs& land,
+                 const Ptrs& land_st, const Ptrs& sig, int first_rank, int n_local,
+                 int64_t epoch, int R, int d, int ctas, int64_t st_) {
+  C10_CUDA_CHECK(tdt::lse_combine(
+      comm_args(acc, st, {}, out, land_st, land, sig, first_rank, n_local, epoch), R, d, ctas,
+      stream(st_)));
+}
+
+void kv_scatter(const Ptrs& src, const Ptrs& cache, const Ptrs& sig, int first_rank,
+                int n_local, int64_t epoch, int BH, int s_loc, int t_loc, int64_t row_vec,
+                int ctas, int64_t st) {
+  C10_CUDA_CHECK(tdt::kv_scatter(
+      comm_args(src, {}, {}, cache, {}, {}, sig, first_rank, n_local, epoch), BH, s_loc, t_loc,
+      row_vec, ctas, stream(st)));
+}
+
+void ring_attn(int dtype, int HD, const Ptrs& q, const Ptrs& k, const Ptrs& v, const Ptrs& acc,
+               const Ptrs& m, const Ptrs& l, const Ptrs& land_k, const Ptrs& land_v,
+               const Ptrs& sig, int first_rank, int n_local, int64_t epoch, int X, int rows,
+               int s_loc, int rep, int causal, double scale, int ctas, int64_t st) {
+  tdt::RingAttnArgs r{};
+  r.c = comm_args(q, k, {}, acc, {}, land_k, sig, first_rank, n_local, epoch);
+  const int n = r.c.n;
+  TORCH_CHECK(static_cast<int>(v.size()) == n && static_cast<int>(m.size()) == n &&
+                  static_cast<int>(l.size()) == n && static_cast<int>(land_v.size()) == n,
+              "ring_attn: one v, m, l and v landing pointer per rank");
+  for (int i = 0; i < n; ++i) {
+    r.v[i] = ptr<const void>(v[i]);
+    r.land_v[i] = ptr<void>(land_v[i]);
+    r.m[i] = ptr<float>(m[i]);
+    r.l[i] = ptr<float>(l[i]);
+  }
+  r.X = X;
+  r.rows = rows;
+  r.s_loc = s_loc;
+  r.rep = rep;
+  r.causal = causal;
+  r.scale = static_cast<float>(scale);
+  C10_CUDA_CHECK(tdt::ring_attn(dtype, HD, r, ctas, stream(st)));
+}
+
 // peer access from device `dev` to `peer` (a mesh of distinct cards);
 // enabling it twice is not an error
 void enable_peer_access(int dev, int peer) {
@@ -411,5 +452,8 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("ag_group_gemm", &ag_group_gemm);
   m.def("moe_reduce_rs", &moe_reduce_rs);
   m.def("moe_reduce_ar", &moe_reduce_ar);
+  m.def("lse_combine", &lse_combine);
+  m.def("kv_scatter", &kv_scatter);
+  m.def("ring_attn", &ring_attn);
   m.def("enable_peer_access", &enable_peer_access);
 }

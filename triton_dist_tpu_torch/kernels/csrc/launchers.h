@@ -279,4 +279,34 @@ cudaError_t moe_reduce_rs(int dtype, const MoeCommArgs& m, long long cvec, int c
                           cudaStream_t stream);
 cudaError_t moe_reduce_ar(int dtype, const MoeCommArgs& m, int ctas, cudaStream_t stream);
 
+// The sequence-parallel kernels.
+// csrc/lse_combine.cu, the one-shot LSE merge of split-KV partials: in =
+// each rank's acc [R, d] f32, in2 = its stats [2, R] f32 (row 0 m, row 1 l);
+// land = each rank's symmetric landing buffer [n, R, d] f32, out2 = its
+// symmetric stats landing [n, 2, R] f32; out = each rank's merged [R, d]
+// f32. d a multiple of 4, every pointer 16-byte aligned.
+cudaError_t lse_combine(const CommArgs& a, int R, int d, int ctas, cudaStream_t stream);
+// csrc/kv_scatter.cu, the fill of a sequence-sharded cache: in = each rank's
+// block [BH, s_loc, row] of new K or V, out = each rank's cache window [BH,
+// t_loc, row] (updated in place); rows of row_vec 16-byte vectors;
+// t_loc a multiple of s_loc, n * s_loc <= n * t_loc.
+cudaError_t kv_scatter(const CommArgs& a, int BH, int s_loc, int t_loc, long long row_vec,
+                       int ctas, cudaStream_t stream);
+// csrc/ring_attn.cu, causal (or full) ring attention over sequence shards:
+// c.in = each rank's folded q [X, rows, HD] (rows = s_loc * rep), c.in2 =
+// its k [X, s_loc, HD], v = its v; c.land / land_v = each rank's symmetric
+// double-buffered landing slots [2, X, s_loc, HD] for k and v; outputs
+// (unnormalised, f32) c.out = acc [X, rows, HD], m, l [X, rows]. dtype bf16
+// or f32 (q, k, v, the slots alike); HD 64 or 128.
+struct RingAttnArgs {
+  CommArgs c;
+  const void* v[kMaxRanks];
+  void* land_v[kMaxRanks];
+  float* m[kMaxRanks];
+  float* l[kMaxRanks];
+  int X, rows, s_loc, rep, causal;
+  float scale;
+};
+cudaError_t ring_attn(int dtype, int HD, const RingAttnArgs& r, int ctas, cudaStream_t stream);
+
 }  // namespace tdt

@@ -252,51 +252,91 @@ def _validate_paged(q, pk, pv, table, lens, k_scale, v_scale, quant: bool) -> No
 
 
 class PageAllocator:
-    """Host-side free list over the physical page pool (copied from the
-    JAX package's single-shard allocator, so that page ids are handed
-    out in the same order: lowest id first, freed ids reused last in,
-    first out). Page 0 is the first handed out; the serving layer
-    reserves it as the trash page. Pure host bookkeeping: allocation
-    changes the page TABLE (data), never the kernel."""
+    """Host-side free lists over the physical page pool (copied from the
+    JAX package's allocator, so that page ids are handed out in the same
+    order: lowest id first, freed ids reused last in, first out). Page 0
+    is the first handed out; the serving layer reserves it as the trash
+    page. Pure host bookkeeping: allocation changes the page TABLE
+    (data), never the kernel.
 
-    def __init__(self, num_pages: int):
-        if num_pages < 1:
-            raise ValueError(f"page pool of {num_pages} pages")
+    shards > 1 (sequence-parallel serving, models/kv_cache.py
+    PagedSlotCache with sp): the page-id space splits into contiguous
+    blocks, shard s owning ids [s * pps, (s + 1) * pps) (pps =
+    pages_per_shard, the device split of the pool); allocation rotates
+    across shards, so a slot's consecutive logical pages land on
+    different ranks, and a free returns a page to its own shard, so
+    `available_by_shard[s] + outstanding_by_shard[s] == pps` holds per
+    shard after any sequence of operations. shards == 1 is the
+    single-list allocator."""
+
+    def __init__(self, num_pages: int, shards: int = 1):
+        if num_pages < 1 or shards < 1 or num_pages % shards:
+            raise ValueError(
+                f"page pool of {num_pages} pages cannot split over {shards} shards: the sp "
+                "mesh size must divide the page count (pass num_pages as a multiple of the "
+                "sp axis, or shrink the axis)")
         self.num_pages = num_pages
-        # descending: pop() hands out the lowest id first
-        self._free = list(range(num_pages - 1, -1, -1))
+        self.shards = shards
+        self.pages_per_shard = pps = num_pages // shards
+        # per shard, descending: pop() hands out each shard's lowest id first
+        self._free_by_shard = [list(range((s + 1) * pps - 1, s * pps - 1, -1))
+                               for s in range(shards)]
+        self._rr = 0
         self._in_use = set()
+
+    def shard_of(self, page: int) -> int:
+        return int(page) // self.pages_per_shard
 
     @property
     def available(self) -> int:
-        return len(self._free)
+        return sum(len(f) for f in self._free_by_shard)
+
+    @property
+    def available_by_shard(self) -> List[int]:
+        return [len(f) for f in self._free_by_shard]
 
     @property
     def outstanding(self) -> int:
         return len(self._in_use)
 
+    @property
+    def outstanding_by_shard(self) -> List[int]:
+        out = [0] * self.shards
+        for p in self._in_use:
+            out[p // self.pages_per_shard] += 1
+        return out
+
     def _check(self) -> None:
-        """Pool conservation: every page is on the free list XOR
-        outstanding (a violation means the bookkeeping handed one page to
-        two holders)."""
+        """Pool conservation: every page is on a free list XOR outstanding
+        (a violation means the bookkeeping handed one page to two
+        holders)."""
         if self.available + len(self._in_use) != self.num_pages:
             raise RuntimeError(
                 f"page pool corrupted: {self.available} free + "
                 f"{len(self._in_use)} in use != {self.num_pages}")
 
+    def _pick_shard(self) -> int:
+        """The next shard in rotation with a free page."""
+        for i in range(self.shards):
+            s = (self._rr + i) % self.shards
+            if self._free_by_shard[s]:
+                self._rr = (s + 1) % self.shards
+                return s
+        raise ValueError("page pool exhausted: no shard has a free page")
+
     def alloc(self, n: int) -> List[int]:
-        """Take n pages off the free list (raises when the pool is
-        exhausted — the scheduler's admission check)."""
+        """Take n pages off the free lists, rotating across shards (raises
+        when the pool is exhausted: the scheduler's admission check)."""
         if n > self.available:
             raise ValueError(f"page pool exhausted: want {n}, have {self.available}")
-        out = [self._free.pop() for _ in range(n)]
+        out = [self._free_by_shard[self._pick_shard()].pop() for _ in range(n)]
         self._in_use.update(out)
         self._check()
         return out
 
     def free(self, pages) -> None:
-        """Return pages to the free list. Rejects out-of-range ids and
-        double frees BEFORE touching the pool."""
+        """Return pages to their own shard's free list. Rejects
+        out-of-range ids and double frees BEFORE touching the pool."""
         pages = [int(p) for p in pages]
         seen = set()
         for p in pages:
@@ -308,5 +348,5 @@ class PageAllocator:
             seen.add(p)
         for p in pages:
             self._in_use.remove(p)
-            self._free.append(p)
+            self._free_by_shard[p // self.pages_per_shard].append(p)
         self._check()

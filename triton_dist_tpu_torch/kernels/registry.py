@@ -6,9 +6,10 @@ Counterpart of triton_dist_tpu/kernels/__init__.py (`KernelSpec`,
 `_b_gdn`, `_b_flash_attention`, and the collectives' `_b_allgather`,
 `_b_reduce_scatter`, `_b_allreduce`, `_b_ag_gemm`, `_b_gemm_rs`,
 `_b_gemm_ar`, `_b_all_to_all`, `_b_ep_dispatch_combine`, `_b_ep_fused`,
-`_b_ag_group_gemm`, `_b_moe_reduce`): the eight specs whose `min_devices`
-is 1, whose build takes a device, and the sixteen of the ported
-collectives (min_devices 2, kind "comm"),
+`_b_ag_group_gemm`, `_b_moe_reduce`, and the sequence-parallel
+`_b_sp_flash_decode`, `_b_kv_scatter`, `_b_sp_ring`): the eight specs
+whose `min_devices` is 1, whose build takes a device, and the nineteen of
+the ported collectives (min_devices 2, kind "comm"),
 whose build takes a mesh (runtime/bootstrap.py) and returns one input
 per rank.
 Each build function draws its inputs from the same
@@ -271,6 +272,46 @@ def _b_moe_reduce(which: str):
     return build
 
 
+def _b_sp_flash_decode(mesh):
+    """q [1, 1, 4, 128] replicated, k and v [1, 2, 16n, 128] sharded on T
+    (seed 5, the JAX order), combine "dist"; args: the n q copies, the n k
+    windows, the n v windows."""
+    from triton_dist_tpu_torch.kernels.sp_flash_decode import sp_flash_decode
+    n = mesh.size
+    rng = np.random.RandomState(5)
+    B, Hq, Hkv, T, d = 1, 4, 2, 16 * n, 128
+    q, k, v = _f32(rng, B, 1, Hq, d), _f32(rng, B, Hkv, T, d), _f32(rng, B, Hkv, T, d)
+    return ((lambda *a: sp_flash_decode(list(a[:n]), list(a[n:2 * n]), list(a[2 * n:]), T,
+                                        mesh=mesh, combine="dist")),
+            tuple(mesh.replicate(q) + _split(k, mesh, 2) + _split(v, mesh, 2)))
+
+
+def _b_kv_scatter(mesh):
+    """cache and new [1, 2, 16n, 128], both sharded on positions (seed 6,
+    the JAX order; s_loc = t_loc); args: the n cache windows (updated in
+    place), then the n new blocks."""
+    from triton_dist_tpu_torch.kernels.sp_flash_decode import kv_cache_scatter
+    n = mesh.size
+    rng = np.random.RandomState(6)
+    cache, new = _f32(rng, 1, 2, 16 * n, 128), _f32(rng, 1, 2, 16 * n, 128)
+    return ((lambda *a: kv_cache_scatter(list(a[:n]), list(a[n:]), mesh=mesh)),
+            tuple(_split(cache, mesh, 2) + _split(new, mesh, 2)))
+
+
+def _b_sp_ring(mesh):
+    """q [1, 8n, 2, 128] sharded on positions, k and v [1, 2, 8n, 128]
+    (seed 7, the JAX order), causal, mode "ring_shmem"; args: the n q, k,
+    v shards in that order."""
+    from triton_dist_tpu_torch.kernels.sp_attention import sp_ring_attention
+    n = mesh.size
+    rng = np.random.RandomState(7)
+    B, H, S, d = 1, 2, 8 * n, 128
+    q, k, v = _f32(rng, B, S, H, d), _f32(rng, B, H, S, d), _f32(rng, B, H, S, d)
+    return ((lambda *a: sp_ring_attention(list(a[:n]), list(a[n:2 * n]), list(a[2 * n:]),
+                                          mesh=mesh, mode="ring_shmem")),
+            tuple(_split(q, mesh, 1) + _split(k, mesh, 2) + _split(v, mesh, 2)))
+
+
 @functools.lru_cache(maxsize=None)
 def kernel_registry() -> dict:
     """The canonical enumeration of the port's kernels: name -> KernelSpec."""
@@ -314,6 +355,12 @@ def kernel_registry() -> dict:
         KernelSpec("moe_reduce_rs", "kernels.moe_reduce_rs", "comm", _b_moe_reduce("rs"),
                    min_devices=2),
         KernelSpec("moe_reduce_ar", "kernels.moe_reduce_ar", "comm", _b_moe_reduce("ar"),
+                   min_devices=2),
+        KernelSpec("sp_flash_decode_dist", "kernels.sp_flash_decode", "comm",
+                   _b_sp_flash_decode, min_devices=2),
+        KernelSpec("kv_cache_scatter", "kernels.sp_flash_decode", "comm", _b_kv_scatter,
+                   min_devices=2, inplace=(0,)),
+        KernelSpec("sp_ring_shmem", "kernels.sp_attention", "comm", _b_sp_ring,
                    min_devices=2),
     ]
     return {s.name: s for s in specs}

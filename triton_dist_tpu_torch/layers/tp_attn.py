@@ -42,6 +42,19 @@ bounds, where XLA drops them; torch has no dropping scatter, so a
 padding row writes back the value already held at a position no valid
 row of its slot writes in that call (`_window_positions`), never at a
 clamped index, which could race a valid write to the last position.
+
+Sequence parallelism (`_attend_paged_slots_sp`, `fwd_cached_slots_paged_sp`,
+`fwd_cached_slots_paged_verify_sp`; the JAX layer's SP attend): the model
+runs the one-rank layer once per distinct device of its sp mesh (on one
+card once for all four ranks, the weights shared), and only the paged
+attention is split. Each rank writes the new rows of the pages it owns
+into its block of the pool (the others into its sink page,
+models/kv_cache.py), walks the logical pages it owns through its local
+table with flash_decode_paged_partial (row 4's partial form), and the
+ranks' partials merge in kernels/sp_flash_decode.py sp_combine_partials
+("xla", or "dist": the lse_combine kernel). The per-rank table, ownership
+mask and write destinations depend only on the table and the positions,
+so `sp_paged_context` builds them once per forward for every layer.
 """
 
 from __future__ import annotations
@@ -63,6 +76,8 @@ from triton_dist_tpu_torch.kernels.gemm_allreduce import gemm_allreduce
 from triton_dist_tpu_torch.kernels.gemm_reduce_scatter import gemm_rs
 from triton_dist_tpu_torch.kernels.grad import ag_gemm_grad, gemm_rs_grad
 from triton_dist_tpu_torch.kernels.paged_kv import (flash_decode_paged,
+                                                   flash_decode_paged_partial,
+                                                   flash_decode_paged_partial_ref,
                                                    flash_decode_paged_ref)
 from triton_dist_tpu_torch.kernels.quant import Weight, qmm, quantize_kv_int8
 from triton_dist_tpu_torch.layers.common import (apply_rope, apply_rope_slots,
@@ -463,6 +478,72 @@ class TP_Attn:
                                                 kv, table, pos, q_lens, impl)
         return self._o_proj(o, mode), kv
 
+    def _attend_paged_slots_sp(self, qkv, cos, sin, batch: int, kv, ctx, mesh,
+                               combine: str = "xla", impl: str = "flash", layers=None):
+        """The sequence-parallel paged attend (the JAX
+        `_attend_paged_slots_sp`). qkv, cos, sin: one per distinct device
+        of `mesh` (its device groups, in order); kv: the layer's pools, one
+        tuple per rank (its block, (pages_k, pages_v[, scales_k,
+        scales_v])); ctx: sp_paged_context of this forward; layers: this
+        layer's copy on each distinct device (default [self]). Returns (o per
+        distinct device, [B*S, Hq*hd]), the pools updated in place."""
+        from triton_dist_tpu_torch.kernels.sp_flash_decode import sp_combine_partials
+        hq, hd = self.n_heads, self.head_dim
+        quant = len(kv[0]) == 4
+        M = qkv[0].shape[0]
+        S = M // batch
+        groups = mesh.device_groups()
+        accs, ms, ls = [], [], []
+        layers = layers or [self]
+        for gi, (_, ranks) in enumerate(groups):
+            q, k, v = layers[gi]._window_qkv(qkv[gi], cos[gi], sin[gi], batch,
+                                             ctx[ranks[0]]["pos"])
+            for rk in ranks:
+                c = ctx[rk]
+                planes = tuple(t[:, 0] for t in kv[rk])              # plane 0 views
+                idx = (c["dest"], c["row"])
+                if quant:
+                    (k8, ks), (v8, vs) = quantize_kv_int8(k), quantize_kv_int8(v)
+                    news = (k8, v8, ks, vs)
+                else:
+                    news = (k, v)
+                for buf, new in zip(planes, news):
+                    buf[idx] = new.reshape(c["dest"].shape + new.shape[3:]).to(buf.dtype)
+                qd = (torch.bfloat16 if impl == "flash" else torch.float32) if quant \
+                    else planes[0].dtype
+                attend = (flash_decode_paged_partial if impl == "flash"
+                          else flash_decode_paged_partial_ref)
+                a, m_, l_ = attend(q.to(qd), planes[0], planes[1], c["table"],
+                                   kv_lens=c["lens"], q_lens=c["q_lens"], tile_owned=c["owned"],
+                                   scale=hd ** -0.5, **_scales(planes))
+                accs.append(a)
+                ms.append(m_)
+                ls.append(l_)
+        outs = sp_combine_partials(accs, ms, ls, mesh=mesh, combine=combine,
+                                   out_dtype=torch.float32)
+        return [outs[ranks[0]].reshape(M, hq * hd).to(qkv[gi].dtype)
+                for gi, (_, ranks) in enumerate(groups)]
+
+    def fwd_cached_slots_paged_sp(self, x, cos, sin, batch: int, kv, ctx, mesh,
+                                  mode: str = "flash", combine: str = "xla", layers=None):
+        """Slot-masked attention block over the sequence-parallel paged
+        pool: fwd_cached_slots_paged's contract (with ctx's q_lens, its
+        window form's: speculative verify, chunked prefill) with each rank
+        walking only its pages and the partials merged across the mesh.
+        x: one [B*S, D] per distinct device of `mesh`; layers: this layer's
+        copy on each distinct device (default [self], one card). Returns
+        (y per distinct device, kv)."""
+        check_mode(mode)
+        layers = layers or [self]
+        impl = "ref" if mode == "xla" else "flash"
+        qkv = [ly._qkv_proj(xd, mode) for ly, xd in zip(layers, x)]
+        o = self._attend_paged_slots_sp(qkv, cos, sin, batch, kv, ctx, mesh, combine, impl,
+                                        layers)
+        return [ly._o_proj(od, mode) for ly, od in zip(layers, o)], kv
+
+    # the window form is the same block: the windows ride in ctx
+    fwd_cached_slots_paged_verify_sp = fwd_cached_slots_paged_sp
+
     def _local_attn_train(self, qkv, cos, sin, batch: int, impl: str = "flash"):
         """Full-causal attention for training: each of `batch` sequences of
         M // batch rows attends within itself, from position 0. qkv: [M,
@@ -498,6 +579,45 @@ class TP_Attn:
             return gemm_rs_grad()(self._local_attn_train(qkv, cos, sin, batch, "flash"),
                                   self.w_o)
         return self._local_attn_train(x @ self.w_qkv, cos, sin, batch, "ref") @ self.w_o
+
+
+def sp_paged_context(mesh, pcache, pos, q_lens=None, S: int = 1) -> list:
+    """Per rank of a sequence-parallel pool (models/kv_cache.py, sp > 1),
+    what every layer's attend of one forward needs: its local table
+    (global ids minus its block's first where it owns the page, else 0;
+    never read there), its ownership mask `owned` [B*Hkv, max_pages]
+    int32, the write destinations (`dest`, `row`) [B, S, Hkv] of the
+    window's K/V rows (its local page where it owns the target, else its
+    sink page pps; a padding row or a row past the table always the sink),
+    and the slot positions, lengths and windows on its device. pos, q_lens:
+    [B] int32 (q_lens None: the decode tick, S == 1)."""
+    pps = pcache.pages_per_shard
+    page, maxp = pcache.page, pcache.max_pages
+    B = pos.shape[0]
+    per_dev = {}
+    out = []
+    for me, (pc, dev) in enumerate(zip(pcache.parts(), mesh.devices)):
+        if dev not in per_dev:
+            p0 = pos.to(dev)
+            ql = None if q_lens is None else q_lens.to(dev)
+            wpos = p0.long()[:, None] + torch.arange(S, device=dev)[None]       # [B, S]
+            valid = wpos < maxp * page
+            if ql is not None:
+                valid &= torch.arange(S, device=dev)[None] < ql.long()[:, None]
+            Hkv = pc.table.shape[0] // B
+            streams = (torch.arange(B, device=dev) * Hkv)[:, None, None] \
+                + torch.arange(Hkv, device=dev)[None, None, :]
+            pidx = pc.table[streams, (wpos.clamp(max=maxp * page - 1) // page)[:, :, None]]
+            per_dev[dev] = dict(pos=p0, q_lens=ql, lens=p0 + (1 if ql is None else ql),
+                                pidx=pidx.long(), valid=valid[:, :, None],
+                                row=(wpos % page)[:, :, None].expand_as(pidx))
+        d = per_dev[dev]
+        owned = pc.table // pps == me
+        mine = d["valid"] & (d["pidx"] // pps == me)
+        out.append(dict(d, table=torch.where(owned, pc.table - me * pps, 0).to(torch.int32),
+                        owned=owned.to(torch.int32),
+                        dest=torch.where(mine, d["pidx"] - me * pps, pps)))
+    return out
 
 
 def _window_positions(pos, q_lens, S: int, cap: int):

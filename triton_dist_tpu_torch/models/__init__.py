@@ -15,8 +15,9 @@ from triton_dist_tpu_torch.models.scheduler import (  # noqa: F401
 
 class AutoLLM:
     """Config-based dispatch. MoE configs go to Qwen3MoE and take its
-    keyword arguments (moe_impl, capacity_factor); dense configs refuse
-    them."""
+    keyword arguments (moe_impl, capacity_factor); dense configs take a
+    mesh and the sequence-parallel ones (sp_axis, sp_combine) and refuse
+    the MoE ones."""
 
     @staticmethod
     def from_pretrained(path: str, device=None, **kw):
@@ -30,16 +31,19 @@ class AutoLLM:
     def from_config(cfg: ModelConfig, device=None, seed: int = 0, **kw):
         if cfg.is_moe:
             return Qwen3MoE.random_init(cfg, device=device, seed=seed, **kw)
-        _dense_kw_check(kw)
-        return DenseLLM.random_init(cfg, device=device, seed=seed)
+        _dense_kw_check(kw, {"mesh", "sp_axis", "sp_combine"})
+        return DenseLLM.random_init(cfg, device=device, seed=seed, **kw)
 
 
-def _dense_kw_check(kw) -> None:
-    """Dense models take no extra keyword arguments: the JAX package's
-    sequence-parallel ones are not ported, the rest are MoE-only."""
-    sp = set(kw) & {"sp_axis", "sp_combine"}
+def _dense_kw_check(kw, allowed=frozenset()) -> None:
+    """Dense models take no keyword arguments beyond `allowed` (a
+    checkpoint loads on one device; a random model also takes a mesh and
+    the sequence-parallel sp_axis and sp_combine); the rest are
+    MoE-only."""
+    sp = set(kw) & {"sp_axis", "sp_combine"} - set(allowed)
     if sp:
-        raise NotImplementedError(f"{sorted(sp)} (sequence-parallel serving): not yet "
-                                  "ported")
-    if kw:
-        raise ValueError(f"MoE-only kwargs {sorted(kw)} on a dense config")
+        raise NotImplementedError(f"{sorted(sp)} on a checkpoint load: not yet ported "
+                                  "(build it with from_config, or DenseLLM.to_mesh)")
+    extra = set(kw) - set(allowed)
+    if extra:
+        raise ValueError(f"MoE-only kwargs {sorted(extra)} on a dense config")

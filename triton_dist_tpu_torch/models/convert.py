@@ -22,7 +22,10 @@ Qwen3MoE.to_mesh for a MoE config), whatever the JAX model's size; a MoE
 config with moe_impl="ep" is split by experts over `mesh` or the device's
 one-rank mesh. The JAX EP model keeps each expert's [gate | up] whole
 along 2I (its panels split along E), so its expert panels need no
-unpacking.
+unpacking. A JAX model built over ("tp"=1, "sp"=n) for sequence-parallel
+serving keeps every weight whole and replicated (its tp axis has size 1):
+its arrays carry as a one-rank model's, and sp_axis="sp" with a mesh
+splits the port's model sequence-parallel (DenseLLM.to_mesh(mesh, "sp")).
 This module sees numpy arrays only, never a jax object.
 """
 
@@ -55,13 +58,15 @@ def to_torch(a: np.ndarray, device=None) -> torch.Tensor:
 
 def from_jax_arrays(cfg: ModelConfig, arrays: dict, device=None,
                     capacity_factor=2.0, *, mesh=None, jax_tp: int = 1,
-                    moe_impl: str = "tp", jax_moe_impl=None) -> DenseLLM:
+                    moe_impl: str = "tp", jax_moe_impl=None, sp_axis=None,
+                    sp_combine: str = "xla") -> DenseLLM:
     """The port's DenseLLM, or Qwen3MoE for a MoE config (with
     capacity_factor and moe_impl), holding the given parameters on
     `device` (with a mesh, on its rank 0's device, then split over it).
     jax_moe_impl: the JAX MoE model's own moe_impl, which lays out its
     expert panels ("tp" packs them per rank at jax_tp > 1, "ep" keeps them
-    whole); by default the port model's."""
+    whole); by default the port model's. sp_axis="sp" (a dense config
+    with a mesh): split sequence-parallel, merging by sp_combine."""
     dev = resolve_device(mesh.devices[0] if mesh is not None else device)
 
     def get(name):
@@ -109,7 +114,9 @@ def from_jax_arrays(cfg: ModelConfig, arrays: dict, device=None,
                 lm_head=get("lm_head"), cos=cos, sin=sin, config=cfg)
     if cfg.is_moe and (moe_impl == "ep" or mesh is not None):
         return model.to_mesh(mesh if mesh is not None else mesh_of(dev), moe_impl)
-    return model if mesh is None else model.to_mesh(mesh)
+    if mesh is None:
+        return model
+    return model.to_mesh(mesh, "sp" if sp_axis else "tp", sp_combine=sp_combine)
 
 
 def to_arrays(model: DenseLLM, grads: bool = False) -> dict:

@@ -34,6 +34,20 @@ decode forwards (`forward_tokens`, `forward_tokens_slots`,
 `forward_tokens_slots_paged`) run at n > 1; the window forms and training
 stay at one rank. A MoE model (models/qwen_moe.py) runs the same stack
 with its own FFN hook (`_ffn_ranks`) and attention mode (`_attn_mode`).
+
+Sequence parallelism (`to_mesh(mesh, "sp", sp_combine=)`,
+`random_init(..., mesh=, sp_axis="sp")`; the JAX model's `sp_axis` and
+`sp_combine` over a ("tp"=1, "sp"=n) mesh): the model stays one rank
+(tp = 1) and its mesh is the sp axis. The weights are replicated, one
+copy per distinct device (ranks on one card share it: `sp_layers`), and
+every layer runs once per distinct device; only the paged pool's page
+ids split over the ranks (models/kv_cache.py), so the paged slot
+forwards (`forward_tokens_slots_paged` and its window form) run each
+layer's attention as the SP attend (layers/tp_attn.py
+`fwd_cached_slots_paged_sp`: per-rank partials, then sp_combine
+"xla" or "dist"). `forward_tokens` (prefill, the paged admissions'
+suffix forward) runs on rank 0's device over a contiguous cache, as the
+JAX model runs it replicated.
 """
 
 from __future__ import annotations
@@ -92,6 +106,13 @@ class DenseLLM:
     # sin) on its device
     mesh: Optional[object] = None
     rope: Optional[list] = None
+    # sequence parallelism: the mesh is the sp axis ("sp"); sp_combine
+    # merges the ranks' partials ("xla" | "dist"); sp_layers holds the
+    # layers on each distinct device of the mesh (the first: `layers`),
+    # rope then (cos, sin) per distinct device
+    sp_axis: Optional[str] = None
+    sp_combine: str = "xla"
+    sp_layers: Optional[list] = None
 
     @property
     def device(self) -> torch.device:
@@ -100,17 +121,29 @@ class DenseLLM:
 
     @property
     def tp(self) -> int:
-        return 1 if self.mesh is None else self.mesh.size
+        return 1 if self.mesh is None or self.sp_axis else self.mesh.size
+
+    @property
+    def sp_size(self) -> int:
+        """The sp mesh size the paged pool's page ids split over (1: no
+        sequence parallelism)."""
+        return self.mesh.size if self.sp_axis else 1
 
     @staticmethod
-    def random_init(cfg: ModelConfig, device=None, seed: int = 0, mesh=None) -> "DenseLLM":
+    def random_init(cfg: ModelConfig, device=None, seed: int = 0, mesh=None,
+                    sp_axis: Optional[str] = None, sp_combine: str = "xla") -> "DenseLLM":
         """Random weights with Qwen3 shapes, drawn on `device` (default
         "cuda"; with a mesh, its rank 0's) from a torch.Generator seeded
         with `seed`. A tied head is a view of the embedding. With a mesh
-        of n > 1 ranks the one-rank model is drawn, then split
-        (`to_mesh`)."""
+        of n > 1 ranks the one-rank model is drawn, then split over it
+        (`to_mesh`): by heads, or with sp_axis="sp" sequence-parallel
+        (sp_combine "xla" or "dist")."""
+        if sp_axis is not None and sp_axis != "sp":
+            raise ValueError(f"sp_axis {sp_axis!r}: the port's meshes have one axis; pass "
+                             "sp_axis='sp' to split the paged pool over the mesh")
         if mesh is not None and mesh.size > 1:
-            return DenseLLM.random_init(cfg, mesh.devices[0], seed).to_mesh(mesh)
+            return DenseLLM.random_init(cfg, mesh.devices[0], seed).to_mesh(
+                mesh, "sp" if sp_axis else "tp", sp_combine=sp_combine)
         dev = resolve_device(device)
         gen = torch.Generator(device=dev).manual_seed(seed)
         D, I = cfg.hidden_size, cfg.intermediate_size
@@ -186,16 +219,24 @@ class DenseLLM:
                         final_norm=t("model.norm.weight"), lm_head=lm_head,
                         cos=cos, sin=sin, config=cfg)
 
-    def to_mesh(self, mesh) -> "DenseLLM":
+    def to_mesh(self, mesh, axis: str = "tp", sp_combine: str = "xla") -> "DenseLLM":
         """This one-rank model split over `mesh` (layers/tp_attn.py and
         tp_mlp.py `to_mesh`; norms, rope tables, embedding and head as
         the module docstring says); rank 0's device holds the embedding
-        and the head. A mesh of one rank returns the model itself. A MoE
-        model splits through its own `to_mesh` (models/qwen_moe.py)."""
+        and the head. axis="sp": sequence-parallel instead (the module
+        docstring), the partials merged by sp_combine ("xla" or "dist").
+        A mesh of one rank returns the model itself. A MoE model splits
+        through its own `to_mesh` (models/qwen_moe.py)."""
         if self.mesh is not None:
             raise ValueError("the model is already split over a mesh")
+        if axis not in ("tp", "sp"):
+            raise ValueError(f"axis {axis!r}: want 'tp' or 'sp'")
+        if sp_combine not in ("xla", "dist"):
+            raise ValueError(f"sp_combine {sp_combine!r}: want 'xla' or 'dist'")
         if mesh.size == 1:
             return self
+        if axis == "sp":
+            return self._to_sp_mesh(mesh, sp_combine)
         d0 = mesh.devices[0]
         layers = [DenseLayer(attn=ly.attn.to_mesh(mesh), mlp=ly.mlp.to_mesh(mesh),
                              ln_attn=mesh.replicate(ly.ln_attn),
@@ -209,6 +250,38 @@ class DenseLLM:
                         mesh=mesh, rope=[(self.cos.to(d), self.sin.to(d))
                                          for d in mesh.devices])
 
+    def _to_sp_mesh(self, mesh, sp_combine: str) -> "DenseLLM":
+        """The sequence-parallel form over `mesh`: the layers on rank 0's
+        device (this model's, when it lives there) and one copy on each
+        other distinct device."""
+        d0 = mesh.devices[0]
+        base = self if self.device == d0 else self._layers_on(d0)
+        stacks = [base.layers] + [self._layers_on(d).layers
+                                  for d, _ in mesh.device_groups()[1:]]
+        return dataclasses.replace(base, mesh=mesh, sp_axis="sp", sp_combine=sp_combine,
+                                   sp_layers=stacks,
+                                   rope=[(base.cos.to(d), base.sin.to(d))
+                                         for d, _ in mesh.device_groups()])
+
+    def _layers_on(self, device) -> "DenseLLM":
+        """A copy of this one-rank model on `device`."""
+        def attn(a):
+            return dataclasses.replace(
+                a, w_qkv=weight_to(a.w_qkv, device), w_o=weight_to(a.w_o, device),
+                q_norm=None if a.q_norm is None else a.q_norm.to(device),
+                k_norm=None if a.k_norm is None else a.k_norm.to(device))
+
+        layers = [DenseLayer(attn=attn(ly.attn),
+                             mlp=dataclasses.replace(
+                                 ly.mlp, w_gate_up=weight_to(ly.mlp.w_gate_up, device),
+                                 w_down=weight_to(ly.mlp.w_down, device)),
+                             ln_attn=ly.ln_attn.to(device), ln_mlp=ly.ln_mlp.to(device))
+                  for ly in self.layers]
+        return dataclasses.replace(self, embed=self.embed.to(device), layers=layers,
+                                   final_norm=self.final_norm.to(device),
+                                   lm_head=weight_to(self.lm_head, device),
+                                   cos=self.cos.to(device), sin=self.sin.to(device))
+
     def quantize_int8(self) -> "DenseLLM":
         """Weight-only int8 copy: the projection weights and the lm_head
         become QuantW (int8 + per-column f32 scale); the embedding stays
@@ -216,6 +289,9 @@ class DenseLLM:
         mesh, the row shards of w_o and w_down share the whole weight's
         column scales (quantize_int8_rows), as the JAX package quantizes
         the global array."""
+        if self.sp_size > 1:
+            one = dataclasses.replace(self, mesh=None, rope=None, sp_axis=None, sp_layers=None)
+            return one.quantize_int8().to_mesh(self.mesh, "sp", sp_combine=self.sp_combine)
         if self.tp > 1:
             return dataclasses.replace(self, lm_head=quantize_int8(self.lm_head), layers=[
                 dataclasses.replace(ly, attn=_quantized_shards(ly.attn, "w_qkv", "w_o"),
@@ -339,6 +415,8 @@ class DenseLLM:
         each row's KV lives in the pages its table rows map, possibly
         shared read-only with other slots' cached prefixes. Returns
         (logits [B, V] f32, pcache)."""
+        if self.sp_size > 1:
+            return self._sp_forward(ids, pcache, pos, mode), pcache
         return self._slots_forward(ids, self._paged_attend(pcache, pos, mode),
                                    mode)[0], pcache
 
@@ -358,8 +436,39 @@ class DenseLLM:
         """forward_tokens_slots_verify over the paged pool: the window's
         K/V goes through the page table. Returns (per-position logits
         [B, S, V] f32, pcache)."""
+        if self.sp_size > 1:
+            return self._sp_forward(ids, pcache, pos, mode, q_lens), pcache
         return self._slots_forward(ids, self._paged_attend(pcache, pos, mode, q_lens), mode,
                                    window=True)[0], pcache
+
+    def _sp_forward(self, ids, pcache, pos, mode: str, q_lens=None):
+        """The paged slot forward of a sequence-parallel model (the JAX
+        SP branches of forward_tokens_slots_paged and its _verify form):
+        every layer once per distinct device of the mesh, the attention as
+        the SP attend over the ranks' pool blocks. Returns the logits
+        [B, V] (a window: [B, S, V]) f32 on rank 0's device."""
+        from triton_dist_tpu_torch.layers.tp_attn import sp_paged_context
+        B, S = ids.shape
+        if S != 1 and q_lens is None:
+            raise ValueError(f"slot decode feeds one token per slot, got S={S}")
+        cfg = self.config
+        eps = cfg.rms_norm_eps
+        ctx = sp_paged_context(self.mesh, pcache, pos, q_lens, S)
+        cos, sin = [c for c, _ in self.rope], [s_ for _, s_ in self.rope]
+        x = self.embed[ids].reshape(B * S, cfg.hidden_size)
+        xs = [x.to(d) for d, _ in self.mesh.device_groups()]
+        for li in range(cfg.num_layers):
+            lys = [stack[li] for stack in self.sp_layers]
+            hs = [rms_norm(xd, ly.ln_attn, eps) for xd, ly in zip(xs, lys)]
+            a, _ = lys[0].attn.fwd_cached_slots_paged_sp(
+                hs, cos, sin, B, pcache.layer(li), ctx, self.mesh, mode, self.sp_combine,
+                layers=[ly.attn for ly in lys])
+            xs = [xd + ad for xd, ad in zip(xs, a)]
+            xs = [xd + self._ffn(ly, rms_norm(xd, ly.ln_mlp, eps), mode, None)[0]
+                  for xd, ly in zip(xs, lys)]
+        x = rms_norm(xs[0], self.final_norm, eps)
+        logits = qmm(x, self.lm_head, out_dtype=torch.float32)
+        return logits.reshape(B, S, -1) if q_lens is not None else logits
 
     def _ropes(self):
         """The rope tables as the layers take them: (cos, sin), or at n > 1
@@ -467,7 +576,8 @@ class DenseLLM:
         cfg = self.config
         return KVCache.create(cfg.num_layers, batch, max_seq, cfg.num_kv_heads,
                               cfg.head_dim, device=self.device,
-                              dtype=dtype or cfg.torch_dtype, mesh=self.mesh)
+                              dtype=dtype or cfg.torch_dtype,
+                              mesh=self.mesh if self.tp > 1 else None)
 
 
 def _quantized_shards(layer, col_name: str, row_name: str):

@@ -53,6 +53,21 @@ programs return device tensors and never synchronise; host arrays
 (page-table rows, admission indices) go to the card as asynchronous
 copies from pinned memory.
 
+Sequence parallelism (a dense model built with sp_axis="sp" over a mesh
+of n ranks; `sp_size`): the paged pool's page ids split over the ranks
+(models/kv_cache.py), and the paged ticks and window programs run the SP
+attend (models/dense.py `_sp_forward`). Construction refuses what the
+JAX engine refuses: a TP hybrid, backend "mega", any backend but
+"flash"; contiguous slots refuse too (`make_slot_cache`), and the
+pool's default size rounds up to a multiple of n. The admissions run the
+suffix forward on rank 0's device over a contiguous scratch (the JAX
+replicated scratch): the prefix pages are gathered from their owners
+(`_pool_gather_sp`), the suffix rows scattered to theirs
+(`_pool_scatter_sp`), and a boundary page's copy-on-write crosses ranks
+as one gather and one scatter (`_cow_pages_sp`); the page ownership is
+computed on the host from the table rows, so each rank moves only the
+rows of its own pages.
+
 The window programs run one forward over a [B, S] window per tick
 (models/dense.py forward_tokens_slots_verify and its paged form, through
 the q_lens forms of flash_decode and flash_decode_paged); their greedy
@@ -122,6 +137,9 @@ class Engine:
             raise ValueError(f"unknown backend {backend!r}; this engine serves "
                              f"{BACKENDS}")
         tp = getattr(model, "tp", 1)
+        self.sp_size = int(getattr(model, "sp_size", 1))
+        if self.sp_size > 1:
+            _check_sp(model, backend, tp, self.sp_size)
         if backend == "mega":
             if tp > 1:
                 raise _not_ported("backend='mega' at tensor-parallel size > 1 (the TP "
@@ -242,6 +260,12 @@ class Engine:
 
     def make_slot_cache(self, batch: int) -> KVCache:
         """Fresh cache whose batch rows are independent decode slots."""
+        if self.sp_size > 1:
+            raise ValueError(
+                "sequence-parallel serving shards the PAGE-ID space; contiguous slot caches "
+                "have no pages to shard (missing capability: sp contiguous slots); construct "
+                "ContinuousScheduler(paged=True) so the sp pool serves through the "
+                "partial + LSE-combine attends")
         self._ep_batch_check(batch)
         return self.model.make_cache(batch, self.max_seq, dtype=self.kv_dtype)
 
@@ -290,16 +314,24 @@ class Engine:
         """Paged slot cache: per-layer page pools behind one shared page
         table (an int8 pool when kv_dtype is int8). num_pages defaults to
         the no-sharing worst case (every slot full) plus the trash
-        page."""
+        page, rounded up to a multiple of the sp mesh size at sp > 1 (where a
+        given num_pages must be one)."""
         self._ep_batch_check(batch)
         cfg = self.model.config
         maxp = -(-self.max_seq // page)
+        sp = self.sp_size
         if num_pages is None:
             num_pages = batch * cfg.num_kv_heads * maxp + 1
+            num_pages = -(-num_pages // sp) * sp
+        elif num_pages % sp:
+            raise ValueError(
+                f"sequence-parallel pool needs num_pages ({num_pages}) divisible by the sp "
+                f"mesh size ({sp}): the page-id space partitions into equal per-rank blocks; "
+                f"round num_pages up to a multiple of {sp} or shrink the sp axis")
         return PagedSlotCache.create(
             cfg.num_layers, batch, self.max_seq, cfg.num_kv_heads, cfg.head_dim,
             page=page, num_pages=num_pages, device=self.device,
-            dtype=self.kv_dtype or cfg.torch_dtype, mesh=self.model.mesh)
+            dtype=self.kv_dtype or cfg.torch_dtype, mesh=self.model.mesh, sp=sp > 1)
 
     def admit_slot_paged(self, pcache: PagedSlotCache, slot: int, ids, rows,
                          kv_start: int, cow_src, cow_dst, cow_rows: int):
@@ -338,6 +370,8 @@ class Engine:
             scratch = self._paged_scratch = self.model.make_cache(
                 1, pcache.capacity, dtype=self.kv_dtype)
         span = -(-m // page) * page               # the prefix's whole pages
+        if pcache.sp > 1:
+            return self._admit_sp(pcache, scratch, ids, rows, m, span)[0], pcache
         ranks = list(zip(pcache.parts(), scratch.parts()))
         hkv = rows.shape[0] // len(ranks)         # each rank's kv heads
         for r, (pc, sc) in enumerate(ranks):
@@ -371,11 +405,95 @@ class Engine:
         self._install(pcache, slot, np.asarray(rows, np.int32), cow_src, cow_dst, cow_rows)
         return pcache
 
+    def _admit_sp(self, pcache: PagedSlotCache, scratch: KVCache, ids, rows, m: int,
+                  span: int):
+        """admit_slot_paged's gather, suffix forward and scatter on a
+        sequence-parallel pool; returns the next-token logits [1, V]."""
+        page = pcache.page
+        n = len(ids)
+        bufs = list(zip(scratch.k + scratch.ks, scratch.v + scratch.vs))
+        if span:
+            plan = self._sp_plan(pcache, rows[:, :span // page])
+            for li, (sk, sv) in enumerate(bufs):
+                gk, gv = self._pool_gather_sp(pcache, li, plan)
+                sk[0, :, :span] = gk.reshape((gk.shape[0], span) + sk.shape[3:])
+                sv[0, :, :span] = gv.reshape((gv.shape[0], span) + sv.shape[3:])
+        scratch.offset = m
+        logits, _ = self.model.forward_tokens(self._h2d(ids[m:])[None], scratch,
+                                              mode=self.prefill_backend,
+                                              last_pos=(n - 1) - m)
+        p = np.arange(m, n)
+        plan = self._sp_plan(pcache, rows[:, p // page], p % page)
+        for li, (sk, sv) in enumerate(bufs):
+            self._pool_scatter_sp(pcache, li, plan, sk[0, :, m:n], sv[0, :, m:n])
+        return logits
+
+    def _sp_plan(self, pcache: PagedSlotCache, ids, ri=None):
+        """Which rank moves which entries of `ids` (global page ids, a host
+        array [H, P]), planned once for every layer: (the shape of ids,
+        [(rank, the entries' (h, p) indices on rank 0's device, their local
+        page ids on the rank's device, and with ri [P] their in-page rows
+        there)] for the ranks that own any)."""
+        pps = pcache.pages_per_shard
+        ids = np.asarray(ids)
+        out = []
+        for s in np.unique(ids // pps):
+            dev = pcache.parts()[int(s)].table.device
+            hit = np.nonzero(ids // pps == s)
+            rows = (None if ri is None else
+                    self._h2d(np.broadcast_to(np.asarray(ri)[None], ids.shape)[hit], device=dev))
+            out.append((int(s), tuple(self._h2d(h) for h in hit),
+                        self._h2d(ids[hit] - s * pps, device=dev), rows))
+        return ids.shape, out
+
+    def _pool_gather_sp(self, pcache: PagedSlotCache, li: int, plan):
+        """The pages of `plan` (_sp_plan) of layer li's pools, assembled
+        from their owners on rank 0's device: (k, v) [H, P, page(, d)] (the
+        scale pools when li counts past the payload's layers)."""
+        parts = pcache.parts()
+        shape, moves = plan
+        out = [torch.empty(shape + t.shape[2:], dtype=t.dtype, device=self.device)
+               for t in _pools(parts[0])[li]]
+        for s, at, loc, _ in moves:
+            for o, pool in zip(out, _pools(parts[s])[li]):
+                o[at] = pool[loc, 0].to(self.device)
+        return out
+
+    def _pool_scatter_sp(self, pcache: PagedSlotCache, li: int, plan, k, v) -> None:
+        """Rows k, v [H, S(, d)] (on rank 0's device) into layer li's pools
+        at the pages and in-page rows of `plan` (_sp_plan with ri), each
+        row by the rank that owns its page."""
+        parts = pcache.parts()
+        for s, at, loc, rows in plan[1]:
+            dev = parts[s].table.device
+            for pool, new in zip(_pools(parts[s])[li], (k, v)):
+                pool[:, 0][loc, rows] = new[at].to(dev)
+
+    def _cow_pages_sp(self, pcache: PagedSlotCache, cow_src, cow_dst, cow_rows: int) -> None:
+        """The boundary-page copy-on-write on a sequence-parallel pool:
+        rows [0, cow_rows) of the pages cow_src into cow_dst ([Hkv] global
+        ids), every layer; source and destination may live on different
+        ranks (one gather, one scatter)."""
+        src = self._sp_plan(pcache, np.asarray(cow_src)[:, None])
+        dest = self._sp_plan(pcache, np.repeat(np.asarray(cow_dst)[:, None], cow_rows, axis=1),
+                             np.arange(cow_rows))
+        for li in range(len(_pools(pcache.parts()[0]))):
+            gk, gv = self._pool_gather_sp(pcache, li, src)
+            self._pool_scatter_sp(pcache, li, dest, gk[:, 0, :cow_rows], gv[:, 0, :cow_rows])
+
     def _install(self, pcache: PagedSlotCache, slot: int, rows, cow_src, cow_dst,
                  cow_rows: int) -> None:
         """Write the slot's table block and run the boundary-page
         copy-on-write, on every rank: rank r's table rows and pools take
-        its kv heads' share of rows, cow_src and cow_dst."""
+        its kv heads' share of rows, cow_src and cow_dst (at sp, every
+        rank's table takes the whole block)."""
+        if pcache.sp > 1:
+            hkv = rows.shape[0]
+            for t in pcache.device_tables():
+                t[slot * hkv:(slot + 1) * hkv] = self._h2d(rows, torch.int32, t.device)
+            if cow_rows:
+                self._cow_pages_sp(pcache, cow_src, cow_dst, cow_rows)
+            return
         parts = pcache.parts()
         hkv = rows.shape[0] // len(parts)
         for r, pc in enumerate(parts):
@@ -531,6 +649,11 @@ class Engine:
         (the write sink): the slot scan keeps stepping masked rows, and
         their writes must never land on a page the allocator may hand to
         someone else. A fill on the device, no host copy."""
+        if pcache.sp > 1:
+            hkv = self.model.config.num_kv_heads
+            for t in pcache.device_tables():
+                t[slot * hkv:(slot + 1) * hkv] = pcache.trash
+            return pcache
         hkv = self.model.config.num_kv_heads // len(pcache.parts())
         for pc in pcache.parts():
             pc.table[slot * hkv:(slot + 1) * hkv] = pcache.trash
@@ -582,6 +705,26 @@ def _check_ep(model, backend: str) -> None:
             f"backend={backend!r} needs an expert-SHARDED model (moe_impl='ep'); this "
             f"Qwen3MoE was built moe_impl={model.moe_impl!r}; TP-MoE serves its "
             "grouped-GEMM dispatch on 'flash'")
+
+
+def _check_sp(model, backend: str, tp: int, sp: int) -> None:
+    """The construction refusals of sequence-parallel serving (the JAX
+    engine's)."""
+    if tp > 1:
+        raise ValueError(
+            f"sequence-parallel serving (sp size {sp}) cannot combine with a TP head-group "
+            f"split (size {tp}) yet (missing capability: sp + TP hybrid paged pool); size "
+            "one of the axes to 1")
+    if backend == "mega":
+        raise ValueError(
+            "backend='mega' fuses the paged tick single-chip only; the sp-sharded pool's "
+            "split-KV partial + cross-chip LSE combine stay on the per-op path (missing "
+            "capability: megakernel sp combine); serve sp meshes with backend='flash'")
+    if backend != "flash":
+        raise ValueError(
+            f"backend={backend!r} routes projections through the TP comm kernels; "
+            "sequence-parallel serving replicates weights over the sp axis and serves on "
+            "backend='flash' (missing capability: sp + comm-kernel hybrid projections)")
 
 
 def _check_mega(model, kv_dtype, sampling: str) -> None:

@@ -17,6 +17,19 @@ keeps its own pools (NP pages of its heads' streams; a page of another
 rank's head holds garbage there, never read) and its own device copy of
 its streams' rows of the table, [B*Hkv/n, max_pages] (row b*Hkv/n + h is
 slot b's local kv head h).
+
+Sequence parallelism (`PagedSlotCache.create(..., mesh=, sp=True)`, the
+JAX SP SHARDING): the page-id space splits over the n ranks instead, rank
+s holding the physical pages [s * pps, (s + 1) * pps) of every layer
+(pps = num_pages / n), so a slot's context is bounded by the whole
+mesh's pools, not one card's. Each rank keeps every kv head's pages of
+its block, plus one sink page past them (local page pps) where the rows
+of pages it does not own are written: the JAX scatter dropped them out
+of bounds, and torch has no dropping scatter. The table holds global ids
+and is the same on every rank (one device copy per distinct device);
+the allocator (kernels/paged_kv.py PageAllocator(shards=n)) rotates
+fresh groups across the ranks. sp with the head split and int8 pools:
+the scale planes shard with the payload.
 """
 
 from __future__ import annotations
@@ -129,11 +142,33 @@ class PagedSlotCache:
     # tensor parallelism: one pool set per rank (its kv heads' streams, its
     # rows of the table, its device); table is then None
     ranks: Optional[list] = None
+    # sequence parallelism: the mesh size the page-id space splits over
+    # (1: no split); `ranks` then holds each rank's block of pages
+    sp: int = 1
 
     @staticmethod
     def create(num_layers: int, batch: int, max_seq: int, n_kv_heads: int,
                head_dim: int, *, page: int, num_pages: int, device=None,
-               dtype=torch.bfloat16, mesh=None) -> "PagedSlotCache":
+               dtype=torch.bfloat16, mesh=None, sp: bool = False) -> "PagedSlotCache":
+        """mesh of n > 1 ranks: head-sharded (tensor parallelism), or with
+        sp=True the page ids split over the ranks (num_pages a multiple of
+        n)."""
+        if sp and mesh is not None and mesh.size > 1:
+            n = mesh.size
+            if num_pages % n:
+                raise ValueError(
+                    f"sequence-parallel pool needs num_pages ({num_pages}) divisible by the "
+                    f"sp mesh size ({n}): each rank owns a contiguous block of the page-id "
+                    "space; round num_pages up or shrink the axis")
+            tables = {}
+            ranks = []
+            for d in mesh.devices:
+                rc = PagedSlotCache.create(num_layers, batch, max_seq, n_kv_heads, head_dim,
+                                           page=page, num_pages=num_pages // n + 1, device=d,
+                                           dtype=dtype)
+                rc.table = tables.setdefault(d, rc.table)
+                ranks.append(rc)
+            return PagedSlotCache(pages_k=[], pages_v=[], table=None, ranks=ranks, sp=n)
         if mesh is not None and mesh.size > 1:
             hkv = _check_heads(n_kv_heads, mesh)
             return PagedSlotCache(pages_k=[], pages_v=[], table=None, ranks=[
@@ -169,8 +204,15 @@ class PagedSlotCache:
         return self.parts()[0].pages_k[0].shape[2]
 
     @property
+    def pages_per_shard(self) -> int:
+        """Physical pages of one rank's block (num_pages at sp == 1; the
+        local sink page past them is not counted)."""
+        local = self.parts()[0].pages_k[0].shape[0]
+        return local - 1 if self.sp > 1 else local
+
+    @property
     def num_pages(self) -> int:
-        return self.parts()[0].pages_k[0].shape[0]
+        return self.pages_per_shard * self.sp
 
     @property
     def max_pages(self) -> int:
@@ -184,8 +226,18 @@ class PagedSlotCache:
 
     @property
     def tables(self) -> list:
-        """Each rank's table (its streams' rows)."""
+        """Each rank's table (its streams' rows; at sp every stream's, one
+        tensor shared by the ranks of a device)."""
         return [c.table for c in self.parts()]
+
+    def device_tables(self) -> list:
+        """The distinct table tensors (one per device at sp, one per rank
+        otherwise)."""
+        out = []
+        for t in self.tables:
+            if not any(t is u for u in out):
+                out.append(t)
+        return out
 
     def layer(self, idx: int):
         """The layer's pool tuple for TP_Attn.fwd_cached_slots_paged:

@@ -23,8 +23,12 @@ package's on the same sequence of operations:
   Dropping a node only drops the TREE's refs; pages still mapped by
   in-flight slots live until those slots retire.
 
-Not ported yet: the host-RAM tier (the scheduler refuses
-`host_pool_pages > 0`) and the sequence-parallel page-id shards.
+Sequence-parallel pools (`shards=`, the sp mesh size): the allocator
+splits the page-id space into per-shard blocks and rotates fresh groups
+across them (kernels/paged_kv.py PageAllocator); the tree stays
+id-blind, and the pool reports per-shard residency
+(`sp_pages_resident{shard=}`). Not ported yet: the host-RAM tier (the
+scheduler refuses `host_pool_pages > 0`).
 Policy changes page TABLES (data), never the device programs.
 """
 
@@ -62,15 +66,42 @@ class RefcountedPages:
     reserved at construction (page 0, the first handed out) and never
     refcounted: it is the write sink for retired slots, not storage."""
 
-    def __init__(self, num_pages: int, n_kv_heads: int):
-        self._alloc = PageAllocator(num_pages)
+    def __init__(self, num_pages: int, n_kv_heads: int, shards: int = 1):
+        self._alloc = PageAllocator(num_pages, shards=shards)
         self.n_kv_heads = n_kv_heads
         self._ref: Dict[int, int] = {}
+        # shard 0 allocates first: the trash is page 0 whatever the shards
         self.trash = self._alloc.alloc(1)[0]
 
     @property
     def num_pages(self) -> int:
         return self._alloc.num_pages
+
+    @property
+    def shards(self) -> int:
+        return self._alloc.shards
+
+    @property
+    def pages_per_shard(self) -> int:
+        return self._alloc.pages_per_shard
+
+    @property
+    def available_by_shard(self) -> List[int]:
+        return self._alloc.available_by_shard
+
+    @property
+    def outstanding_by_shard(self) -> List[int]:
+        return self._alloc.outstanding_by_shard
+
+    @property
+    def pages_in_use_by_shard(self) -> List[int]:
+        """Refcounted (slot- or tree-referenced) pages per shard: 0 on every
+        shard at idle with the prefix cache off is the per-shard zero
+        leak."""
+        out = [0] * self._alloc.shards
+        for p in self._ref:
+            out[self._alloc.shard_of(p)] += 1
+        return out
 
     @property
     def available(self) -> int:
@@ -295,8 +326,12 @@ class PrefixCache:
     bitwise cache-on/off comparison meaningful."""
 
     def __init__(self, num_pages: int, n_kv_heads: int, page: int, *,
-                 enabled: bool = True, telemetry: Optional[Telemetry] = None):
-        self.pool = RefcountedPages(num_pages, n_kv_heads)
+                 enabled: bool = True, telemetry: Optional[Telemetry] = None,
+                 shards: int = 1):
+        """shards: the sp mesh size of a sequence-parallel pool (the
+        allocator's per-shard id blocks; stats() then adds per-shard
+        residency)."""
+        self.pool = RefcountedPages(num_pages, n_kv_heads, shards=shards)
         self.page = page
         self.enabled = enabled
         self.tele = telemetry if telemetry is not None else Telemetry()
@@ -351,7 +386,11 @@ class PrefixCache:
             reg.gauge("pages_free").set(self.pool.available)
             reg.gauge("pages_outstanding").set(self.pool.outstanding)
             reg.gauge("evictions").set(self.tree.evictions)
-        return {
+            if self.pool.shards > 1:
+                for sh, npg in enumerate(self.pool.pages_in_use_by_shard):
+                    reg.gauge("sp_pages_resident", "refcounted pages per sp shard",
+                              labels={"shard": str(sh)}).set(npg)
+        out = {
             "enabled": self.enabled,
             "admissions": self.admissions.value,
             "hits": self.hits.value,
@@ -365,3 +404,7 @@ class PrefixCache:
             "pages_free": self.pool.available,
             "pages_outstanding": self.pool.outstanding,
         }
+        if self.pool.shards > 1:
+            out["sp_pages_resident"] = self.pool.pages_in_use_by_shard
+            out["sp_pages_free_by_shard"] = self.pool.available_by_shard
+        return out

@@ -78,6 +78,14 @@ the `expert_tokens{expert=e}` counters, the `moe_capacity_drops` counter
 and the `expert_load_imbalance` gauge (max / mean of the cumulative
 per-expert load). Admissions are not counted, as in the JAX package.
 
+Sequence parallelism (an engine over a model with sp_axis, `sp_size`
+> 1): the paged pool's page ids split over the sp ranks, the prefix
+cache's allocator rotates fresh groups across them (PrefixCache(...,
+shards=cache.sp)), stats() carries per-shard residency
+(`sp_pages_resident`) and the `sp_size` gauge, and the decode ticks'
+device wait is attributed to the kind "sp_combine"
+(`device_wait_s_by_kind`, with "verify", "mixed" and "mixed_verify").
+
 backend="mega": the paged ticks run the fused megakernel program
 (Engine.paged_slot_chunk routes them; admissions stay per-op on
 "flash"), and the contiguous scheduler refuses a mega engine, as the JAX
@@ -203,8 +211,12 @@ class DecodeSlots:
         self._admit_seq = 0
         # every prompt token pushed through a forward
         self.prefill_forwarded = 0
-        # time blocked on the tick's token readback (_fetch)
+        # time blocked on the tick's token readback (_fetch), in all and by
+        # the kind of the tick it waited on
         self.device_wait_s = 0.0
+        self.device_wait_s_by_kind: Dict[str, float] = dict.fromkeys(
+            ("chunk", "sp_combine", "verify", "mixed", "mixed_verify"), 0.0)
+        self._kind = "chunk"
         # chunked prefill: per slot, the prompt still prefilling (None once
         # armed) and how many of its tokens have been forwarded
         self._pf_ids: List[Optional[np.ndarray]] = [None] * batch
@@ -408,11 +420,19 @@ class DecodeSlots:
         else:
             flat = torch.cat([toks.reshape(-1), load]).cpu().numpy()
             out, load = flat[:toks.numel()].reshape(tuple(toks.shape)), flat[toks.numel():]
-        self.device_wait_s += time.perf_counter() - t0
+        dt = time.perf_counter() - t0
+        self.device_wait_s += dt
+        self.device_wait_s_by_kind[self._kind] += dt
         self.tele.device_land()
         if load is not None:
             self._note_moe_load(load)
         return out
+
+    def _dispatch(self, kind: str) -> None:
+        """Stamp a tick's dispatch: its device span and the kind its
+        readback's wait is charged to."""
+        self._kind = kind
+        self.tele.mark_dispatch(kind)
 
     def _note_moe_load(self, load: np.ndarray) -> None:
         """Fold one landed tick's routing-load vector into the MoE metrics."""
@@ -453,7 +473,7 @@ class DecodeSlots:
         slot)."""
         if self.spec:
             return self._step_spec()
-        self.tele.mark_dispatch("chunk")
+        self._dispatch("sp_combine" if getattr(self.engine, "sp_size", 1) > 1 else "chunk")
         toks = self._fetch(*self._run_chunk(chunk))
         out: Dict[int, np.ndarray] = {}
         finished: List[Tuple[int, object]] = []
@@ -541,7 +561,7 @@ class DecodeSlots:
         with self.tele.phase("drafter"):
             for b in self.decode_slots:
                 self._draft_into(tokens, q_lens, b)
-        self.tele.mark_dispatch("verify")
+        self._dispatch("verify")
         n_emit, t0n = self._fetch(*self._run_verify(tokens, q_lens))
         self._spec_steps.inc()
         out: Dict[int, np.ndarray] = {}
@@ -602,13 +622,13 @@ class DecodeSlots:
             with self.tele.phase("drafter"):
                 for b in decode:
                     self._draft_into(tokens, q_lens, b)
-            self.tele.mark_dispatch("mixed_verify")
+            self._dispatch("mixed_verify")
             n_emit, t0n = self._fetch(*self._run_mixed_verify(tokens, q_lens, pf))
             self._spec_steps.inc()
             for b in decode:
                 self._account_spec(b, tokens, q_lens, n_emit, t0n, out, finished)
         else:
-            self.tele.mark_dispatch("mixed")
+            self._dispatch("mixed")
             toks = self._fetch(*self._run_mixed(tokens, q_lens, pf))
             for b in decode:
                 if self.remaining[b] > 0:
@@ -685,7 +705,8 @@ class PagedDecodeSlots(DecodeSlots):
         super().__init__(engine, batch, spec=spec, drafter=drafter, telemetry=telemetry)
         self.prefix = PrefixCache(self.cache.num_pages,
                                   engine.model.config.num_kv_heads, page,
-                                  enabled=prefix_cache, telemetry=self.tele)
+                                  enabled=prefix_cache, telemetry=self.tele,
+                                  shards=self.cache.sp)
         if self.prefix.pool.trash != self.cache.trash:
             raise RuntimeError("the allocator and the pool disagree on the trash page")
         # per slot: mapped page groups (absolute page order) and the token
@@ -952,6 +973,9 @@ class ContinuousScheduler:
         reg.gauge("mega_enabled", "1 = decode ticks run the fused megakernel "
                                   "program").set(
             1.0 if engine.backend == "mega" else 0.0)
+        # the sp mesh size the paged pool's page ids split over (1: none)
+        self.sp_size = int(getattr(engine, "sp_size", 1))
+        reg.gauge("sp_size", "sp mesh size the paged pool shards over").set(self.sp_size)
         self._c_tokens = reg.counter("tokens_emitted",
                                      "tokens delivered to client streams")
         self._host_ms_ema: Optional[float] = None
@@ -1023,6 +1047,9 @@ class ContinuousScheduler:
                 self.max_prefill_tokens_per_poll)
             reg.gauge("prefills_in_progress").set(len(self.slots.prefill_slots))
             reg.gauge("device_wait_s").set(self.slots.device_wait_s)
+            for kind, w in self.slots.device_wait_s_by_kind.items():
+                reg.gauge("device_wait_kind_s", "device wait by tick kind",
+                          labels={"kind": kind}).set(w)
             agg = self._c_tokens.value / self._busy_s if self._busy_s > 0 else 0.0
             reg.gauge("serving_tok_per_s_aggregate",
                       "tokens/s while serving").set(round(agg, 3))
@@ -1042,6 +1069,8 @@ class ContinuousScheduler:
                 "host_ms_per_poll": (0.0 if self._host_ms_ema is None
                                      else round(self._host_ms_ema, 3)),
                 "device_wait_s": round(self.slots.device_wait_s, 4),
+                "device_wait_s_by_kind": dict(self.slots.device_wait_s_by_kind),
+                "sp_size": self.sp_size,
             })
         return out
 

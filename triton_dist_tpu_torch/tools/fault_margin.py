@@ -161,6 +161,37 @@ layers/tp_moe.py `TP_MoE._expert_mlp_sharded` (the last rank's zeroed; the
 previous call's of the same shape returned; rank 1's added to rank 0's),
 against MOE_LIMIT.
 
+    python3 -m triton_dist_tpu_torch.tools.fault_margin --sp [--cards 4] [--layers 28]
+
+holds the sequence-parallel path over four ranks (emulated on one card,
+or four cards) instead. First rows 24-26 at tools/sp_check.py's shapes
+(the decode tick's partials, the SPAttn prefill's blocks and ring at a
+quarter of its length), each against its plain version: the clean gap
+beside the gap of the plain version run with a fault planted in its
+inputs, against sp_check.SP_KERNEL_LIMIT:
+
+    sp drop a rank          lse_combine: rank n-1's partial never arrives
+                            (taken as the neutral (0, -1e30, 0)); ring_attn:
+                            rank 0's block never arrives (its step skipped
+                            on the ranks it reaches; the causal mask hides
+                            rank n-1's from every other rank)
+    sp stale epoch          lse_combine: rank 1's landed partial is the
+                            previous call's; ring_attn: step 1 reads the
+                            previous call's block
+    sp wrong offset         kv_scatter: every block lands one row past its
+                            place in its owner's window
+    sp ring step skipped    ring_attn: step 1's block is never consumed
+
+Then the engine: Qwen3-1.7B (all 28 layers, or --layers) over the mesh,
+sp_combine "dist", SP_SLOTS slots admitted with the SP serving traffic's
+prompts, SP_TF_STEPS greedy decode steps through the paged SP forward,
+teacher-forced against the one-rank "xla" engine's slot forward, clean
+and with each fault planted in every layer (wrapping
+kernels/sp_flash_decode.py sp_combine_partials: rank n-1's partial made
+neutral, or the previous call's output of the same shape returned; or
+layers/tp_attn.py sp_paged_context: every new row written one row past
+its place), against sp_check.SP_GATE.
+
 Prints one line per configuration and case with the largest relative gap
 over the steps and whether a limit of LIMIT times the largest logit
 catches it; needs one card.
@@ -172,6 +203,7 @@ import contextlib
 import json
 import sys
 
+import numpy as np
 import torch
 
 LIMIT = 5e-2
@@ -1065,10 +1097,204 @@ def run_tp_moe(m, mesh, n_layers: int) -> dict:
     return results
 
 
+def sp_kernel_faults(mesh, seed: int = 0) -> dict:
+    """Rows 24-26: the clean gap and each planted fault's (see the module
+    docstring)."""
+    from triton_dist_tpu_torch import kernels as K
+    from triton_dist_tpu_torch.tools import sp_check as sc
+    n = mesh.size
+    dev0 = mesh.devices[0]
+    gen = torch.Generator(device=dev0).manual_seed(seed)
+    bf = torch.bfloat16
+
+    def randn(*shape, dtype=torch.float32):
+        return torch.randn(shape, generator=gen, device=dev0, dtype=dtype)
+
+    def gap(outs, refs):
+        return max(_rel(o.float().to(dev0), r.float().to(dev0)) for o, r in zip(outs, refs))
+
+    results = {}
+    # lse_combine at the decode tick's partials
+    R = sc.SP_SLOTS * sc.HQ
+
+    def partials():
+        return ([randn(R, sc.HD).to(d) for d in mesh.devices],
+                [torch.stack([randn(R), randn(R).abs() + 0.1]).to(d) for d in mesh.devices])
+
+    prev, cur = partials(), partials()
+    acc, st = cur
+    ref = K.lse_combine_dist_ref(acc, st)
+    out = K.sp_combine_partials([a.reshape(sc.SP_SLOTS, 1, sc.HQ, sc.HD) for a in acc],
+                                [s_[0].reshape(sc.SP_SLOTS, 1, sc.HQ) for s_ in st],
+                                [s_[1].reshape(sc.SP_SLOTS, 1, sc.HQ) for s_ in st],
+                                mesh=mesh, combine="dist")
+    neutral = torch.stack([torch.full_like(st[-1][0], -1e30), torch.zeros_like(st[-1][1])])
+    results["lse_combine"] = {
+        "sp clean": gap([o.reshape(R, sc.HD) for o in out], ref),
+        "sp drop a rank": gap(K.lse_combine_dist_ref(acc[:-1] + [torch.zeros_like(acc[-1])],
+                                                     st[:-1] + [neutral]), ref),
+        "sp stale epoch": gap(K.lse_combine_dist_ref(acc[:1] + [prev[0][1]] + acc[2:],
+                                                     st[:1] + [prev[1][1]] + st[2:]), ref)}
+    # kv_scatter at the SPAttn prefill's blocks
+    s_loc, t_loc = sc.SP_S // n, sc.SP_T // n
+    cache = [randn(1, sc.HKV, t_loc, sc.HD, dtype=bf).to(d) for d in mesh.devices]
+    new = [randn(1, sc.HKV, s_loc, sc.HD, dtype=bf).to(d) for d in mesh.devices]
+    ref = K.kv_cache_scatter_ref([c.clone() for c in cache], new)
+    out = K.kv_cache_scatter([c.clone() for c in cache], new, mesh=mesh)
+    off = [c.clone() for c in cache]
+    for p, blk in enumerate(new):
+        owner, o = divmod(p * s_loc, t_loc)
+        off[owner][:, :, o + 1:o + 1 + s_loc] = blk[:, :, :t_loc - o - 1].to(off[owner].device)
+    results["kv_scatter"] = {"sp clean": gap(out, ref), "sp wrong offset": gap(off, ref)}
+    # ring_attn at a quarter of the SPAttn prefill's length
+    sl = s_loc // 4
+
+    def qkv():
+        return ([randn(1, sl, sc.HQ, sc.HD, dtype=bf).to(d) for d in mesh.devices],
+                [randn(1, sc.HKV, sl, sc.HD, dtype=bf).to(d) for d in mesh.devices],
+                [randn(1, sc.HKV, sl, sc.HD, dtype=bf).to(d) for d in mesh.devices])
+
+    (pq, pk, pv), (q, k, v) = qkv(), qkv()
+
+    def ring(kk, vv, skip=None, blocks=None):
+        """The plain ring with step `skip` left out, or step 1's block taken
+        from `blocks` (the previous call's)."""
+        outs = []
+        for me in range(n):
+            state = None
+            for r in range(n):
+                src = (me - r) % n
+                if skip is not None and skip(me, r, src):
+                    continue
+                kb, vb = (blocks if blocks is not None and r == 1 else (kk, vv))
+                valid, q_off = (sl if src <= me else 0), (me - src) * sl
+                from triton_dist_tpu_torch.kernels.flash_attn import _partial_ref, _unfold_q
+                a, m_, l_ = _partial_ref(q[me], kb[src].to(q[me].device), vb[src].to(
+                    q[me].device), valid, q_off, sc.HD ** -0.5)
+                part = (_unfold_q(a, 1, sl, sc.HKV), _unfold_q(m_, 1, sl, sc.HKV),
+                        _unfold_q(l_, 1, sl, sc.HKV))
+                state = part if state is None else K.sp_attention._lse_accumulate(state, part)
+            outs.append(state[0] / state[2].clamp_min(1e-30)[..., None])
+        return outs
+
+    ref = ring(k, v)
+    out = K.sp_ring_attention(q, k, v, mesh=mesh, mode="ring_shmem")
+    results["ring_attn"] = {
+        "sp clean": gap(out, ref),
+        "sp drop a rank": gap(ring(k, v, skip=lambda me, r, src: src == 0 and me != src), ref),
+        "sp stale epoch": gap(ring(k, v, blocks=(pk, pv)), ref),
+        "sp ring step skipped": gap(ring(k, v, skip=lambda me, r, src: r == 1), ref)}
+    torch.cuda.synchronize()
+    for name, res in results.items():
+        print(f"sp kernel {name}: " + "; ".join(
+            f"{c} {g:.3g} ({_caught(g, sc.SP_KERNEL_LIMIT)})" for c, g in res.items()),
+              flush=True)
+    return results
+
+
+@contextlib.contextmanager
+def _sp_fault(case: str):
+    """Plant `case` in every layer's SP attend (see the module docstring)."""
+    from triton_dist_tpu_torch.layers import tp_attn
+    # the module (the package re-exports the function sp_flash_decode over
+    # the submodule's name)
+    spd = sys.modules["triton_dist_tpu_torch.kernels.sp_flash_decode"]
+    real_comb, real_ctx = spd.sp_combine_partials, tp_attn.sp_paged_context
+    last = {}
+
+    def comb(acc, m_, l_, **kw):
+        if case == "sp drop a rank":
+            acc = acc[:-1] + [torch.zeros_like(acc[-1])]
+            m_ = m_[:-1] + [torch.full_like(m_[-1], -1e30)]
+            l_ = l_[:-1] + [torch.zeros_like(l_[-1])]
+        out = real_comb(acc, m_, l_, **kw)
+        if case == "sp stale epoch":
+            key = tuple(out[0].shape)
+            prev, last[key] = last.get(key), out
+            return out if prev is None else prev
+        return out
+
+    def ctx(*a, **kw):
+        out = real_ctx(*a, **kw)
+        if case == "sp wrong offset":
+            page = a[1].page
+            out = [dict(c, row=(c["row"] + 1) % page) for c in out]
+        return out
+
+    spd.sp_combine_partials, tp_attn.sp_paged_context = comb, ctx
+    try:
+        yield
+    finally:
+        spd.sp_combine_partials, tp_attn.sp_paged_context = real_comb, real_ctx
+
+
+def run_sp(m, mesh, n_layers) -> dict:
+    """Rows 24-26's faults, then the engine's (see the module docstring)."""
+    import dataclasses
+
+    from triton_dist_tpu_torch.models.prefix_cache import RefcountedPages
+    from triton_dist_tpu_torch.tools import sp_check as sc
+    results = {"kernel": sp_kernel_faults(mesh)}
+    cfg = dataclasses.replace(m.qwen3_1p7b(), num_layers=n_layers)
+    dev0 = mesh.devices[0]
+    one = m.DenseLLM.random_init(cfg, device=dev0, seed=0)
+    model = one.to_mesh(mesh, "sp", sp_combine="dist")
+    reqs = sc.sp_requests(m, cfg.vocab_size)[:sc.SP_SLOTS]
+    max_seq = sc.SP_MAX_SEQ
+    # the one-rank plain engine's logits along its own greedy tokens
+    ref = m.Engine(one, max_seq=max_seq, backend="xla", device=dev0)
+    cache = ref.make_slot_cache(len(reqs))
+    lr = torch.stack([ref.prefill_into_slot(cache, b, r.ids)[0] for b, r in enumerate(reqs)])
+    pos0 = torch.tensor([len(r.ids) for r in reqs], dtype=torch.int32, device=dev0)
+    refs, toks, pos = [lr], [], pos0
+    for _ in range(sc.SP_TF_STEPS):
+        toks.append(torch.argmax(lr, -1))
+        lr, cache = one.forward_tokens_slots(toks[-1][:, None], cache, pos, mode="xla")
+        refs.append(lr)
+        pos = pos + 1
+    del cache
+    eng = m.Engine(model, max_seq=max_seq, backend="flash", device=dev0)
+    res = {}
+    for case in ("sp clean", "sp drop a rank", "sp stale epoch", "sp wrong offset"):
+        pcache = eng.make_paged_slot_cache(len(reqs), page=sc.SP_PAGE)
+        pool = RefcountedPages(pcache.num_pages, cfg.num_kv_heads, shards=mesh.size)
+        trash = np.full((cfg.num_kv_heads,), pcache.trash, np.int32)
+        lf = []
+        for b, r in enumerate(reqs):
+            rows = np.full((cfg.num_kv_heads, pcache.max_pages), pcache.trash, np.int32)
+            for j in range(-(-(len(r.ids) + sc.SP_TF_STEPS) // sc.SP_PAGE)):
+                rows[:, j] = pool.alloc_group()
+            lf.append(eng.admit_slot_paged(pcache, b, r.ids, rows, 0, trash, trash, 0)[0])
+        gaps, lf, pos = [_rel(torch.stack(lf), refs[0])], None, pos0
+        with _sp_fault(case):
+            for t in range(sc.SP_TF_STEPS):
+                lf, _ = model.forward_tokens_slots_paged(toks[t][:, None], pcache, pos)
+                gaps.append(_rel(lf, refs[t + 1]))
+                pos = pos + 1
+        res[case] = max(gaps)
+        print(f"sp engine dist {case}: worst step gap {res[case]:.4g} "
+              f"({_caught(res[case], sc.SP_GATE)}); per step {[round(g, 4) for g in gaps]}",
+              flush=True)
+        del pcache
+    results["engine dist"] = res
+    return results
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("fault_margin: needs an NVIDIA card", file=sys.stderr)
         return 2
+    if "--sp" in sys.argv[1:]:
+        import triton_dist_tpu_torch.models as m
+        from triton_dist_tpu_torch.runtime import make_mesh
+        from triton_dist_tpu_torch.tools import sp_check as sc
+        mesh = (make_mesh(4) if "--cards" in sys.argv[1:]
+                else make_mesh(4, devices=["cuda:0"] * 4))
+        args = sys.argv[1:]
+        n_layers = int(args[args.index("--layers") + 1]) if "--layers" in args else 28
+        print(json.dumps({"kernel limit": sc.SP_KERNEL_LIMIT, "engine limit": sc.SP_GATE,
+                          "sp": run_sp(m, mesh, n_layers)}), flush=True)
+        return 0
     if "--ep" in sys.argv[1:]:
         from triton_dist_tpu_torch.runtime import make_mesh
         from triton_dist_tpu_torch.tools import tp_check as tc

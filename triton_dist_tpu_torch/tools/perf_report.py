@@ -20,7 +20,11 @@ expert-parallel rows all_to_all and low_latency_all_to_all of [256,
 top-2, and ep_fused, the JAX report's EP_MoE(mode="ep_fused") at E=8,
 D=1024, I=512, 1024 rows, top-2, capacity 1.25; the tensor-parallel MoE
 rows ag_group_gemm, moe_reduce_rs and moe_reduce_ar at E=8, capT=512,
-D=N=1024),
+D=N=1024; the sequence-parallel rows sp_flash_decode(dist) at the
+flash_decode row's shape with its 2048 keys split over the cards,
+kv_cache_scatter of [8, 8, 2048, 128] blocks into [8, 8, 4096, 128]
+windows split over the cards, and the JAX report's sp_ring(ring_shmem)
+beside sp_ring(ring) at B=2, 16 query and kv heads, S=256, d=128),
 against perf_model.collective_sol_us over NVLink plus, for the GEMMs,
 one card's share of the product (gemm_sol_us on the per-card dims). The rows of kernels not yet ported are listed under
 `not_ported`. Each row carries its plain version,
@@ -47,8 +51,7 @@ from triton_dist_tpu_torch.tools.perf_model import chip_specs, gemm_sol_us, sol_
 _REPO = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 # the JAX report's rows of kernels not yet ported
-NOT_PORTED = ("ulysses_qkv_gemm_a2a", "ulysses_o_a2a_gemm", "pp_gpipe_fwd",
-              "sp_ring(ring_shmem)", "sp_ring(ring)")
+NOT_PORTED = ("ulysses_qkv_gemm_a2a", "ulysses_o_a2a_gemm", "pp_gpipe_fwd")
 
 # registry name -> this report's row name, where they differ (the JAX
 # report's map)
@@ -56,7 +59,8 @@ _ROW_OF = {"gdn_fwd": "gdn_fwd(pallas)", "allgather_one_shot": "all_gather(one_s
            "allgather_ring": "all_gather(ring)", "allreduce_one_shot": "all_reduce(one_shot)",
            "allreduce_two_shot": "all_reduce(two_shot)",
            "reduce_scatter_one_shot": "reduce_scatter", "reduce_scatter_ring": "reduce_scatter",
-           "gemm_ar": "gemm_allreduce"}
+           "gemm_ar": "gemm_allreduce", "sp_flash_decode_dist": "sp_flash_decode(dist)",
+           "sp_ring_shmem": "sp_ring(ring_shmem)"}
 
 
 def chain(op):
@@ -251,7 +255,51 @@ def comm_rows(spec, mesh) -> list:
                     lambda u, w: K.ag_gemm_ref(u, w), (a_rows, b_cols),
                     gemm_sol_us(M, K_, N // n, spec=spec)
                     + collective_sol_us("ag", M * K_ * 2, n, spec=spec)))
-    return rows + ep_rows(spec, mesh, parts) + tp_moe_rows(spec, mesh, parts)
+    return (rows + ep_rows(spec, mesh, parts) + tp_moe_rows(spec, mesh, parts)
+            + sp_rows(spec, mesh, parts))
+
+
+def sp_rows(spec, mesh, parts) -> list:
+    """The sequence-parallel rows over `mesh` (bf16): sp_flash_decode with
+    the "dist" combine against one card's share of the KV read plus the
+    partials' all-gather over NVLink; kv_cache_scatter against one
+    block's NVLink time; the rings against the causal products shared by
+    the cards (the JAX report's SOL, divided over them; the blocks'
+    puts hide under the products)."""
+    from triton_dist_tpu_torch import kernels as K
+    from triton_dist_tpu_torch.tools.perf_model import collective_sol_us
+    n = mesh.size
+    B, Hq, Hkv, T, d = 8, 16, 8, 2048, 128
+    q = mesh.replicate(parts(B, 1, Hq, d)[0])         # the replicated query
+    kw, vw = parts(B, Hkv, T // n, d), parts(B, Hkv, T // n, d)
+    kv_us = 2 * B * Hkv * T * d * 2 / (spec.hbm_gbps * 1e9) * 1e6 / n
+    rows = [Row("sp_flash_decode(dist)",
+                lambda u, k_, v_: K.sp_flash_decode(u, k_, v_, T, mesh=mesh, combine="dist"),
+                lambda u, k_, v_: K.sp_flash_decode(u, k_, v_, T, mesh=mesh, combine="xla"),
+                (q, kw, vw),
+                kv_us + collective_sol_us("ag", n * B * Hq * (d + 2) * 4, n, spec=spec))]
+    S = 2048
+    cache, new = parts(B, Hkv, 2 * S // n, d), parts(B, Hkv, S // n, d)
+    rows.append(Row("kv_cache_scatter", lambda c, u: K.kv_cache_scatter(c, u, mesh=mesh),
+                    lambda c, u: K.kv_cache_scatter_ref([t.clone() for t in c], u),
+                    (cache, new),
+                    collective_sol_us("p2p", B * Hkv * S // n * d * 2, n, spec=spec)))
+    Bs, Hs, Ss, ds = 2, 16, 256, 128
+    qr = parts(Bs, Ss // n, Hs, ds, sc=0.3)
+    kr, vr = parts(Bs, Hs, Ss // n, ds, sc=0.3), parts(Bs, Hs, Ss // n, ds, sc=0.3)
+    ring_sol = 2 * 2 * Bs * Hs * Ss * Ss * ds / 2 / (spec.bf16_tflops * 1e12) * 1e6 / n
+
+    def plain_ring(u, k_, v_):
+        acc, _, l_ = K.ring_attn_ref(u, k_, v_, scale=ds ** -0.5)
+        return [(a / x.clamp_min(1e-30)[..., None]).to(u[0].dtype) for a, x in zip(acc, l_)]
+
+    for mode in ("ring_shmem", "ring"):
+        rows.append(Row(f"sp_ring({mode})",
+                        lambda u, k_, v_, mm=mode: K.sp_ring_attention(u, k_, v_, mesh=mesh,
+                                                                       mode=mm),
+                        plain_ring, (qr, kr, vr), ring_sol,
+                        "latency-bound at this size; compare the two modes"))
+    return rows
 
 
 def tp_moe_rows(spec, mesh, parts) -> list:

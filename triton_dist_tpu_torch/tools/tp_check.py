@@ -4,6 +4,10 @@ over a mesh of four ranks against the one-rank plain engine.
 
     python3 -m triton_dist_tpu_torch.tools.tp_check [--cards 4] [--json PATH]
 
+(`--ep`, `--tp-moe` and `--sp` run the expert-parallel, tensor-parallel
+MoE and sequence-parallel checks instead; the last are in
+tools/sp_check.py.)
+
 Without --cards the four ranks are emulated on one card
 (`make_mesh(4, devices=["cuda:0"] * 4)`): the same device code, with
 every rank's CTAs resident on the one card and peers reached through
@@ -1362,6 +1366,9 @@ def main() -> int:
                     help="the expert-parallel checks alone (run_ep, Qwen3-30B-A3B)")
     ap.add_argument("--tp-moe", action="store_true",
                     help="the tensor-parallel MoE checks alone (run_tp_moe, Qwen3-30B-A3B)")
+    ap.add_argument("--sp", action="store_true",
+                    help="the sequence-parallel checks alone (tools/sp_check.py run_sp, "
+                         "Qwen3-1.7B)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise RuntimeError("tp_check needs an NVIDIA card")
@@ -1383,8 +1390,14 @@ def main() -> int:
         mesh = make_mesh(4, devices=["cuda:0"] * 4)
     else:
         raise ValueError("--cards is 1 or 4")
-    fn = run_tp_moe if args.tp_moe else run_ep if args.ep else run
-    res = fn(mesh, card=card.replace("\n", "; "), n_layers=args.layers, n_req=args.requests)
+    if args.sp:
+        from triton_dist_tpu_torch.tools.sp_check import SP_REQS, run_sp
+        res = run_sp(mesh, card=card.replace("\n", "; "), n_layers=args.layers,
+                     n_req=min(args.requests, SP_REQS))
+    else:
+        fn = run_tp_moe if args.tp_moe else run_ep if args.ep else run
+        res = fn(mesh, card=card.replace("\n", "; "), n_layers=args.layers,
+                 n_req=args.requests)
     summary = {b: {kk: v for kk, v in c.items()
                    if kk in ("ms_per_step", "idle", "gaps", "prefill_ms", "served") or "ms" in kk
                    or kk.startswith(("ep_fused", "fused"))}
