@@ -270,7 +270,28 @@ NVIDIA card: the quickest proof that the port still starts on the GPU.
    prompts admitted by hand and 4 decode steps whose "dist" logits are
    held to "xla"; one bare tick with no host sync, then profiled (tok/s,
    TTFT, ms per step, launches per step, idle share).
-15. Prints one JSON line of per-kernel results, then, last, the device
+15. Ulysses and pipeline phase (tools/sp_check.py `ulysses_rows` and
+   `ulysses_check`, tools/pp_check.py `run_pp`), over four ranks emulated
+   on the card. Rows 27-28 (o_a2a_gemm, gemm_a2a) at the Ulysses prefill's
+   shapes (bf16) and a small f32 shape, within
+   sp_check.ULYSSES_KERNEL_LIMIT of their plain versions
+   (tools/fault_margin.py --ulysses), timed beside the plain version, one
+   rank's product in torch.matmul and the bound. UlyssesAttn at the SPAttn
+   widths, B=1 x S=16384: prefill(mode="fused") launching one gemm_a2a and
+   one o_a2a_gemm a device, one flash_decode a rank and no all_to_all;
+   "unfused" two all_to_all and no fused kernel; fused against unfused
+   and both against "xla" within sp_check.ULYSSES_GATE; dispatch then
+   combine bitwise; the three timed beside SPAttn's ring_shmem and ring
+   (from the SP phase). Row 17 (p2p_shift) at the pipeline's handoff, a
+   push hop's payload and the registry's shape, bitwise, timed beside one
+   copy_; the registry's p2p_shift spec bitwise its CPU run. PPipeline
+   over Qwen3-1.7B's 28 MLP blocks (four stages of 7; RMSNorm, gate/up,
+   the swiglu kernel, down, residual), 8 microbatches of [128, 2048] bf16
+   (11 ticks), replicate_out both ways: bitwise the 28 blocks in order on
+   one rank, one p2p_shift a tick. p2p_push_pages of one 1024-token
+   prompt's k and v ([28, 512, 16, 128] bf16) to rank 1 and rank 2,
+   bitwise, timed beside one copy_.
+16. Prints one JSON line of per-kernel results, then, last, the device
    line {"ok": true, "device": {...}}.
 
 Exits non-zero, printing no result, if there is no CUDA device, if the
@@ -2631,10 +2652,12 @@ def tp_phase(k, card):
     from triton_dist_tpu_torch.tools import tp_check
     mesh = make_mesh(4, devices=["cuda:0"] * 4)
     cpu_mesh = make_mesh(4, devices=["cpu"] * 4)
-    # the sequence-parallel specs run in the SP phase
+    # the sequence-parallel specs run in the SP phase, p2p_shift in the
+    # Ulysses and pipeline phase
+    from triton_dist_tpu_torch.tools.pp_check import PP_SPECS
     from triton_dist_tpu_torch.tools.sp_check import SP_SPECS
     comm = {n: s_ for n, s_ in k.kernel_registry().items()
-            if s_.min_devices > 1 and n not in SP_SPECS}
+            if s_.min_devices > 1 and n not in SP_SPECS + PP_SPECS}
     k.reset_launch_counts()
     outs = {}
     for name, spec in comm.items():
@@ -2724,14 +2747,33 @@ def sp_phase(k, card):
     from triton_dist_tpu_torch.runtime import make_mesh, symm_mem
     from triton_dist_tpu_torch.tools import sp_check
     mesh = make_mesh(4, devices=["cuda:0"] * 4)
-    res = sp_check.run_sp(mesh, card=card)
+    res = sp_check.run_sp(mesh, card=card, ulysses=False)
     c = res["counts"]
     counts = {"prefill": c["layer"]["prefill ring_shmem"], "serving": c["serving"]["serving"]}
     key = {"lse_combine": "serving", "kv_scatter": "prefill", "ring_attn": "prefill"}
     for n, ph in key.items():
         check(counts[ph][n] > 0, f"sp phase: {n} did not run in the {ph}")
+    counts["spattn ms"] = c["layer"]["ms"]
     symm_mem.clear_registry()
     return [(r, ("sp", key[r["name"]])) for r in res["rows"]], counts
+
+
+def ulysses_pp_phase(k, card, spattn_ms):
+    """The Ulysses and pipeline phase (15. above). Returns its kernel rows
+    with their launch-count keys and the counts they read."""
+    from triton_dist_tpu_torch.runtime import make_mesh, symm_mem
+    from triton_dist_tpu_torch.tools import pp_check, sp_check
+    mesh = make_mesh(4, devices=["cuda:0"] * 4)
+    rows = sp_check.ulysses_rows(mesh)
+    uly = sp_check.ulysses_check(mesh, spattn_ms=spattn_ms)
+    pp = pp_check.run_pp(mesh, card=card)
+    counts = {"ulysses fused": uly["counts"]["fused"],
+              "pipeline": pp["counts"]["pipeline"]["PPipeline replicate_out=True"]}
+    key = {"gemm_a2a": "ulysses fused", "o_a2a_gemm": "ulysses fused", "p2p_shift": "pipeline"}
+    for n, ph in key.items():
+        check(counts[ph][n] > 0, f"ulysses/pp phase: {n} did not run in the {ph} path")
+    symm_mem.clear_registry()
+    return [(r, ("ulysses_pp", key[r["name"]])) for r in rows + pp["rows"]], counts
 
 
 def main() -> int:
@@ -2851,6 +2893,11 @@ def main() -> int:
     sp_rows, counts["sp"] = sp_phase(k, card)
     rows += sp_rows
     stamp("sequence-parallel phase")
+    gc.collect()
+    torch.cuda.empty_cache()
+    uly_rows, counts["ulysses_pp"] = ulysses_pp_phase(k, card, counts["sp"]["spattn ms"])
+    rows += uly_rows
+    stamp("Ulysses and pipeline phase")
 
     # MoE: Qwen3-30B-A3B, about 61 GB of bf16 weights, built once every
     # dense model is gone

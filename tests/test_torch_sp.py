@@ -569,7 +569,7 @@ def test_sp_construction_gates():
     with pytest.raises(ValueError, match="already split"):
         sp.to_mesh(mesh, "sp")
     with pytest.raises(NotImplementedError, match="not yet ported"):
-        K.sp_attention.qkv_gemm_a2a()
+        K.sp_attention.sp_ring_attention_train()
 
 
 @pytest.mark.slow

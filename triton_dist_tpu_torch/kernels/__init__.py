@@ -3,7 +3,8 @@ plain PyTorch version (the collectives all_gather, reduce_scatter,
 all_reduce, gemm_allreduce and all_to_all over a mesh of ranks among
 them, the EP dispatch, the fused EP-MoE and the tensor-parallel MoE's
 ag_group_gemm, moe_reduce_rs and moe_reduce_ar, and the sequence-parallel
-LSE combine, KV scatter and ring attention), the differentiable training
+LSE combine, KV scatter and ring attention, the Ulysses GEMMs fused with
+their all-to-alls, and the pipeline's neighbour put), the differentiable training
 ops built on them (flash_attn_train.py, grad.py), plus the int8
 quantizers, `qmm`, the MoE routing and EP planning helpers (ep_a2a.py)
 and the kernel registry (registry.py)."""
@@ -43,13 +44,15 @@ from triton_dist_tpu_torch.kernels.moe_reduce_rs import (  # noqa: F401
 from triton_dist_tpu_torch.kernels.paged_kv import (  # noqa: F401
     PageAllocator, flash_decode_paged, flash_decode_paged_partial,
     flash_decode_paged_partial_ref, flash_decode_paged_ref)
+from triton_dist_tpu_torch.kernels.p2p import p2p_push_pages, p2p_shift, p2p_shift_ref  # noqa: F401
 from triton_dist_tpu_torch.kernels.quant import (  # noqa: F401
     QuantW, dequantize_kv_int8, qmm, quantize_int8, quantize_kv_int8)
 from triton_dist_tpu_torch.kernels.reduce_scatter import (  # noqa: F401
     ReduceScatterMethod, get_auto_reduce_scatter_method, reduce_scatter, reduce_scatter_ref)
 from triton_dist_tpu_torch.kernels.registry import KernelSpec, kernel_registry  # noqa: F401
 from triton_dist_tpu_torch.kernels.sp_attention import (  # noqa: F401
-    ring_attn_ref, sp_ring_attention, sp_ring_attention_ref)
+    gemm_all_to_all, gemm_all_to_all_ref, o_a2a_gemm, o_a2a_gemm_ref, qkv_gemm_a2a,
+    ring_attn_ref, sp_ring_attention, sp_ring_attention_ref, ulysses_combine, ulysses_dispatch)
 from triton_dist_tpu_torch.kernels.sp_flash_decode import (  # noqa: F401
     kv_cache_scatter, kv_cache_scatter_ref, lse_combine_dist_ref, sp_combine_partials,
     sp_flash_decode, sp_flash_decode_ref)

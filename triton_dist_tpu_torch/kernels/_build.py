@@ -23,11 +23,11 @@ import torch
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_ext"
 # kernel sources (csrc/{name}.cu)
-SOURCES = ("a2a", "ag_gemm", "ag_group_gemm", "allgather", "allreduce", "ep_fused",
-           "flash_attn_bwd", "flash_decode", "flash_decode_paged", "gdn", "gemm",
+SOURCES = ("a2a", "a2a_gemm", "ag_gemm", "ag_group_gemm", "allgather", "allreduce", "ep_fused",
+           "flash_attn_bwd", "flash_decode", "flash_decode_paged", "gdn", "gemm", "gemm_a2a",
            "gemm_allreduce", "gemm_rs", "grouped_gemm", "kv_scatter", "kv_update", "lse_combine",
-           "mega_decode", "mega_paged_decode", "moe_reduce_ar", "moe_reduce_rs", "reduce_scatter",
-           "ring_attn", "swiglu")
+           "mega_decode", "mega_paged_decode", "moe_reduce_ar", "moe_reduce_rs", "p2p",
+           "reduce_scatter", "ring_attn", "swiglu")
 # launch counts, one per kernel: flash_decode.cu and flash_decode_paged.cu
 # each hold two launchers (the kernel and its partial form),
 # flash_attn_bwd.cu two kernels (dq, dk/dv); gemm counts the launches of
@@ -35,15 +35,18 @@ SOURCES = ("a2a", "ag_gemm", "ag_group_gemm", "allgather", "allreduce", "ep_fuse
 # their rings; a2a.cu's one kernel counts as all_to_all (all_to_all,
 # low_latency_all_to_all, the EP combine) or dispatch_a2a (the EP
 # dispatch with its metadata); the sequence-parallel kernels count under
-# their sources' names (lse_combine, kv_scatter, ring_attn); a collective
+# their sources' names (lse_combine, kv_scatter, ring_attn), the Ulysses
+# kernels as gemm_a2a (gemm_a2a.cu) and o_a2a_gemm (a2a_gemm.cu), the
+# pipeline handoff as p2p_shift (p2p.cu); a collective
 # counts one launch per distinct device of its mesh (one for four ranks
 # emulated on one card)
 KERNELS = ("ag_gemm", "ag_group_gemm", "all_gather", "all_reduce", "all_to_all",
            "dispatch_a2a", "ep_moe_fused", "flash_attn_bwd_dkdv", "flash_attn_bwd_dq",
            "flash_decode", "flash_decode_paged", "flash_decode_paged_partial",
-           "flash_decode_partial", "gdn_fwd", "gemm", "gemm_allreduce", "gemm_rs", "grouped_gemm",
-           "kv_scatter", "kv_update", "lse_combine", "mega_decode", "mega_paged_decode",
-           "moe_reduce_ar", "moe_reduce_rs", "reduce_scatter", "ring_attn", "swiglu")
+           "flash_decode_partial", "gdn_fwd", "gemm", "gemm_a2a", "gemm_allreduce", "gemm_rs",
+           "grouped_gemm", "kv_scatter", "kv_update", "lse_combine", "mega_decode",
+           "mega_paged_decode", "moe_reduce_ar", "moe_reduce_rs", "o_a2a_gemm", "p2p_shift",
+           "reduce_scatter", "ring_attn", "swiglu")
 CUDA_FLAGS = ["-gencode=arch=compute_90a,code=sm_90a", "-O3", "-lineinfo"]
 # dtype codes of csrc/launchers.h (tdt::Dtype)
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}

@@ -63,19 +63,6 @@ __global__ void __launch_bounds__(kThreads) a2a_kernel(CommArgs a, long long cn,
   wait_sources(a, kRegionA);
 }
 
-// the widest word (16, 8, 4, 2, 1 bytes) dividing the chunk and every
-// rank's input and output address
-int word_bytes(const tdt::CommArgs& a, long long chunk_bytes) {
-  for (int w = 16; w > 1; w >>= 1) {
-    bool ok = chunk_bytes % w == 0;
-    for (int r = 0; r < a.n && ok; ++r)
-      ok = reinterpret_cast<uintptr_t>(a.in[r]) % w == 0 &&
-           reinterpret_cast<uintptr_t>(a.out[r]) % w == 0;
-    if (ok) return w;
-  }
-  return 1;
-}
-
 cudaError_t launch(const tdt::CommArgs& a, long long chunk_bytes, long long meta_bytes,
                    int ctas, cudaStream_t stream) {
   if (chunk_bytes < 0 || meta_bytes < 0 || meta_bytes % 8) return cudaErrorInvalidValue;
@@ -84,7 +71,7 @@ cudaError_t launch(const tdt::CommArgs& a, long long chunk_bytes, long long meta
       return cudaErrorInvalidValue;
   if (chunk_bytes == 0 && meta_bytes == 0) return cudaSuccess;
   tdt::CommArgs args_v = a;
-  const int w = word_bytes(a, chunk_bytes);
+  const int w = tdt::word_bytes(a, chunk_bytes);
   long long cn = chunk_bytes / w, mn = meta_bytes / 8;
   void* args[] = {&args_v, &cn, &mn};
   switch (w) {

@@ -409,6 +409,29 @@ void ring_attn(int dtype, int HD, const Ptrs& q, const Ptrs& k, const Ptrs& v, c
   C10_CUDA_CHECK(tdt::ring_attn(dtype, HD, r, ctas, stream(st)));
 }
 
+void p2p_shift(const Ptrs& in, const Ptrs& out, const Ptrs& sig, int first_rank, int n_local,
+               int64_t epoch, int64_t bytes, int reverse, int ctas, int64_t st) {
+  C10_CUDA_CHECK(tdt::p2p_shift(
+      comm_args(in, {}, {}, out, {}, {}, sig, first_rank, n_local, epoch), bytes, reverse,
+      ctas, stream(st)));
+}
+
+void gemm_all_to_all(int dtype, const Ptrs& a, const Ptrs& w, const Ptrs& out,
+                     const Ptrs& sig, int first_rank, int n_local, int64_t epoch, int m,
+                     int Nc, int K, int ctas, int64_t st) {
+  C10_CUDA_CHECK(tdt::gemm_all_to_all(
+      dtype, comm_args(a, w, {}, out, {}, {}, sig, first_rank, n_local, epoch), m, Nc, K, ctas,
+      stream(st)));
+}
+
+void o_a2a_gemm(int dtype, const Ptrs& x, const Ptrs& w, const Ptrs& out, const Ptrs& land,
+                const Ptrs& sig, int first_rank, int n_local, int64_t epoch, int m, int Nc,
+                int D, int ctas, int64_t st) {
+  C10_CUDA_CHECK(tdt::o_a2a_gemm(
+      dtype, comm_args(x, w, {}, out, {}, land, sig, first_rank, n_local, epoch), m, Nc, D,
+      ctas, stream(st)));
+}
+
 // peer access from device `dev` to `peer` (a mesh of distinct cards);
 // enabling it twice is not an error
 void enable_peer_access(int dev, int peer) {
@@ -455,5 +478,8 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("lse_combine", &lse_combine);
   m.def("kv_scatter", &kv_scatter);
   m.def("ring_attn", &ring_attn);
+  m.def("p2p_shift", &p2p_shift);
+  m.def("gemm_all_to_all", &gemm_all_to_all);
+  m.def("o_a2a_gemm", &o_a2a_gemm);
   m.def("enable_peer_access", &enable_peer_access);
 }

@@ -309,4 +309,24 @@ struct RingAttnArgs {
 };
 cudaError_t ring_attn(int dtype, int HD, const RingAttnArgs& r, int ctas, cudaStream_t stream);
 
+// The pipeline handoff and the Ulysses kernels.
+// csrc/p2p.cu, the cyclic neighbour put: in = each rank's buffer of `bytes`,
+// out = each rank's output of the same size; rank r's buffer lands in rank
+// (r + 1) % n's output ((r - 1) % n when reverse), as raw bytes.
+cudaError_t p2p_shift(const CommArgs& a, long long bytes, int reverse, int ctas,
+                      cudaStream_t stream);
+// csrc/gemm_a2a.cu, the QKV projection fused with the Ulysses dispatch: in =
+// each rank's a [m, K], in2 = its w [K, n * Nc], out = each rank's [n, m, Nc]
+// (slot p: rank p's rows times the rank's column chunk), all row-major and
+// contiguous; dtype bf16 (K and Nc multiples of 8) or f32 (Nc of 4).
+cudaError_t gemm_all_to_all(int dtype, const CommArgs& a, int m, int Nc, int K, int ctas,
+                            cudaStream_t stream);
+// csrc/a2a_gemm.cu, the Ulysses combine fused with the O projection: in = each
+// rank's x [n, m, Nc] (chunk p for rank p), in2 = its w [n * Nc, D], land =
+// each rank's symmetric landing buffer [n, m, Nc], out = each rank's y [m, D],
+// all row-major and contiguous; dtype bf16 (Nc and D multiples of 8) or f32
+// (Nc of 4).
+cudaError_t o_a2a_gemm(int dtype, const CommArgs& a, int m, int Nc, int D, int ctas,
+                       cudaStream_t stream);
+
 }  // namespace tdt

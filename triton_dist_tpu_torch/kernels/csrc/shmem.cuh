@@ -214,6 +214,19 @@ inline bool attr_set(const void* fn, int dev, bool record) {
   return false;
 }
 
+// the widest word (16, 8, 4, 2, 1 bytes) dividing `bytes` and every rank's
+// input and output address: the raw-byte movers (a2a.cu, p2p.cu) copy in it
+inline int word_bytes(const CommArgs& a, long long bytes) {
+  for (int w = 16; w > 1; w >>= 1) {
+    bool ok = bytes % w == 0;
+    for (int r = 0; r < a.n && ok; ++r)
+      ok = reinterpret_cast<uintptr_t>(a.in[r]) % w == 0 &&
+           reinterpret_cast<uintptr_t>(a.out[r]) % w == 0;
+    if (ok) return w;
+  }
+  return 1;
+}
+
 // A cooperative launch of `kernel` over (ctas, 1, n_local) CTAs of
 // tdt_shmem::kThreads threads; cudaErrorInvalidValue for a grid the pad's
 // layout cannot hold, and the runtime's cudaErrorCooperativeLaunchTooLarge

@@ -7,9 +7,9 @@ Counterpart of triton_dist_tpu/kernels/__init__.py (`KernelSpec`,
 `_b_reduce_scatter`, `_b_allreduce`, `_b_ag_gemm`, `_b_gemm_rs`,
 `_b_gemm_ar`, `_b_all_to_all`, `_b_ep_dispatch_combine`, `_b_ep_fused`,
 `_b_ag_group_gemm`, `_b_moe_reduce`, and the sequence-parallel
-`_b_sp_flash_decode`, `_b_kv_scatter`, `_b_sp_ring`): the eight specs
-whose `min_devices` is 1, whose build takes a device, and the nineteen of
-the ported collectives (min_devices 2, kind "comm"),
+`_b_sp_flash_decode`, `_b_kv_scatter`, `_b_sp_ring`, and `_b_p2p`): the
+eight specs whose `min_devices` is 1, whose build takes a device, and the
+twenty of the ported collectives (min_devices 2, kind "comm"),
 whose build takes a mesh (runtime/bootstrap.py) and returns one input
 per rank.
 Each build function draws its inputs from the same
@@ -312,6 +312,13 @@ def _b_sp_ring(mesh):
             tuple(_split(q, mesh, 1) + _split(k, mesh, 2) + _split(v, mesh, 2)))
 
 
+def _b_p2p(mesh):
+    """x [n, 8, 128] (seed 0), rank r's block x[r]."""
+    from triton_dist_tpu_torch.kernels.p2p import p2p_shift
+    x = _f32(np.random.RandomState(0), mesh.size, 8, 128)
+    return (lambda *xs: p2p_shift(list(xs), mesh=mesh)), tuple(t[0] for t in _split(x, mesh))
+
+
 @functools.lru_cache(maxsize=None)
 def kernel_registry() -> dict:
     """The canonical enumeration of the port's kernels: name -> KernelSpec."""
@@ -343,6 +350,7 @@ def kernel_registry() -> dict:
         KernelSpec("gemm_rs", "kernels.gemm_reduce_scatter", "comm", _b_gemm_rs,
                    min_devices=2),
         KernelSpec("gemm_ar", "kernels.gemm_allreduce", "comm", _b_gemm_ar, min_devices=2),
+        KernelSpec("p2p_shift", "kernels.p2p", "comm", _b_p2p, min_devices=2),
         KernelSpec("all_to_all", "kernels.all_to_all", "comm", _b_all_to_all(False),
                    min_devices=2),
         KernelSpec("low_latency_all_to_all", "kernels.all_to_all", "comm",

@@ -192,6 +192,28 @@ neutral, or the previous call's output of the same shape returned; or
 layers/tp_attn.py sp_paged_context: every new row written one row past
 its place), against sp_check.SP_GATE.
 
+    python3 -m triton_dist_tpu_torch.tools.fault_margin --ulysses [--cards 4]
+
+holds the Ulysses kernels and layer over four ranks (emulated on one card,
+or four cards) instead. First rows 28 (gemm_a2a) and 27 (o_a2a_gemm) at
+tools/sp_check.py's Ulysses prefill shapes, each against its plain
+version: the clean gap beside the gap of the plain version with a fault
+planted in what lands, against sp_check.ULYSSES_KERNEL_LIMIT:
+
+    ulysses wrong owner     rank 0's chunk for owner 1 lands at owner 2 (in
+                            its slot 0), and owner 1's slot 0 stays zeros
+    ulysses stale epoch     every owner reads rank 1's slot before it
+                            arrives: the previous call's chunk (of another
+                            input)
+    ulysses drop a rank     rank n-1's chunks never land (zeros)
+
+Then the layer: UlyssesAttn at sp_check's widths, B=1 x 16384 positions,
+mode "fused" against "xla", clean (and "unfused" against "xla"), and with
+each fault planted in row 28's output (wrapping
+kernels/sp_attention.py gemm_all_to_all) or in row 27's landed chunks
+(wrapping layers/sp_attn.py o_a2a_gemm with the plain arithmetic on the
+faulted chunks), against sp_check.ULYSSES_GATE.
+
 Prints one line per configuration and case with the largest relative gap
 over the steps and whether a limit of LIMIT times the largest logit
 catches it; needs one card.
@@ -1280,10 +1302,145 @@ def run_sp(m, mesh, n_layers) -> dict:
     return results
 
 
+def _ulysses_edit(case: str, outs, prev):
+    """Plant `case` in row 28's per-rank outputs [n, m, Nc] (copies; prev:
+    the previous call's outputs of the same shape)."""
+    n = len(outs)
+    o = [t.clone() for t in outs]
+    if case == "ulysses wrong owner":
+        o[2][0] = outs[1][0].to(o[2].device)
+        o[1][0].zero_()
+    elif case == "ulysses stale epoch":
+        for j in range(n):
+            o[j][1] = prev[j][1]
+    elif case == "ulysses drop a rank":
+        for j in range(n):
+            o[j][n - 1].zero_()
+    return o
+
+
+def _ulysses_chunks(case: str, chunks, prev):
+    """Plant `case` in what row 27's owners receive: owner me multiplies
+    chunk me of rank q's chunks (copies; prev: the previous call's)."""
+    n = len(chunks)
+    c = [t.clone() for t in chunks]
+    if case == "ulysses wrong owner":
+        c[0][2] = chunks[0][1]
+        c[0][1].zero_()
+    elif case == "ulysses stale epoch":
+        for me in range(n):
+            if me != 1:
+                c[1][me] = prev[1][me]
+    elif case == "ulysses drop a rank":
+        for me in range(n - 1):
+            c[n - 1][me].zero_()
+    return c
+
+
+ULYSSES_CASES = ("ulysses wrong owner", "ulysses stale epoch", "ulysses drop a rank")
+
+
+def ulysses_faults(mesh, seed: int = 0) -> dict:
+    """Rows 27-28's faults, then the layer's (see the module docstring)."""
+    from triton_dist_tpu_torch import kernels as K
+    from triton_dist_tpu_torch.kernels import sp_attention
+    from triton_dist_tpu_torch.layers import sp_attn
+    from triton_dist_tpu_torch.tools import sp_check as sc
+    n = mesh.size
+    dev0 = mesh.devices[0]
+    gen = torch.Generator(device=dev0).manual_seed(seed)
+    bf = torch.bfloat16
+
+    def parts(*shape):
+        return [torch.randn(shape, generator=gen, device=dev0).to(bf).to(d)
+                for d in mesh.devices]
+
+    def gap(outs, refs):
+        return max(_rel(o.float().to(dev0).reshape(r.shape), r.float().to(dev0))
+                   for o, r in zip(outs, refs))
+
+    results = {}
+    C = (sc.HQ + 2 * sc.HKV) // n * sc.HD
+    m = sc.SP_S // n
+    w = mesh.replicate((torch.randn(sc.D, n * C, generator=gen, device=dev0)
+                        * sc.D ** -0.5).to(bf))
+    prev_a, a = parts(m, sc.D), parts(m, sc.D)
+    ref, prev = K.gemm_all_to_all_ref(a, w), K.gemm_all_to_all_ref(prev_a, w)
+    res = {"ulysses clean": gap(K.gemm_all_to_all(a, w, mesh=mesh), ref)}
+    for case in ULYSSES_CASES:
+        res[case] = gap(_ulysses_edit(case, ref, prev), ref)
+    results["gemm_a2a"] = res
+    No = sc.HQ * sc.HD
+    wo = mesh.replicate((torch.randn(No, sc.D, generator=gen, device=dev0)
+                         * No ** -0.5).to(bf))
+    prev_x, x = parts(1, sc.SP_S, No // n), parts(1, sc.SP_S, No // n)
+    chunks = [sp_attention.o_chunks(t, n) for t in x]
+    prev_c = [sp_attention.o_chunks(t, n) for t in prev_x]
+    ref = sp_attention.o_a2a_gemm_from_chunks(chunks, wo)
+    res = {"ulysses clean": gap(K.o_a2a_gemm(x, wo, mesh=mesh), ref)}
+    for case in ULYSSES_CASES:
+        res[case] = gap(sp_attention.o_a2a_gemm_from_chunks(
+            _ulysses_chunks(case, chunks, prev_c), wo), ref)
+    results["o_a2a_gemm"] = res
+    torch.cuda.synchronize()
+    for name, r in results.items():
+        print(f"ulysses kernel {name}: " + "; ".join(
+            f"{c} {g:.3g} ({_caught(g, sc.ULYSSES_KERNEL_LIMIT)})" for c, g in r.items()),
+              flush=True)
+    # the layer: fused against xla, clean and with each fault planted
+    lay, (cos, sin) = sc.ulysses_layer(mesh, gen)
+    x_prev, xs = sc.ulysses_input(mesh, gen), sc.ulysses_input(mesh, gen)
+    ref = lay.prefill(xs, cos, sin, mode="xla")
+    res = {"ulysses clean": gap(lay.prefill(xs, cos, sin, mode="fused"), ref),
+           "ulysses clean unfused": gap(lay.prefill(xs, cos, sin, mode="unfused"), ref)}
+    real_g, real_o = sp_attention.gemm_all_to_all, sp_attn.o_a2a_gemm
+    last = {}
+
+    def record_g(*a_, **kw):
+        last["g"] = real_g(*a_, **kw)
+        return last["g"]
+
+    def record_o(x_, w_, mesh):
+        last["o"] = [sp_attention.o_chunks(t, n) for t in x_]
+        return real_o(x_, w_, mesh=mesh)
+
+    sp_attention.gemm_all_to_all, sp_attn.o_a2a_gemm = record_g, record_o
+    try:
+        lay.prefill(x_prev, cos, sin, mode="fused")     # the previous call's chunks
+        prev_g, prev_o = last["g"], last["o"]
+        for case in ULYSSES_CASES:
+            def faulty_g(*a_, case=case, **kw):
+                return _ulysses_edit(case, real_g(*a_, **kw), prev_g)
+
+            def faulty_o(x_, w_, mesh, case=case):
+                ch = [sp_attention.o_chunks(t, n) for t in x_]
+                B, S, _ = x_[0].shape
+                return [y.reshape(B, S // n, -1) for y in sp_attention.o_a2a_gemm_from_chunks(
+                    _ulysses_chunks(case, ch, prev_o), w_)]
+
+            for row, g_fn, o_fn in (("28", faulty_g, real_o), ("27", real_g, faulty_o)):
+                sp_attention.gemm_all_to_all, sp_attn.o_a2a_gemm = g_fn, o_fn
+                res[f"{case} (row {row})"] = gap(lay.prefill(xs, cos, sin, mode="fused"), ref)
+    finally:
+        sp_attention.gemm_all_to_all, sp_attn.o_a2a_gemm = real_g, real_o
+    results["layer fused against xla"] = res
+    for c, g in res.items():
+        print(f"ulysses layer {c}: {g:.4g} ({_caught(g, sc.ULYSSES_GATE)})", flush=True)
+    return results
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("fault_margin: needs an NVIDIA card", file=sys.stderr)
         return 2
+    if "--ulysses" in sys.argv[1:]:
+        from triton_dist_tpu_torch.runtime import make_mesh
+        from triton_dist_tpu_torch.tools import sp_check as sc
+        mesh = (make_mesh(4) if "--cards" in sys.argv[1:]
+                else make_mesh(4, devices=["cuda:0"] * 4))
+        print(json.dumps({"kernel limit": sc.ULYSSES_KERNEL_LIMIT, "layer limit": sc.ULYSSES_GATE,
+                          "ulysses": ulysses_faults(mesh)}), flush=True)
+        return 0
     if "--sp" in sys.argv[1:]:
         import triton_dist_tpu_torch.models as m
         from triton_dist_tpu_torch.runtime import make_mesh

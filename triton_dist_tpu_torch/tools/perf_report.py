@@ -24,10 +24,14 @@ D=N=1024; the sequence-parallel rows sp_flash_decode(dist) at the
 flash_decode row's shape with its 2048 keys split over the cards,
 kv_cache_scatter of [8, 8, 2048, 128] blocks into [8, 8, 4096, 128]
 windows split over the cards, and the JAX report's sp_ring(ring_shmem)
-beside sp_ring(ring) at B=2, 16 query and kv heads, S=256, d=128),
+beside sp_ring(ring) at B=2, 16 query and kv heads, S=256, d=128; the
+Ulysses rows ulysses_qkv_gemm_a2a and ulysses_o_a2a_gemm at the JAX
+report's B=2, S=2048, D=N=1024; the pipeline rows pp_gpipe_fwd, the JAX
+report's tanh stage at D=1024 over 16 microbatches of 64 rows, and
+p2p_shift of its [64, 1024] handoff),
 against perf_model.collective_sol_us over NVLink plus, for the GEMMs,
-one card's share of the product (gemm_sol_us on the per-card dims). The rows of kernels not yet ported are listed under
-`not_ported`. Each row carries its plain version,
+one card's share of the product (gemm_sol_us on the per-card dims). Each
+row carries its plain version,
 so that a caller can hold the op's output at the timed shape against it
 (chip_smoke.py does). It needs a card and raises without one: no row is
 ever timed on the CPU.
@@ -49,9 +53,6 @@ import torch
 from triton_dist_tpu_torch.tools.perf_model import chip_specs, gemm_sol_us, sol_report
 
 _REPO = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-
-# the JAX report's rows of kernels not yet ported
-NOT_PORTED = ("ulysses_qkv_gemm_a2a", "ulysses_o_a2a_gemm", "pp_gpipe_fwd")
 
 # registry name -> this report's row name, where they differ (the JAX
 # report's map)
@@ -256,7 +257,60 @@ def comm_rows(spec, mesh) -> list:
                     gemm_sol_us(M, K_, N // n, spec=spec)
                     + collective_sol_us("ag", M * K_ * 2, n, spec=spec)))
     return (rows + ep_rows(spec, mesh, parts) + tp_moe_rows(spec, mesh, parts)
-            + sp_rows(spec, mesh, parts))
+            + sp_rows(spec, mesh, parts) + ulysses_pp_rows(spec, mesh, parts))
+
+
+def ulysses_pp_rows(spec, mesh, parts) -> list:
+    """The Ulysses fused GEMMs at the JAX report's shape (B=2, S=2048,
+    D=N=1024, bf16) against one card's share of the product plus the
+    all-to-all's NVLink time (the JAX report's SOL); the GPipe forward of
+    its tanh stage (D=1024, 16 microbatches of 64 rows) against the ticks
+    times one stage's product, the ideal schedule's span; p2p_shift of
+    that pipeline's [64, 1024] handoff against one rank's bytes over
+    NVLink."""
+    from triton_dist_tpu_torch import kernels as K
+    from triton_dist_tpu_torch.layers import PPipeline
+    from triton_dist_tpu_torch.tools.perf_model import collective_sol_us
+    n = mesh.size
+    Bu, Su, Du, Nu = 2, 2048, 1024, 1024
+    a2a = collective_sol_us("a2a", Bu * Su // n * Nu * 2 * n, n, spec=spec)
+    xu = parts(Bu, Su // n, Du, sc=0.1)
+    wu = mesh.replicate(parts(Du, Nu, sc=0.1)[0])
+    xo = parts(Bu, Su, Nu // n, sc=0.1)
+    wo = mesh.replicate(parts(Nu, Du, sc=0.1)[0])
+    rows = [Row("ulysses_qkv_gemm_a2a", lambda v, w: K.qkv_gemm_a2a(v, w, mesh=mesh),
+                lambda v, w: K.qkv_gemm_a2a([t.cpu() for t in v], [t.cpu() for t in w],
+                                            mesh=_cpu_mesh(n)),
+                (xu, wu), gemm_sol_us(Bu * Su // n, Du, Nu, spec=spec) + a2a),
+            Row("ulysses_o_a2a_gemm", lambda v, w: K.o_a2a_gemm(v, w, mesh=mesh),
+                K.o_a2a_gemm_ref, (xo, wo), gemm_sol_us(Bu * Su // n, Nu, Du, spec=spec) + a2a)]
+    Mp, Bp, Dp = 4 * max(n, 2), 64, 1024
+    g = torch.Generator(device=mesh.devices[0]).manual_seed(1)
+    stages = [{"w": (torch.randn(Dp, Dp, generator=g, device=mesh.devices[0]) * Dp ** -0.5)
+               .to(torch.bfloat16), "b": (torch.randn(Dp, generator=g, device=mesh.devices[0])
+                                          * 0.1).to(torch.bfloat16)} for _ in range(n)]
+
+    def stage(p, x):
+        return torch.tanh(x @ p["w"] + p["b"])
+
+    pipe = PPipeline.init(stages, stage, mesh=mesh)
+
+    def in_order(v):
+        out = []
+        for x in v:
+            for p in stages:
+                x = stage(p, x)
+            out.append(x)
+        return torch.stack(out)
+
+    xp = (torch.randn(Mp, Bp, Dp, generator=g, device=mesh.devices[0]) * 0.3).to(torch.bfloat16)
+    rows.append(Row("pp_gpipe_fwd", lambda v: pipe(v)[0], in_order, (xp,),
+                    (Mp + n - 1) * gemm_sol_us(Bp, Dp, Dp, spec=spec),
+                    f"M={Mp} microbatches, {Mp + n - 1} ticks; SOL = ideal schedule span"))
+    rows.append(Row("p2p_shift", lambda v: K.p2p_shift(v, mesh=mesh), K.p2p_shift_ref,
+                    (parts(Bp, Dp),), collective_sol_us("p2p", Bp * Dp * 2, n, spec=spec),
+                    "the pipeline's handoff"))
+    return rows
 
 
 def sp_rows(spec, mesh, parts) -> list:
@@ -402,7 +456,7 @@ def _cpu_mesh(n: int):
 def run_report(write_json=None, rows=None, mesh=None) -> dict:
     """Time every row of `rows` (by default report_rows(), and comm_rows()
     over `mesh` when it spans more than one card) on the card; returns
-    {"env", "ops", "not_ported", "registry"}."""
+    {"env", "ops", "registry"}."""
     if not torch.cuda.is_available():
         raise RuntimeError("perf_report: needs an NVIDIA card (no CPU rows)")
     spec = chip_specs()
@@ -420,7 +474,7 @@ def run_report(write_json=None, rows=None, mesh=None) -> dict:
                          "sol_frac": r.sol_us / t, "note": r.note})
         print(sol_report(r.op, t, r.sol_us) + (f"  [{r.note}]" if r.note else ""), flush=True)
 
-    out = {"env": env, "ops": out_rows, "not_ported": list(NOT_PORTED),
+    out = {"env": env, "ops": out_rows,
            "registry": registry_coverage([r["op"] for r in out_rows])}
     if write_json:
         with open(write_json, "w") as f:

@@ -1,7 +1,7 @@
-"""Sequence-parallel checks of the port on the card: the three SP kernels
-against their plain versions, the SPAttn layer at Qwen3-1.7B's attention
-widths, and Qwen3-1.7B served over a mesh of four ranks with its paged
-pool's page ids split over them.
+"""Sequence-parallel checks of the port on the card: the five SP kernels
+against their plain versions, the SPAttn and UlyssesAttn layers at
+Qwen3-1.7B's attention widths, and Qwen3-1.7B served over a mesh of four
+ranks with its paged pool's page ids split over them.
 
     python3 -m triton_dist_tpu_torch.tools.tp_check --sp [--cards 4] [--layers L]
 
@@ -23,6 +23,20 @@ Checks, each failing the run (tools/checks.py CheckFailed):
   the whole block; ring_attn: scaled_dot_product_attention over the whole
   sequence on one card) and the bound; then the registry's three SP
   specs (f32) on the mesh against the same specs on a CPU mesh;
+- Ulysses kernel rows: gemm_a2a (row 28; the QKV projection of the
+  Ulysses prefill, a [4096, 2048] a rank against w [2048, 4096]) and
+  o_a2a_gemm (row 27; the O projection, x [16384, 512] a rank against w
+  [2048, 2048]), bf16, and each at a small f32 shape (the JAX report's CPU
+  shape: B=1, S=8n, D=N=64), within ULYSSES_KERNEL_LIMIT of their plain
+  versions (tools/fault_margin.py --ulysses), timed beside the plain
+  version, one rank's product in torch.matmul and the bound;
+- UlyssesAttn at the SPAttn widths below, B=1 x S=16384 over four ranks:
+  prefill(mode="fused") launches one gemm_a2a and one o_a2a_gemm a device
+  and one flash_decode a rank, and nothing else; "unfused" two all_to_all
+  a device and one flash_decode a rank, and nothing else; "xla" no kernel;
+  fused against unfused and both against "xla" within ULYSSES_GATE
+  (max |d| over max |xla|); ulysses_dispatch then ulysses_combine bitwise
+  the input; the three modes timed beside SPAttn's ring_shmem and ring;
 - SPAttn: D=2048, Hq=16, Hkv=8, hd=128, QK-norms, bf16, seeded random
   weights, B=1 x S=16384 over four ranks, a cache of T=32768:
   prefill(mode="ring_shmem") against prefill(mode="ring") (outputs and
@@ -75,6 +89,11 @@ SP_PROMPT = (3072, 4096)
 SP_CHUNK, SP_PAGE = 16, 16
 SP_MAX_SEQ = SP_PROMPT[1] + SP_GEN + SP_CHUNK
 SP_TF_STEPS, SP_TICK_STEPS = 4, 4
+# rows 27-28 against their plain versions, and the Ulysses modes against
+# one another and "xla": max |d| over max |reference|
+# (tools/fault_margin.py --ulysses)
+ULYSSES_KERNEL_LIMIT = 2e-2
+ULYSSES_GATE = 2e-2
 
 SOURCES = {
     "lse_combine": ("triton_dist_tpu_torch/kernels/csrc/lse_combine.cu",
@@ -83,6 +102,10 @@ SOURCES = {
                    "triton_dist_tpu/kernels/sp_flash_decode.py:330"),
     "ring_attn": ("triton_dist_tpu_torch/kernels/csrc/ring_attn.cu",
                   "triton_dist_tpu/kernels/sp_attention.py:385"),
+    "gemm_a2a": ("triton_dist_tpu_torch/kernels/csrc/gemm_a2a.cu",
+                 "triton_dist_tpu/kernels/sp_attention.py:855"),
+    "o_a2a_gemm": ("triton_dist_tpu_torch/kernels/csrc/a2a_gemm.cu",
+                   "triton_dist_tpu/kernels/sp_attention.py:816"),
 }
 # the registry's SP specs against the CPU mesh: the kernels' f32 sums in
 # another order than the plain versions'
@@ -307,7 +330,7 @@ def sp_attn_check(mesh, seed: int = 0) -> dict:
     cos, sin = precompute_rope(HD, SP_T, 1e6, device=dev0)
     x = torch.randn(1, SP_S, D, generator=gen, device=dev0).to(bf)
     xs = [t.contiguous().to(d) for t, d in zip(x.chunk(n, 1), mesh.devices)]
-    res = {}
+    res = {"ms": {}}
     outs = {}
     for mode in ("ring", "ring_shmem"):
         ck, cv = lay.alloc_cache(1, SP_T, dtype=bf)
@@ -318,6 +341,7 @@ def sp_attn_check(mesh, seed: int = 0) -> dict:
         sync(mesh)
         outs[mode] = (out, ck, cv, time.perf_counter() - t0)
         res[f"prefill {mode}"] = K.launch_counts()
+        res["ms"][mode] = outs[mode][3] * 1e3
     # a collective launches once a distinct device of the mesh
     ndev = len(mesh.device_groups())
     c = res["prefill ring_shmem"]
@@ -361,6 +385,134 @@ def sp_attn_check(mesh, seed: int = 0) -> dict:
           f"{ms['xla'] / SP_DECODE_STEPS:.2f} ms a step (dist / xla), launches "
           f"{ {k_: v_ for k_, v_ in res['decode'].items() if v_} }", flush=True)
     return res
+
+
+def ulysses_rows(mesh, seed: int = 0) -> list:
+    """Rows 27-28 at the Ulysses prefill's shapes (bf16) and at a small f32
+    shape (launches left None)."""
+    from triton_dist_tpu_torch import kernels as K
+    n = mesh.size
+    dev0 = mesh.devices[0]
+    gen = torch.Generator(device=dev0).manual_seed(seed)
+    bf, f32 = torch.bfloat16, torch.float32
+    rows = []
+
+    def parts(*shape, dtype, sc=1.0):
+        return [(torch.randn(shape, generator=gen, device=dev0) * sc).to(dtype).to(d)
+                for d in mesh.devices]
+
+    def whole(*shape, dtype):
+        return mesh.replicate((torch.randn(shape, generator=gen, device=dev0)
+                               * shape[0] ** -0.5).to(dtype))
+
+    C = (HQ + 2 * HKV) // n * HD
+    for case, B, S, Dm, Nq, No, dt in (
+            (f"Ulysses prefill B=1 x S={SP_S} over {n} ranks, D={D}, QKV N={n * C}, O N={HQ * HD}, "
+             "bf16", 1, SP_S, D, n * C, HQ * HD, bf),
+            (f"small f32, B=1 x S={8 * n}, D=N=64", 1, 8 * n, 64, 64, 64, f32)):
+        m = B * S // n
+        isz = 2 if dt == bf else 4
+        fps = BF16_FLOPS_PER_S if dt == bf else F32_FLOPS_PER_S
+
+        def fresh_qkv(m=m, Dm=Dm, Nq=Nq, dt=dt):
+            return parts(m, Dm, dtype=dt), whole(Dm, Nq, dtype=dt)
+
+        _row(rows, mesh, "gemm_a2a", f"QKV: {case}", fresh_qkv,
+             lambda a, w: K.gemm_all_to_all(a, w, mesh=mesh), K.gemm_all_to_all_ref,
+             lambda a, w: torch.matmul(a[0], w[0]),
+             n * (m * Dm + Dm * Nq + m * Nq) * isz, 2.0 * n * m * Dm * Nq, fps,
+             ULYSSES_KERNEL_LIMIT)
+
+        def fresh_o(B=B, S=S, Dm=Dm, No=No, dt=dt):
+            return parts(B, S, No // n, dtype=dt), whole(No, Dm, dtype=dt)
+
+        _row(rows, mesh, "o_a2a_gemm", f"O: {case}", fresh_o,
+             lambda x, w: K.o_a2a_gemm(x, w, mesh=mesh), K.o_a2a_gemm_ref,
+             lambda x, w, No=No: torch.matmul(x[0].reshape(-1, No), w[0]),
+             n * (m * No + No * Dm + m * Dm) * isz, 2.0 * n * m * No * Dm, fps,
+             ULYSSES_KERNEL_LIMIT)
+    return rows
+
+
+def ulysses_layer(mesh, gen):
+    """UlyssesAttn at Qwen3-1.7B's attention widths (D, HQ, HKV, HD,
+    QK-norms, bf16), its weights drawn from `gen`, and the rope tables for
+    SP_S positions."""
+    from triton_dist_tpu_torch.layers import UlyssesAttn, precompute_rope
+    dev0 = mesh.devices[0]
+
+    def w(*shape):
+        return (torch.randn(shape, generator=gen, device=dev0) * shape[0] ** -0.5).to(
+            torch.bfloat16)
+
+    lay = UlyssesAttn.init(w(D, HQ * HD), w(D, HKV * HD), w(D, HKV * HD), w(HQ * HD, D),
+                           mesh=mesh, n_heads=HQ, n_kv_heads=HKV, head_dim=HD,
+                           q_norm=torch.rand(HD, generator=gen, device=dev0) + 0.5,
+                           k_norm=torch.rand(HD, generator=gen, device=dev0) + 0.5)
+    return lay, precompute_rope(HD, SP_S, 1e6, device=dev0)
+
+
+def ulysses_input(mesh, gen) -> list:
+    """A B=1 x SP_S prefill's x [1, SP_S, D] bf16, as the ranks' blocks."""
+    x = torch.randn(1, SP_S, D, generator=gen, device=mesh.devices[0]).to(torch.bfloat16)
+    return [t.contiguous().to(d) for t, d in zip(x.chunk(mesh.size, 1), mesh.devices)]
+
+
+def ulysses_check(mesh, seed: int = 0, spattn_ms=None) -> dict:
+    """UlyssesAttn at Qwen3-1.7B's attention widths (see the module
+    docstring). Returns the launch counts of each prefill mode, their
+    times and the gaps."""
+    from triton_dist_tpu_torch import kernels as K
+    from triton_dist_tpu_torch.tools.tp_check import sync
+    n = mesh.size
+    dev0 = mesh.devices[0]
+    gen = torch.Generator(device=dev0).manual_seed(seed)
+    bf = torch.bfloat16
+    lay, (cos, sin) = ulysses_layer(mesh, gen)
+    xs = ulysses_input(mesh, gen)
+    outs, ms, counts = {}, {}, {}
+    for mode in ("fused", "unfused", "xla"):
+        lay.prefill(xs, cos, sin, mode=mode)             # warm-up
+        K.reset_launch_counts()
+        sync(mesh)
+        t0 = time.perf_counter()
+        outs[mode] = lay.prefill(xs, cos, sin, mode=mode)
+        sync(mesh)
+        ms[mode] = (time.perf_counter() - t0) * 1e3
+        counts[mode] = K.launch_counts()
+    ndev = len(mesh.device_groups())
+    c = counts["fused"]
+    check(c["gemm_a2a"] == ndev and c["o_a2a_gemm"] == ndev and c["flash_decode"] == n,
+          f"Ulysses fused prefill: launches {c}, want one gemm_a2a and one o_a2a_gemm a "
+          "device and one flash_decode a rank")
+    only_launched(c, ("gemm_a2a", "o_a2a_gemm", "flash_decode"), "Ulysses fused prefill")
+    c = counts["unfused"]
+    check(c["all_to_all"] == 2 * ndev and c["flash_decode"] == n,
+          f"Ulysses unfused prefill: launches {c}, want two all_to_all a device and one "
+          "flash_decode a rank")
+    only_launched(c, ("all_to_all", "flash_decode"), "Ulysses unfused prefill")
+    only_launched(counts["xla"], (), "Ulysses xla prefill")
+    gaps = {"fused-unfused": _gap(outs["fused"], outs["unfused"], dev0),
+            "fused-xla": _gap(outs["fused"], outs["xla"], dev0),
+            "unfused-xla": _gap(outs["unfused"], outs["xla"], dev0)}
+    for k_, g in gaps.items():
+        check(g <= ULYSSES_GATE, f"Ulysses prefill {k_}: {g:.3g} of max > {ULYSSES_GATE}")
+    C = (HQ + 2 * HKV) // n * HD
+    seq = [(torch.randn(1, SP_S // n, n, C, generator=gen, device=dev0)).to(bf).to(d)
+           for d in mesh.devices]
+    back = K.ulysses_combine(K.ulysses_dispatch(seq, mesh=mesh), mesh=mesh)
+    sync(mesh)
+    for a, b in zip(back, seq):
+        check(torch.equal(a, b), "ulysses_dispatch then ulysses_combine: not the input")
+    sp = spattn_ms or {}
+    print(f"UlyssesAttn D={D} Hq={HQ} Hkv={HKV} hd={HD} bf16 over {n} ranks, prefill "
+          f"S={SP_S}: fused {ms['fused']:.1f} ms, unfused {ms['unfused']:.1f} ms, xla "
+          f"{ms['xla']:.1f} ms (SPAttn ring_shmem {sp.get('ring_shmem', float('nan')):.1f} ms, "
+          f"ring {sp.get('ring', float('nan')):.1f} ms); gaps "
+          f"{ {k_: float(f'{g:.3g}') for k_, g in gaps.items()} } (limit {ULYSSES_GATE}); "
+          f"dispatch then combine bitwise; fused launches "
+          f"{ {k_: v for k_, v in counts['fused'].items() if v} }", flush=True)
+    return dict(counts=counts, ms=ms, gaps=gaps)
 
 
 def sp_requests(m, vocab: int):
@@ -485,9 +637,12 @@ def serving_check(m, k, mesh, one, card: str, n_req: int = SP_REQS) -> dict:
                 served=dict(forced=forced))
 
 
-def run_sp(mesh, *, card: str, n_layers=None, n_req: int = SP_REQS) -> dict:
+def run_sp(mesh, *, card: str, n_layers=None, n_req: int = SP_REQS,
+           ulysses: bool = True) -> dict:
     """Every SP check on `mesh`: the kernel rows, the registry specs,
-    SPAttn, then Qwen3-1.7B (n_layers of its 28) served over the mesh.
+    SPAttn, the Ulysses rows and UlyssesAttn (unless `ulysses` is False:
+    chip_smoke.py runs them in a phase of their own), then Qwen3-1.7B
+    (n_layers of its 28) served over the mesh.
     Returns the kernel rows and the launch counts of each phase."""
     import triton_dist_tpu_torch.kernels as k
     import triton_dist_tpu_torch.models as m
@@ -497,6 +652,10 @@ def run_sp(mesh, *, card: str, n_layers=None, n_req: int = SP_REQS) -> dict:
     counts = {"registry": registry_check(mesh)}
     counts["layer"] = sp_attn_check(mesh)
     print(f"[sp {time.perf_counter() - t0:.1f} s] registry and SPAttn done", flush=True)
+    if ulysses:
+        rows += ulysses_rows(mesh)
+        counts["ulysses"] = ulysses_check(mesh, spattn_ms=counts["layer"]["ms"])
+        print(f"[sp {time.perf_counter() - t0:.1f} s] Ulysses done", flush=True)
     cfg = m.qwen3_1p7b()
     if n_layers is not None:
         cfg = dataclasses.replace(cfg, num_layers=n_layers)

@@ -4,9 +4,9 @@ over a mesh of four ranks against the one-rank plain engine.
 
     python3 -m triton_dist_tpu_torch.tools.tp_check [--cards 4] [--json PATH]
 
-(`--ep`, `--tp-moe` and `--sp` run the expert-parallel, tensor-parallel
-MoE and sequence-parallel checks instead; the last are in
-tools/sp_check.py.)
+(`--ep`, `--tp-moe`, `--sp` and `--pp` run the expert-parallel,
+tensor-parallel MoE, sequence-parallel and pipeline-parallel checks
+instead; the last two are in tools/sp_check.py and tools/pp_check.py.)
 
 Without --cards the four ranks are emulated on one card
 (`make_mesh(4, devices=["cuda:0"] * 4)`): the same device code, with
@@ -107,6 +107,8 @@ SOURCES = {
                       "triton_dist_tpu/kernels/moe_reduce_rs.py:293"),
     "moe_reduce_ar": ("triton_dist_tpu_torch/kernels/csrc/moe_reduce_ar.cu",
                       "triton_dist_tpu/kernels/moe_reduce_ar.py:215"),
+    "p2p_shift": ("triton_dist_tpu_torch/kernels/csrc/p2p.cu",
+                  "triton_dist_tpu/kernels/p2p.py:48"),
 }
 # the comm kernels each backend runs (the one-rank GEMM kernel, "gemm",
 # runs on none of them at n > 1)
@@ -1369,6 +1371,9 @@ def main() -> int:
     ap.add_argument("--sp", action="store_true",
                     help="the sequence-parallel checks alone (tools/sp_check.py run_sp, "
                          "Qwen3-1.7B)")
+    ap.add_argument("--pp", action="store_true",
+                    help="the pipeline-parallel checks alone (tools/pp_check.py run_pp, "
+                         "Qwen3-1.7B's MLP blocks)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise RuntimeError("tp_check needs an NVIDIA card")
@@ -1390,7 +1395,10 @@ def main() -> int:
         mesh = make_mesh(4, devices=["cuda:0"] * 4)
     else:
         raise ValueError("--cards is 1 or 4")
-    if args.sp:
+    if args.pp:
+        from triton_dist_tpu_torch.tools.pp_check import run_pp
+        res = run_pp(mesh, card=card.replace("\n", "; "), n_layers=args.layers)
+    elif args.sp:
         from triton_dist_tpu_torch.tools.sp_check import SP_REQS, run_sp
         res = run_sp(mesh, card=card.replace("\n", "; "), n_layers=args.layers,
                      n_req=min(args.requests, SP_REQS))
