@@ -53,7 +53,12 @@ NVIDIA card: the quickest proof that the port still starts on the GPU.
    with the host fails) and one of PROFILE_STEPS (4) steps under
    torch.profiler (the idle share).
 6. Megakernel phases (backend="mega", one persistent CUDA kernel per
-   decode layer): rows 5a (mega_decode, B=128, pos=200, T=264) and 6a/6b
+   decode layer): rows 5a (mega_decode, B=128, pos=200, T=264), 5c (its
+   tensor-parallel form, mega_decode_tp: 5a's inputs split over four ranks
+   emulated on the card, D=2048, F/4=1536, Hq/4=4, Hkv/4=2; within
+   tools/tp_check.py MEGA_TP_LIMIT of its plain version, every rank's y
+   bitwise equal, timed beside the per-op "gemm_ar" layer on the same
+   shards; its launches are the tp=4 mega engine's of 11.) and 6a/6b
    (mega_paged_decode, 64 slots at lengths in [1, 224], page 16, bf16 and
    int8 pools, two retired slots on the trash page), each held against
    its plain version with the cache past each length, unmapped pages and
@@ -177,14 +182,18 @@ NVIDIA card: the quickest proof that the port still starts on the GPU.
    GEMM_AR_LIMIT) and the ag_gemm and gemm_rs rings (the "dist"
    projections at 128, 64 and 16384 rows, bf16 and int8 panels, and the
    registry's f32 shapes, within AG_GEMM_LIMIT / GEMM_RS_LIMIT); Engine
-   "ar", "gemm_ar" and "dist" over the mesh, B=128 after a 128-token
-   prompt (on "ar"/"gemm_ar" prefill on "xla" launching no kernel and
+   "ar", "gemm_ar", "dist" and "mega" over the mesh, B=128 after a
+   128-token prompt (on "mega" prefill on "flash" launching flash_decode,
+   kv_update and swiglu alone and decode exactly one TP megakernel launch
+   per layer per step and nothing else; on "ar"/"gemm_ar" prefill on
+   "xla" launching no kernel and
    decode launching the per-layer kernels and the comm kernel,
    all_reduce two-shot at 128 rows and no one-shot; on "dist" prefill
    and decode launching the per-layer kernels and exactly 2 ag_gemm and
    2 gemm_rs a layer and forward, no other comm kernel and no gemm),
    teacher-forced against the one-rank "xla" engine by the margin rule
-   of 4.; paged serving at 64 slots on "gemm_ar", "ar" (the all_reduce
+   of 4., each backend's decode ms/step and idle share printed side by
+   side; paged serving at 64 slots on "gemm_ar", "ar" (the all_reduce
    one-shot at 64 rows and no two-shot) and "dist" over the serving
    traffic's first tp_check.N_REQ (16) requests, admissions launching no
    comm kernel on the first two and the rings alone on "dist", ticks
@@ -862,7 +871,19 @@ def mega_kernel_phase(gen):
                                                     "flash")),
         2 * n_params + 2 * B * D * 4 + 2 * n_keys * hd * 2,
         2 * B * n_params + 4 * hd * Hq * B * (pos + 1), ("bf16", "mega decode"))
+
+    # 5c: the TP form, 5a's inputs split over four ranks emulated on the
+    # card (as Engine(backend="mega") splits a model), timed beside the
+    # per-op "gemm_ar" layer on the same shards; every rank's y bitwise
+    # equal, the new rows within one bf16 ulp, the other rows unchanged
+    from triton_dist_tpu_torch.runtime import make_mesh, symm_mem
+    from triton_dist_tpu_torch.tools import tp_check
+    r = tp_check.mega_tp_row(make_mesh(4, devices=["cuda:0"] * 4),
+                             inputs=(wd, x, ck, cv, (cos, sin)), pos=pos)
+    r["case"] = "5c " + r["case"]
+    rows.append((r, ("tp", "mega engine")))
     del ck, cv, k1, v1, k2, v2, kb, vb
+    symm_mem.clear_registry()
     torch.cuda.empty_cache()
 
     # 6a/6b: 64 slots at lengths in [1, 224]; slot b's new token sits at
@@ -2689,12 +2710,20 @@ def tp_phase(k, card):
             check(err <= tol, f"tp registry {name} rank {r}: card against CPU {err} > {tol}")
         print(f"tp registry {name} ({spec.module}): card against its CPU run within "
               f"{tol or 'bitwise'}", flush=True)
-    res = tp_check.run(mesh, card=card, n_layers=TP_LAYERS)
+    # row 5's TP form is case 5c of the megakernel phase
+    res = tp_check.run(mesh, card=card, n_layers=TP_LAYERS, mega_row=False)
     dist = res["counts"]["dist"]
+    mega = res["counts"]["mega"]
     counts = {"registry": c_reg, "ar decode": res["counts"]["ar"]["decode"],
               "gemm_ar decode": res["counts"]["gemm_ar"]["decode"],
               "dist engine": {n: dist["prefill"][n] + dist["decode"][n]
-                              for n in dist["decode"]}}
+                              for n in dist["decode"]},
+              "mega engine": dict(mega["decode"],
+                                  **{"mega_decode/tp": mega["methods"]["mega_decode tp"]})}
+    print(f"tp phase, {TP_LAYERS} layers: decode ms/step (idle share) " + ", ".join(
+        f"{b} {c['ms_per_step']:.2f} ({tp_check.share(c['idle'])})"
+        for b, c in ((b, res["counts"][b]) for b in ("ar", "gemm_ar", "dist", "mega"))),
+        flush=True)
     key = {"all_reduce": "ar decode", "gemm_allreduce": "gemm_ar decode",
            "all_gather": "registry", "reduce_scatter": "registry",
            "ag_gemm": "dist engine", "gemm_rs": "dist engine"}

@@ -319,7 +319,8 @@ def test_mega_paged_scheduler_streams(kv):
 
 def test_mega_refusals():
     """Every capability the mega path lacks refuses, as in the JAX engine
-    and scheduler, and the tensor-parallel layer is not ported."""
+    and scheduler, and the tensor-parallel layer refuses a call that does
+    not give one tensor a rank."""
     model = AutoLLM.from_config(tiny_qwen3(1, **TINY), device="cpu", seed=0)
 
     def eng(m=model, **kw):
@@ -342,9 +343,10 @@ def test_mega_refusals():
                      torch.ones(1, dtype=torch.bool), chunk=2)
     with pytest.raises(ValueError, match="PAGED decode tick"):
         ContinuousScheduler(e, batch=2, paged=False)
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        MegaDecodeLayer(d_model=D, n_heads=Hq, n_kv_heads=Hkv, head_dim=HD, ffn=F, T=16,
-                        tp=2)
+    tp2 = MegaDecodeLayer(d_model=D, n_heads=Hq, n_kv_heads=Hkv, head_dim=HD, ffn=F, T=16,
+                          tp=2)
+    with pytest.raises(ValueError, match="lists of 2"):
+        tp2(torch.zeros(1, D), 0, {}, torch.zeros(1, Hkv, 16, HD), torch.zeros(1, Hkv, 16, HD))
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             Engine(model, backend="mega")

@@ -25,7 +25,7 @@ tp=4, on tiny_qwen3(4) in f32.
   tp=4 served streams against the one-rank plain engine and fails a
   stream with one token changed where the margin is sure.
 - Refusals: a kv-head count the mesh does not divide, and the backends,
-  forms and models that stay at one rank.
+  forms and models that stay at one rank ("mega"'s TP paged pool).
 """
 
 import dataclasses
@@ -295,8 +295,10 @@ def test_kv_head_divisibility_refused():
 def test_unported_forms_raise_at_tp4():
     cfg = tiny_qwen3(N, dtype="float32")
     m4 = DenseLLM.random_init(cfg, seed=0, mesh=_mesh())
-    with pytest.raises(NotImplementedError):
-        Engine(m4, max_seq=MAX_SEQ, backend="mega", device="cpu")
+    # "mega" decodes at tp=4 (tests/test_torch_mega_tp.py); its TP paged
+    # pool stays refused, as in the JAX engine
+    with pytest.raises(ValueError, match="fuses the paged tick single-chip only"):
+        Engine(m4, max_seq=MAX_SEQ, backend="mega", device="cpu").make_paged_slot_cache(2)
     # "ep" runs: a dense model has no experts to split (the JAX gate)
     with pytest.raises(ValueError, match="routed experts"):
         Engine(m4, max_seq=MAX_SEQ, backend="ep", device="cpu")

@@ -37,8 +37,10 @@ SOURCES = ("a2a", "a2a_gemm", "ag_gemm", "ag_group_gemm", "allgather", "allreduc
 # dispatch with its metadata); the sequence-parallel kernels count under
 # their sources' names (lse_combine, kv_scatter, ring_attn), the Ulysses
 # kernels as gemm_a2a (gemm_a2a.cu) and o_a2a_gemm (a2a_gemm.cu), the
-# pipeline handoff as p2p_shift (p2p.cu); a collective
-# counts one launch per distinct device of its mesh (one for four ranks
+# pipeline handoff as p2p_shift (p2p.cu); mega_decode counts both
+# forms of mega_decode.cu, its tensor-parallel form also under the method
+# "tp" (method_counts()["mega_decode tp"]); a collective, and the TP form,
+# count one launch per distinct device of its mesh (one for four ranks
 # emulated on one card)
 KERNELS = ("ag_gemm", "ag_group_gemm", "all_gather", "all_reduce", "all_to_all",
            "dispatch_a2a", "ep_moe_fused", "flash_attn_bwd_dkdv", "flash_attn_bwd_dq",

@@ -129,12 +129,13 @@ void swiglu(int dtype, int64_t x, int64_t out, int64_t M, int I, int64_t ld, int
 // The MegaLayerArgs of one launch from three flat lists, in the order
 // of mega/decode_layer.py's _launch: ptrs {x, y, w_ln1, w_qkv, q_norm,
 // k_norm, w_o, w_ln2, w_gu, w_d, cos, sin, k, v, ks, vs, table, pos_dev,
-// xn, qkv, attn, ores, on, h, barrier}; ints {cs_stride, pos, T, maxp,
+// xn, qkv, attn, ores, on, h, barrier, part}; ints {cs_stride, pos, T, maxp,
 // page, kv_sb, kv_sh, kv_st, pg_st, row_st, spg_st, B, D, F, Hq, Hkv, hd,
 // qk_norm, kv_dtype, fault}; the phase codes.
 tdt::MegaLayerArgs mega_args(const std::vector<int64_t>& p, const std::vector<int64_t>& n,
                              double eps, double scale, const std::vector<int64_t>& phases) {
-  TORCH_CHECK(p.size() == 25 && n.size() == 20 && phases.size() <= 8,
+  TORCH_CHECK(p.size() == 26 && n.size() == 20 &&
+                  phases.size() <= static_cast<size_t>(tdt::kMaxPhases),
               "mega layer: argument lists of the wrong length");
   tdt::MegaLayerArgs a{};
   a.x = ptr<const float>(p[0]);
@@ -162,6 +163,7 @@ tdt::MegaLayerArgs mega_args(const std::vector<int64_t>& p, const std::vector<in
   a.on = ptr<void>(p[22]);
   a.h = ptr<void>(p[23]);
   a.barrier = ptr<unsigned int>(p[24]);
+  a.part = ptr<float>(p[25]);
   a.cs_stride = n[0];
   a.pos = static_cast<int>(n[1]);
   a.T = static_cast<int>(n[2]);
@@ -233,6 +235,20 @@ tdt::CommArgs comm_args(const std::vector<int64_t>& in, const std::vector<int64_
 }
 
 using Ptrs = std::vector<int64_t>;
+
+// The TP form of mega_decode: one launch for the device's local ranks,
+// p[i] and n[i] local rank i's mega_args lists.
+void mega_decode_tp(const std::vector<Ptrs>& p, const std::vector<Ptrs>& n, double eps,
+                    double scale, const Ptrs& phases, const Ptrs& land, const Ptrs& sig,
+                    int first_rank, int n_local, int64_t epoch, int ctas, int64_t st) {
+  TORCH_CHECK(static_cast<int>(p.size()) == n_local && p.size() == n.size() &&
+                  n_local <= tdt::kMaxRanks,
+              "mega_decode_tp: one argument list per local rank");
+  tdt::MegaTpArgs a{};
+  for (int i = 0; i < n_local; ++i) a.L[i] = mega_args(p[i], n[i], eps, scale, phases);
+  a.c = comm_args({}, {}, {}, {}, {}, land, sig, first_rank, n_local, epoch);
+  C10_CUDA_CHECK(tdt::mega_decode_tp(a, ctas, stream(st)));
+}
 
 void all_gather(int method, const Ptrs& in, const Ptrs& out, const Ptrs& sig, int first_rank,
                 int n_local, int64_t epoch, int64_t svec, int ctas, int64_t st) {
@@ -462,6 +478,7 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("kv_update", &kv_update);
   m.def("mega_decode", &mega_decode);
   m.def("mega_paged_decode", &mega_paged_decode);
+  m.def("mega_decode_tp", &mega_decode_tp);
   m.def("swiglu", &swiglu);
   m.def("all_gather", &all_gather);
   m.def("reduce_scatter", &reduce_scatter);

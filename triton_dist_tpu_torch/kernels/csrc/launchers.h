@@ -118,10 +118,11 @@ cudaError_t grouped_gemm(const void* x, long long x_es, const void* w, const voi
 // the contiguous cache, mega_paged_decode.cu over the page pool). All
 // pointers are device pointers; weights bf16 row-major, norms f32, rope
 // rows f32 (row b at cos + b * cs_stride; cs_stride 0 shares one row).
-// Strides in elements. The scratch (xn, qkv, attn, ores, on, h and the
-// two-word grid barrier, zeroed once) belongs to the caller and is
-// reused by every launch on the stream. phases: the layer's tasks in
-// the order the host validated (tdt_mega::Phase codes).
+// Strides in elements. The scratch (xn, qkv, attn, ores, on, h, the TP
+// form's part and the two-word grid barrier, zeroed once) belongs to the
+// caller and is reused by every launch on the stream. phases: the layer's
+// tasks in the order the host validated (tdt_mega::Phase codes).
+constexpr int kMaxPhases = 12;
 struct MegaLayerArgs {
   const float* x;
   float* y;
@@ -148,6 +149,7 @@ struct MegaLayerArgs {
   void* on;             // bf16 [B, D]
   void* h;              // bf16 [B, F]
   unsigned int* barrier;
+  float* part;          // f32 [B, D]: the TP form stages the rank's partials here
   long long cs_stride;
   int pos, T;           // contiguous: the shared position and the capacity
   int maxp, page;       // paged
@@ -155,10 +157,13 @@ struct MegaLayerArgs {
   long long pg_st, row_st, spg_st;   // pools [NP, 1, page, hd], scales [NP, 1, page]
   int B, D, F, Hq, Hkv, hd, qk_norm, kv_dtype;
   int fault;            // 0; a planted fault for tools/fault_margin.py: 1 drops the
-                        // newest key from the walk, 2 leaves out the o_proj residual
+                        // newest key from the walk, 2 leaves out the o_proj residual;
+                        // TP form, both all-reduce sections: 3 folds without rank
+                        // me + 1's partial, 4 folds before its pushes and its arrival
+                        // wait, 5 folds rank me + 1's partial twice
   float eps, scale;
   int n_phases;
-  int phases[8];
+  int phases[kMaxPhases];
 };
 
 cudaError_t mega_decode(const MegaLayerArgs& a, cudaStream_t stream);
@@ -186,6 +191,18 @@ struct CommArgs {
   int n, first_rank, n_local;
   unsigned epoch;
 };
+
+// The tensor-parallel decode layer (mega_decode.cu's TP form): one
+// cooperative launch per device over (ctas, 1, n_local) CTAs; L[i] is
+// local rank i's layer (its shards, cache, scratch with part, output y),
+// c the call's comm arguments: land = each rank's symmetric f32 landing
+// buffer [2, n, B, D] (section, source rank), sig the signal pads, epoch
+// the launch's. ctas: CTAs per rank, the same on every device.
+struct MegaTpArgs {
+  MegaLayerArgs L[kMaxRanks];
+  CommArgs c;
+};
+cudaError_t mega_decode_tp(const MegaTpArgs& a, int ctas, cudaStream_t stream);
 
 // method 0 one-shot, 1 ring; sizes in 16-byte vectors (svec: one rank's
 // shard; cvec: one rank's chunk, the input holding n of them; nvec: the

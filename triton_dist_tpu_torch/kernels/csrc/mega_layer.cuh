@@ -19,8 +19,37 @@
 // (about 6 MB at B = 128, so it stays in the 50 MB L2); a phase starts
 // only when every CTA has finished the previous one (grid_barrier).
 //
+// The tensor-parallel form (mega_decode.cu, mega_tp_kernel) replaces
+// the TPU kernel's tp > 1 body (triton_dist_tpu/mega/decode_layer.py
+// `ar_section`, :191-216, and the partial projections, :350-364,
+// :407-418). Each rank runs the layer on its shards (Hq/n, Hkv/n, F/n);
+// o_proj and down_proj write the bare partial to the rank's `part`
+// scratch, and two all-reduce phases follow them:
+//   o_allreduce  ores = x    + sum over ranks r (in rank order) of partial_r
+//   d_allreduce  y    = ores + sum over ranks r of partial_r
+// A section is gemm_allreduce.cu's one-shot protocol over shmem.cuh: CTA
+// g of every rank owns the same slice of the [B, D] partial (split), puts
+// it into slot me of every rank's landing buffer, quiet()s, signals CTA
+// g of every peer (one region a section) and waits for the n arrivals,
+// then folds its slice in f32 in rank order (acc = residual; acc = acc +
+// land[r]), every landed value read through L2 (ld.global.cg). Every
+// rank folds the same values in the same order, so every rank's y is
+// bitwise the same. The epoch barrier is split as gemm_allreduce.cu
+// splits it: CTA 0 of each rank arrives at kernel entry, and every CTA
+// waits for the n arrivals before its first push, so no rank overwrites
+// a landing slot a peer still folds from the previous launch (a device's
+// launches run in stream order; one epoch a launch). One launch a device
+// covers its ranks along blockIdx.z, each with its own scratch and grid
+// barrier, at one CTA an SM split over the device's ranks, so that every
+// rank's CTAs are resident at once (cudaLaunchCooperativeKernel refuses
+// a grid that is not): a rank that spins on a peer whose CTAs were never
+// scheduled would hang.
+//
 // What bounds it on an H100: bytes. At B = 128 a layer streams 100.7 MB
 // of bf16 weights and reads its K/V once, against 12.9 GFLOP of products.
+// The TP form over four ranks moves the same weights and K/V split four
+// ways, plus 64 MiB of f32 partials (each rank's 1 MiB pushed to four
+// slots and read back by the folds, two sections).
 //
 // Design.
 // - Persistent grid: blocks-per-SM (occupancy API) x SM count, launched
@@ -52,6 +81,7 @@
 #include <mma.h>
 
 #include "common.cuh"
+#include "shmem.cuh"
 
 namespace tdt_mega {
 
@@ -66,13 +96,14 @@ constexpr int LDC = BN + 4;
 constexpr int kStageElems = BM * LDA + BK * LDW;
 constexpr int kSmemBytes = kStages * kStageElems * 2;
 static_assert(BM * LDC * 4 <= kSmemBytes, "the C tile reuses the stage ring");
+static_assert(kThreads == tdt_shmem::kThreads, "the TP form launches through coop_launch");
 constexpr int HD = 128;        // head dim the kernels are instantiated for
 constexpr int DPL = HD / 32;   // head dims per lane
 constexpr int kMaxRep = 4;     // query heads per kv head
 constexpr int kBT = 32;        // keys per tile == warp width
 
 enum Phase { kLn1 = 0, kQkvMm = 1, kAttend = 2, kOProj = 3, kLn2 = 4, kGateUp = 5,
-             kDownProj = 6 };
+             kDownProj = 6, kOAllReduce = 7, kDAllReduce = 8 };
 
 // ---------------------------------------------------------------- caches
 
@@ -450,11 +481,59 @@ __device__ void attend_phase(const tdt::MegaLayerArgs& L, const Cache& C, PosOf 
   }
 }
 
+// One all-reduce section of the TP form (see the file comment): sec 0
+// folds onto x into ores, sec 1 onto ores into y. Planted faults (L.fault)
+// 3-5 for tools/fault_margin.py --mega-tp.
+__device__ inline void ar_section(const tdt::MegaLayerArgs& L, const tdt::CommArgs& c,
+                                  int sec, const float* add, float* dst) {
+  const int me = tdt_shmem::my_pe(c), n = c.n;
+  const long long nvec = static_cast<long long>(L.B) * L.D / 4;  // float4s of a partial
+  long long lo, hi;
+  tdt_shmem::split(nvec, lo, hi);
+  auto slot = [&](int rank, int src) {
+    return static_cast<float4*>(c.land[rank]) + (static_cast<long long>(sec) * n + src) * nvec;
+  };
+  const int odd = (me + 1) % n;  // the rank the faults 3 and 5 get wrong
+  auto fold = [&]() {
+    const float4* add4 = reinterpret_cast<const float4*>(add);
+    float4* dst4 = reinterpret_cast<float4*>(dst);
+    for (long long i = lo + threadIdx.x; i < hi; i += kThreads) {
+      float4 acc = __ldcg(add4 + i);
+      for (int s = 0; s < n; ++s) {
+        if (L.fault == 3 && s == odd) continue;
+        const float4 v = __ldcg(slot(me, s) + i);
+        for (int t = 0; t < (L.fault == 5 && s == odd ? 2 : 1); ++t) {
+          acc.x = acc.x + v.x;
+          acc.y = acc.y + v.y;
+          acc.z = acc.z + v.z;
+          acc.w = acc.w + v.w;
+        }
+      }
+      dst4[i] = acc;
+    }
+  };
+  if (L.fault == 4) fold();  // before the pushes and the wait: a stale own slot
+  // the entry barrier's wait, before this launch's first push
+  if (sec == 0) tdt_shmem::wait_all(c, c.sig[me] + tdt_shmem::kBarrier, 1);
+  const float4* part = reinterpret_cast<const float4*>(L.part);
+  for (int p = 0; p < n; ++p) {
+    float4* d = slot(p, me);
+    for (long long i = lo + threadIdx.x; i < hi; i += kThreads) d[i] = __ldcg(part + i);
+  }
+  tdt_shmem::quiet();
+  const int region = sec ? tdt_shmem::kRegionB : tdt_shmem::kRegionA;
+  tdt_shmem::signal_all(c, region, me);
+  tdt_shmem::wait_sources(c, region);
+  if (L.fault != 4) fold();
+}
+
 // ---------------------------------------------------------------- kernel
 
+// The layer's phases in order; c is null at tp = 1, else the TP form's
+// comm arguments (o_proj and down_proj then write the bare partial).
 template <typename KT, bool QUANT, bool PAGED>
-__global__ void __launch_bounds__(kThreads, 1) mega_layer_kernel(const tdt::MegaLayerArgs L) {
-  extern __shared__ __align__(128) char smem[];
+__device__ __forceinline__ void run_layer(const tdt::MegaLayerArgs& L, const tdt::CommArgs* c,
+                                          char* smem) {
   const int B = L.B, D = L.D, F = L.F;
   const int HqD = L.Hq * HD, Nqkv = (L.Hq + 2 * L.Hkv) * HD;
   bf16* xn = static_cast<bf16*>(L.xn);
@@ -493,16 +572,24 @@ __global__ void __launch_bounds__(kThreads, 1) mega_layer_kernel(const tdt::Mega
         }
         break;
       case kOProj: {
-        float* ores = L.ores;
-        const float* x = L.x;
+        float* out = c ? L.part : L.ores;
+        const float* add = c || L.fault == 2 ? nullptr : L.x;
         gemm_phase(attn, HqD, static_cast<const bf16*>(L.w_o), D, B, HqD, D / BN,
                    plain_cols,
                    [&](const float* Cs, int m0, int nb) {
-                     store_tile(Cs, m0, nb, B, ores, L.fault == 2 ? nullptr : x, D);
+                     store_tile(Cs, m0, nb, B, out, add, D);
                    },
                    smem);
         break;
       }
+      case kOAllReduce:
+        if (!c) __trap();
+        ar_section(L, *c, 0, L.x, L.ores);
+        break;
+      case kDAllReduce:
+        if (!c) __trap();
+        ar_section(L, *c, 1, L.ores, L.y);
+        break;
       case kLn2:
         rmsnorm_rows(L.ores, L.w_ln2, on, B, D, L.eps);
         break;
@@ -521,11 +608,11 @@ __global__ void __launch_bounds__(kThreads, 1) mega_layer_kernel(const tdt::Mega
                    smem);
         break;
       case kDownProj: {
-        float* y = L.y;
-        const float* ores = L.ores;
+        float* out = c ? L.part : L.y;
+        const float* add = c ? nullptr : L.ores;
         gemm_phase(h, F, static_cast<const bf16*>(L.w_d), D, B, F, D / BN, plain_cols,
                    [&](const float* Cs, int m0, int nb) {
-                     store_tile(Cs, m0, nb, B, y, ores, D);
+                     store_tile(Cs, m0, nb, B, out, add, D);
                    },
                    smem);
         break;
@@ -536,17 +623,41 @@ __global__ void __launch_bounds__(kThreads, 1) mega_layer_kernel(const tdt::Mega
   }
 }
 
-// Launch one layer as a cooperative grid of (blocks per SM) x (SMs) CTAs.
-// Returns cudaErrorNotSupported without cooperative launch (no fallback),
-// else the launch's own error, then cudaGetLastError().
+template <typename KT, bool QUANT, bool PAGED>
+__global__ void __launch_bounds__(kThreads, 1) mega_layer_kernel(const tdt::MegaLayerArgs L) {
+  extern __shared__ __align__(128) char smem[];
+  run_layer<KT, QUANT, PAGED>(L, nullptr, smem);
+}
+
+// The TP form: local rank blockIdx.z runs its layer L[blockIdx.z].
+template <typename KT>
+__global__ void __launch_bounds__(kThreads, 1)
+    mega_tp_kernel(const __grid_constant__ tdt::MegaTpArgs P) {
+  extern __shared__ __align__(128) char smem[];
+  const tdt::CommArgs& c = P.c;
+  const int me = tdt_shmem::my_pe(c);
+  // the epoch barrier's arrival (its wait comes before the first push)
+  if (threadIdx.x == 0 && blockIdx.x == 0)
+    for (int p = 0; p < c.n; ++p) tdt_shmem::signal_op(c.sig[p] + tdt_shmem::kBarrier + me, c.epoch);
+  run_layer<KT, false, false>(P.L[blockIdx.z], &c, smem);
+}
+
+// Launch one layer as a cooperative grid of (blocks per SM) x (SMs) CTAs
+// on the current device. Returns cudaErrorNotSupported without
+// cooperative launch (no fallback), else the launch's own error, then
+// cudaGetLastError(). The grid and the large shared-memory attribute are
+// set per device, at its first launch: a mesh's cards each need them.
+constexpr int kMaxDevices = 64;
 template <typename KT, bool QUANT, bool PAGED>
 cudaError_t launch_layer(const tdt::MegaLayerArgs& a, cudaStream_t stream) {
   auto kernel = mega_layer_kernel<KT, QUANT, PAGED>;
-  static int grid = 0;  // per instantiation, computed on first launch
-  if (grid == 0) {
-    int dev = 0, coop = 0, sms = 0, per_sm = 0;
-    cudaError_t e = cudaGetDevice(&dev);
-    if (e != cudaSuccess) return e;
+  static int grids[kMaxDevices] = {};  // per instantiation and device
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev < 0 || dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  if (grids[dev] == 0) {
+    int coop = 0, sms = 0, per_sm = 0;
     cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
     if (!coop) return cudaErrorNotSupported;
     e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -557,13 +668,12 @@ cudaError_t launch_layer(const tdt::MegaLayerArgs& a, cudaStream_t stream) {
     if (e != cudaSuccess) return e;
     if (per_sm < 1) return cudaErrorCooperativeLaunchTooLarge;
     cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    grid = per_sm * sms;
+    grids[dev] = per_sm * sms;
   }
   tdt::MegaLayerArgs args = a;
   void* params[] = {&args};
-  const cudaError_t e = cudaLaunchCooperativeKernel(reinterpret_cast<void*>(kernel),
-                                                    dim3(grid), dim3(kThreads), params,
-                                                    kSmemBytes, stream);
+  e = cudaLaunchCooperativeKernel(reinterpret_cast<void*>(kernel), dim3(grids[dev]),
+                                  dim3(kThreads), params, kSmemBytes, stream);
   if (e != cudaSuccess) return e;
   return cudaGetLastError();
 }

@@ -18,7 +18,7 @@
 #include "mega_layer.cuh"
 
 cudaError_t tdt::mega_paged_decode(const MegaLayerArgs& a, cudaStream_t stream) {
-  if (a.hd != tdt_mega::HD || a.n_phases > 8) return cudaErrorInvalidValue;
+  if (a.hd != tdt_mega::HD || a.n_phases > kMaxPhases) return cudaErrorInvalidValue;
   if (a.kv_dtype == kBF16)
     return tdt_mega::launch_layer<__nv_bfloat16, false, true>(a, stream);
   if (a.kv_dtype == kI8) return tdt_mega::launch_layer<int8_t, true, true>(a, stream);

@@ -77,3 +77,12 @@ class MegaKernelBuilder:
         """Run every task's emitter in schedule order."""
         for t in self._tasks:
             t.emit(env)
+
+    def emit_lockstep(self, envs: Sequence[Dict[str, object]]) -> None:
+        """Run every task's emitter in schedule order over the ranks of a
+        tensor-parallel layer, one env a rank: a task runs on every rank
+        before the next task runs on any, so a task that reads the peers'
+        buffers (an all-reduce section) finds them written."""
+        for t in self._tasks:
+            for env in envs:
+                t.emit(env)

@@ -34,7 +34,7 @@ counter). Over a mesh of n > 1 ranks, "flash" and "xla" end the
 projections in the psum's plain version, the caches are head-sharded
 (models/kv_cache.py), the page table's host side, allocator and radix
 tree stay one, and the logits, tokens and positions live on rank 0's
-device; the window programs and "mega" stay at one rank. A Qwen3MoE
+device; the window programs stay at one rank. A Qwen3MoE
 built with moe_impl="tp" serves "ar", "gemm_ar" and "dist" at any size:
 its FFN runs TP_MoE's form of the mode (layers/tp_moe.py), the grouped GEMM
 on each rank's columns; `prefill_backend="flash"` keeps an "ar"/"gemm_ar"
@@ -46,7 +46,14 @@ max_seq stays as given. "mega" (dense models) prefills
 and admits on "flash" and decodes each layer as ONE megakernel launch
 (mega/decode_layer.py): `decode` over the contiguous cache
 (`_mega_scan_decode_fn`) and `paged_slot_chunk` over the paged pool
-(`_paged_slot_mega_scan_fn`), greedy only. Each JAX `lax.scan` is a
+(`_paged_slot_mega_scan_fn`), greedy only. Over a mesh of n > 1 ranks
+(a dense model split by `to_mesh`; heads, kv heads and
+intermediate_size divisible by n, else a ValueError as in JAX) "mega"
+decodes the contiguous cache through the tensor-parallel megakernel: one
+launch per layer per device, each rank on its own shards and cache
+heads, with the two all-reduces inside the kernel; the embedding and
+the head stay on rank 0, and the TP paged pool refuses
+(`make_paged_slot_cache`), as the JAX engine does. Each JAX `lax.scan` is a
 Python loop over steps here, and every buffer the JAX programs donated
 (caches, page pools, the page table) is updated in place. The slot
 programs return device tensors and never synchronise; host arrays
@@ -141,10 +148,7 @@ class Engine:
         if self.sp_size > 1:
             _check_sp(model, backend, tp, self.sp_size)
         if backend == "mega":
-            if tp > 1:
-                raise _not_ported("backend='mega' at tensor-parallel size > 1 (the TP "
-                                  "megakernel)")
-            _check_mega(model, kv_dtype, sampling)
+            _check_mega(model, kv_dtype, sampling, tp)
         if backend in COMM_BACKENDS and getattr(model, "moe_impl", None) == "ep":
             raise _not_ported(f"backend={backend!r} for an expert-parallel model (its FFN "
                               "as the dense oracle beside the comm-kernel attention)")
@@ -317,6 +321,11 @@ class Engine:
         page, rounded up to a multiple of the sp mesh size at sp > 1 (where a
         given num_pages must be one)."""
         self._ep_batch_check(batch)
+        if self.backend == "mega" and self.tp > 1:
+            raise ValueError(
+                "backend='mega' fuses the paged tick single-chip only (the TP pool's "
+                "head-group plane split stays on the per-op path); serve TP meshes with "
+                "backend='flash'/'dist'/'ar'/'gemm_ar'")
         cfg = self.model.config
         maxp = -(-self.max_seq // page)
         sp = self.sp_size
@@ -727,7 +736,7 @@ def _check_sp(model, backend: str, tp: int, sp: int) -> None:
             "backend='flash' (missing capability: sp + comm-kernel hybrid projections)")
 
 
-def _check_mega(model, kv_dtype, sampling: str) -> None:
+def _check_mega(model, kv_dtype, sampling: str, tp: int) -> None:
     """The construction refusals of backend "mega" (the JAX engine's)."""
     if sampling != "greedy":
         raise ValueError(
@@ -738,7 +747,7 @@ def _check_mega(model, kv_dtype, sampling: str) -> None:
             "backend='mega' fuses dense (attention + MLP) decode layers only "
             "(missing capability: megakernel routed-expert FFN) - MoE models serve "
             "their grouped-GEMM tick on backend='flash'")
-    if model.layers and isinstance(model.layers[0].attn.w_qkv, QuantW):
+    if model.layers and isinstance(_rank_layers(model, 0)[0][0].w_qkv, QuantW):
         raise ValueError(
             "backend='mega' takes raw bf16 weight panels and has no weight "
             "dequant path; int8-weight models run on the other backends (int8 "
@@ -747,36 +756,66 @@ def _check_mega(model, kv_dtype, sampling: str) -> None:
         raise ValueError(
             f"backend='mega' supports kv_dtype=None (pool dtype) or torch.int8 "
             f"(in-kernel scale-plane dequant), not {kv_dtype}")
+    cfg = model.config
+    if tp > 1 and (cfg.num_heads % tp or cfg.num_kv_heads % tp
+                   or cfg.intermediate_size % tp):
+        raise ValueError(
+            "backend='mega' TP needs heads/kv-heads/ffn divisible by the mesh size "
+            f"(heads {cfg.num_heads}, kv heads {cfg.num_kv_heads}, intermediate_size "
+            f"{cfg.intermediate_size} over {tp} ranks; single-chip decode has no such "
+            "constraint)")
+
+
+def _rank_layers(model, r: int) -> list:
+    """Rank r's (attention, MLP, ln_attn, ln_mlp) of every layer: the
+    layers themselves at one rank, else their rank-r shards (to_mesh's
+    [q_r | k_r | v_r] and [gate_r | up_r] column blocks, w_o's and
+    w_down's row blocks) and norm copies."""
+    if getattr(model, "tp", 1) == 1:
+        return [(ly.attn, ly.mlp, ly.ln_attn, ly.ln_mlp) for ly in model.layers]
+    return [(ly.attn.shards[r], ly.mlp.shards[r], ly.ln_attn[r], ly.ln_mlp[r])
+            for ly in model.layers]
 
 
 def _mega_setup(eng: Engine):
     """The per-layer weight dicts of the megakernel, built once per
     Engine: norms in f32 ([1, n]), absent QK-norms as ones, the packed
-    bf16 panels as they are (a model of another dtype is cast once)."""
+    bf16 panels as they are (a model of another dtype is cast once). At
+    tp > 1 one list of them a rank, from the rank's shards on its device:
+    to_mesh's shards are already the JAX engine's contiguous column and
+    row split of the packed weights (`_mega_scan_decode_fn`), so nothing
+    is repacked."""
     if eng._mega is None:
         model = eng.model
         hd = model.config.head_dim
-        ones = torch.ones((1, hd), dtype=torch.float32, device=eng.device)
         bf = torch.bfloat16
+        devices = model.mesh.devices if eng.tp > 1 else [eng.device]
 
-        def norm(w):
+        def norm(w, ones):
             return ones if w is None else w.reshape(1, -1).float().contiguous()
 
-        eng._mega = [dict(
-            w_ln1=norm(ly.ln_attn), w_qkv=ly.attn.w_qkv.to(bf).contiguous(),
-            q_norm=norm(ly.attn.q_norm), k_norm=norm(ly.attn.k_norm),
-            w_o=ly.attn.w_o.to(bf).contiguous(), w_ln2=norm(ly.ln_mlp),
-            w_gu=ly.mlp.w_gate_up.to(bf).contiguous(),
-            w_d=ly.mlp.w_down.to(bf).contiguous()) for ly in model.layers]
+        def rank(r, dev):
+            ones = torch.ones((1, hd), dtype=torch.float32, device=dev)
+            return [dict(
+                w_ln1=norm(ln1, ones), w_qkv=attn.w_qkv.to(bf).contiguous(),
+                q_norm=norm(attn.q_norm, ones), k_norm=norm(attn.k_norm, ones),
+                w_o=attn.w_o.to(bf).contiguous(), w_ln2=norm(ln2, ones),
+                w_gu=mlp.w_gate_up.to(bf).contiguous(),
+                w_d=mlp.w_down.to(bf).contiguous())
+                for attn, mlp, ln1, ln2 in _rank_layers(model, r)]
+
+        eng._mega = [rank(r, d) for r, d in enumerate(devices)]
     return eng._mega
 
 
-def _mega_geometry(model) -> dict:
+def _mega_geometry(model, tp: int = 1) -> dict:
+    """The layer geometry: at tp > 1 one rank's shard (as the JAX
+    engine builds its TP MegaDecodeLayer)."""
     cfg = model.config
-    return dict(d_model=cfg.hidden_size, n_heads=cfg.num_heads,
-                n_kv_heads=cfg.num_kv_heads, head_dim=cfg.head_dim,
-                ffn=cfg.intermediate_size, eps=cfg.rms_norm_eps,
-                qk_norm=model.layers[0].attn.q_norm is not None)
+    return dict(d_model=cfg.hidden_size, n_heads=cfg.num_heads // tp,
+                n_kv_heads=cfg.num_kv_heads // tp, head_dim=cfg.head_dim,
+                ffn=cfg.intermediate_size // tp, eps=cfg.rms_norm_eps,
+                qk_norm=_rank_layers(model, 0)[0][0].q_norm is not None)
 
 
 def _mega_logits(model, x):
@@ -792,8 +831,9 @@ def _mega_scan_decode_fn(eng: Engine, logits0, cache: KVCache, *, gen_len: int):
     """Megakernel decode loop (the JAX `_mega_scan_decode_fn`): per step
     the argmax of the previous logits, the f32 embedding row, the RoPE
     rows of the shared position, one MegaDecodeLayer launch per layer
-    over the cache in its own [B, Hkv, T, hd] layout (in place; the
-    cache stays valid and its offset advances), then the head."""
+    (per device at tp > 1) over the cache in its own [B, Hkv, T, hd]
+    layout (in place; the cache stays valid and its offset advances),
+    then the head."""
     logits, toks = logits0, []
     for _ in range(gen_len):
         tok = sample_greedy(logits)
@@ -803,18 +843,34 @@ def _mega_scan_decode_fn(eng: Engine, logits0, cache: KVCache, *, gen_len: int):
 
 
 def _mega_step(eng: Engine, tok, cache: KVCache):
-    """One step of _mega_scan_decode_fn fed tokens tok [B]."""
+    """One step of _mega_scan_decode_fn fed tokens tok [B]. At tp > 1 the
+    embedding row is taken on rank 0 and replicated to every rank, each
+    layer is one TP launch over every rank's weights and cache heads
+    (cache.ranks), and the head runs on rank 0's y (every rank's is the
+    same)."""
     model = eng.model
     weights = _mega_setup(eng)
-    T = cache.k[0].shape[2]
+    T = cache.capacity
     layer = eng._mega_layer
     if layer is None or layer.T != T:
-        layer = eng._mega_layer = MegaDecodeLayer(T=T, **_mega_geometry(model))
+        layer = eng._mega_layer = MegaDecodeLayer(
+            T=T, tp=eng.tp, mesh=model.mesh if eng.tp > 1 else None,
+            **_mega_geometry(model, eng.tp))
     x = model.embed[tok].float()
     pos = cache.offset
-    rope = dict(cos_row=model.cos[pos:pos + 1], sin_row=model.sin[pos:pos + 1])
-    for li, w in enumerate(weights):
-        x, _, _ = layer(x, pos, dict(w, **rope), cache.k[li], cache.v[li])
+    if eng.tp > 1:
+        xs = model.mesh.replicate(x)
+        ropes = [dict(cos_row=c[pos:pos + 1], sin_row=s_[pos:pos + 1])
+                 for c, s_ in model.rope]
+        parts = cache.ranks
+        for li in range(len(model.layers)):
+            xs, _, _ = layer(xs, pos, [dict(w[li], **rp) for w, rp in zip(weights, ropes)],
+                             [c.k[li] for c in parts], [c.v[li] for c in parts])
+        x = xs[0]
+    else:
+        rope = dict(cos_row=model.cos[pos:pos + 1], sin_row=model.sin[pos:pos + 1])
+        for li, w in enumerate(weights[0]):
+            x, _, _ = layer(x, pos, dict(w, **rope), cache.k[li], cache.v[li])
     cache.advance(1)
     return _mega_logits(model, x)
 
@@ -841,7 +897,7 @@ def _paged_slot_mega_scan_fn(eng: Engine, logits0, pcache: PagedSlotCache, pos, 
         x = model.embed[tok].float()
         p = pos.long()
         rope = dict(cos_row=model.cos[p], sin_row=model.sin[p])
-        for li, w in enumerate(weights):
+        for li, w in enumerate(weights[0]):
             x = layer(x, pos, dict(w, **rope), *pcache.layer(li)[:2], pcache.table,
                       *pcache.layer(li)[2:])[0]
         logits = _mega_logits(model, x)

@@ -30,6 +30,30 @@ itself (mega/decode_layer.py FAULT):
     mega drop newest key    the attention walk stops one key short
     mega no residual        o_proj leaves out the attention residual
 
+    python3 -m triton_dist_tpu_torch.tools.fault_margin --mega-tp [--cards 4] [--layers 28]
+
+holds the tensor-parallel megakernel (row 5's TP form) over four ranks
+(emulated on one card, or four cards) instead. First one layer at
+tp_check.py's row 5 TP shape (Qwen3-1.7B's widths split by four, B=128,
+pos=200, T=264) against its plain version, as max |d y| over 1 + max
+|plain y| (the worst rank), against tp_check.MEGA_TP_LIMIT, clean and
+with each fault the kernel plants itself (mega/decode_layer.py FAULT),
+every faulted call right after a clean call on other inputs, so that
+the landing slots hold that call's partials:
+
+    mega drop newest key        the attention walk stops one key short
+    mega tp fold skips a rank   both all-reduce sections fold without rank
+                                me+1's partial
+    mega tp fold before wait    both sections fold before their pushes and
+                                arrival waits (the rank's own slot holds the
+                                previous call's partial)
+    mega tp partial twice       both sections fold rank me+1's partial twice
+
+Then the engine: Qwen3-1.7B (all 28 layers, or --layers) over the mesh,
+Engine(backend="mega"), B=128 after a 128-token prompt, teacher-forced
+against the one-rank "xla" engine, clean and with each fault, against
+tp_check.GATE.
+
     python3 -m triton_dist_tpu_torch.tools.fault_margin --moe
 
 holds the MoE path instead: Qwen3-30B-A3B at full width and depth
@@ -905,6 +929,79 @@ def run_tp(m, mesh) -> dict:
     return results
 
 
+MEGA_TP_FAULTS = {"mega tp clean": 0, "mega drop newest key": 1,
+                  "mega tp fold skips a rank": 3, "mega tp fold before wait": 4,
+                  "mega tp partial twice": 5}
+
+
+def run_mega_tp(m, mesh, n_layers: int = 28, seed: int = 0) -> dict:
+    """The TP megakernel's planted faults: one layer against its plain
+    version, then the engine against the one-rank plain engine (the
+    module docstring)."""
+    from triton_dist_tpu_torch.mega import decode_layer, mega_decode_layer_ref
+    from triton_dist_tpu_torch.tools import tp_check as tc
+    dev0 = mesh.devices[0]
+    gen = torch.Generator(device=dev0).manual_seed(seed)
+    pos, T = 200, 264
+    w, x, ck, cv, _ = tc.mega_full_layer(gen, dev0, pos=pos, T=T)
+    layer, ws, cks, cvs = tc.mega_tp_split(mesh, w, ck, cv, T)
+    xs = mesh.replicate(x)
+    other = mesh.replicate(torch.randn(x.shape, generator=gen, device=dev0))
+    kr, vr = [t.clone() for t in cks], [t.clone() for t in cvs]
+    ys_ref, _, _ = mega_decode_layer_ref(xs, pos, ws, kr, vr, n_heads=layer.n_heads,
+                                         n_kv_heads=layer.n_kv_heads, head_dim=tc.HD,
+                                         tp=mesh.size)
+    kernel = {}
+    for name, fault in MEGA_TP_FAULTS.items():
+        k1, v1 = [t.clone() for t in cks], [t.clone() for t in cvs]
+        layer(other, pos, ws, [t.clone() for t in cks], [t.clone() for t in cvs])
+        decode_layer.FAULT = fault
+        try:
+            ys, _, _ = layer(xs, pos, ws, k1, v1)
+            tc.sync(mesh)
+        finally:
+            decode_layer.FAULT = 0
+        gap = max(((y.to(dev0) - yr.to(dev0)).abs().max()
+                   / (1 + yr.to(dev0).abs().max())).item() for y, yr in zip(ys, ys_ref))
+        equal = all(torch.equal(y.to(dev0), ys[0]) for y in ys)
+        kernel[name] = gap
+        print(f"mega tp kernel {name}: gap {gap:.4g} ({_caught(gap, tc.MEGA_TP_LIMIT)}); "
+              f"ranks bitwise equal: {equal}", flush=True)
+    results = {"kernel": kernel}
+    import dataclasses
+    cfg = dataclasses.replace(m.qwen3_1p7b(), num_layers=n_layers)
+    ids = torch.randint(0, cfg.vocab_size, (tc.B, tc.S), generator=gen, device=dev0)
+    ref_model = m.DenseLLM.random_init(cfg, device=dev0, seed=0)
+    model = ref_model.to_mesh(mesh)
+    ref = m.Engine(ref_model, max_seq=tc.S + STEPS + 8, backend="xla", device=dev0)
+    lr0, cr = ref.prefill(ids)
+    refs, toks, lr = [lr0], [], lr0
+    for _ in range(STEPS):
+        toks.append(torch.argmax(lr, -1))
+        lr = ref.decode_step(toks[-1], cr)
+        refs.append(lr)
+    del cr, ref_model
+    eng = m.Engine(model, max_seq=tc.S + STEPS + 8, backend="mega", device=dev0)
+    engine = {}
+    for name, fault in MEGA_TP_FAULTS.items():
+        lf, cf = eng.prefill(ids)
+        gaps = [_rel(lf, refs[0])]
+        decode_layer.FAULT = fault
+        try:
+            for t in range(STEPS):
+                lf = eng.decode_step(toks[t], cf)
+                gaps.append(_rel(lf, refs[t + 1]))
+        finally:
+            decode_layer.FAULT = 0
+        engine[name] = max(gaps)
+        print(f"mega tp engine {name}: worst step gap {engine[name]:.4g} "
+              f"({_caught(engine[name], tc.GATE)}); per step {[round(g, 4) for g in gaps]}",
+              flush=True)
+        del cf
+    results[f"engine {n_layers} layers"] = engine
+    return results
+
+
 def ep_fused_faults(mesh, seed: int = 0) -> dict:
     """ep_moe_fused_device at tp_check's shapes (the serving layer's bf16
     and int8 panels, the registry's f32): the kernel's clean gap to its
@@ -1440,6 +1537,17 @@ def main() -> int:
                 else make_mesh(4, devices=["cuda:0"] * 4))
         print(json.dumps({"kernel limit": sc.ULYSSES_KERNEL_LIMIT, "layer limit": sc.ULYSSES_GATE,
                           "ulysses": ulysses_faults(mesh)}), flush=True)
+        return 0
+    if "--mega-tp" in sys.argv[1:]:
+        import triton_dist_tpu_torch.models as m
+        from triton_dist_tpu_torch.runtime import make_mesh
+        from triton_dist_tpu_torch.tools import tp_check as tc
+        mesh = (make_mesh(4) if "--cards" in sys.argv[1:]
+                else make_mesh(4, devices=["cuda:0"] * 4))
+        args = sys.argv[1:]
+        n_layers = int(args[args.index("--layers") + 1]) if "--layers" in args else 28
+        print(json.dumps({"kernel limit": tc.MEGA_TP_LIMIT, "engine limit": tc.GATE,
+                          "mega tp": run_mega_tp(m, mesh, n_layers)}), flush=True)
         return 0
     if "--sp" in sys.argv[1:]:
         import triton_dist_tpu_torch.models as m

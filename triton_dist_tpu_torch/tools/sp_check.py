@@ -534,7 +534,7 @@ def serving_check(m, k, mesh, one, card: str, n_req: int = SP_REQS) -> dict:
     is the one-rank model on rank 0's device. Returns the launch counts
     and metrics."""
     from triton_dist_tpu_torch.models.prefix_cache import RefcountedPages
-    from triton_dist_tpu_torch.tools.tp_check import idle_share, sync
+    from triton_dist_tpu_torch.tools.tp_check import idle_share, share, sync
     dev0 = mesh.devices[0]
     model = one.to_mesh(mesh, "sp", sp_combine="dist")
     eng = m.Engine(model, max_seq=SP_MAX_SEQ, backend="flash", device=dev0)
@@ -627,10 +627,11 @@ def serving_check(m, k, mesh, one, card: str, n_req: int = SP_REQS) -> dict:
     pos = pos + SP_TICK_STEPS
     idle = idle_share(lambda: eng.paged_slot_chunk(logits, pcache, pos, active,
                                                    chunk=SP_TICK_STEPS),
-                      SP_TICK_STEPS, tick_s / SP_TICK_STEPS, f"sp tick ({SP_SLOTS} slots)")
+                      SP_TICK_STEPS, tick_s / SP_TICK_STEPS, f"sp tick ({SP_SLOTS} slots)",
+                      ndev)
     print(f"tick sp={mesh.size} ({SP_SLOTS} slots, contexts {pos.min().item()}-"
           f"{pos.max().item()}): {tick_s * 1e3 / SP_TICK_STEPS:.3f} ms/step wall, "
-          f"{sum(tick.values()) // SP_TICK_STEPS} kernel launches a step, {idle:.1%} idle",
+          f"{sum(tick.values()) // SP_TICK_STEPS} kernel launches a step, {share(idle)} idle",
           flush=True)
     return dict(serving=counts, tick=tick, tok_per_s=toks / wall, ttft_ms=ttft["mean"],
                 ms_per_step=tick_s * 1e3 / SP_TICK_STEPS, idle=idle, gaps=[worst],

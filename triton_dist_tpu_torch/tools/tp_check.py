@@ -35,14 +35,25 @@ Checks, each failing the run (tools/checks.py CheckFailed):
   ranks emulated on one card (each input read once, each output written
   once), NVLink (perf_model.collective_sol_us) across cards;
 - engine: Qwen3-1.7B at full width (seeded random weights), B=128 after a
-  128-token prompt, Engine(backend="ar", "gemm_ar" and "dist") over the
-  mesh: on "ar"/"gemm_ar" prefill launches no comm kernel (it runs on
+  128-token prompt, Engine(backend="ar", "gemm_ar", "dist" and "mega")
+  over the mesh: on "ar"/"gemm_ar" prefill launches no comm kernel (it runs on
   "xla"), decode launches the layers' kernels and its comm kernel, "ar"
   its all_reduce two-shot only (3 x 512 KiB > 1 MiB); on "dist" prefill
   and decode each launch the layers' kernels and exactly two ag_gemm and
   two gemm_rs a layer and forward, and no other comm kernel; the logits,
   teacher-forced, held to the one-rank "xla" engine by the margin rule
   (tools/checks.py, GATE);
+- the tensor-parallel megakernel (row 5's TP form, mega_decode.cu's
+  mega_decode_tp): one layer at Qwen3-1.7B's widths split over the mesh
+  (B=128, pos=200, T=264, the cache past pos at 100x) within
+  MEGA_TP_LIMIT of its plain version (max |d y| over 1 + max |plain y|,
+  chip_smoke.py's row 5a rule; tools/fault_margin.py --mega-tp), every
+  rank's y bitwise equal, the cache rows at pos within one bf16 ulp and
+  every other row unchanged; then Engine(backend="mega") over the mesh
+  at B=128: prefill on "flash" launches flash_decode, kv_update and
+  swiglu alone, decode exactly one TP megakernel launch per layer per
+  step per device and nothing else, the logits teacher-forced against the
+  one-rank "xla" engine by the margin rule;
 - paged serving: ContinuousScheduler(paged=True) at 64 slots on
   "gemm_ar", "ar" and "dist" over the serving traffic's first N_REQ
   requests (tools/checks.py `serving_requests`, chip_smoke.py's traffic);
@@ -73,7 +84,11 @@ from triton_dist_tpu_torch.tools.checks import (  # noqa: F401 (GATE: fault_marg
 GEMM_AR_LIMIT = 2e-2
 AG_GEMM_LIMIT = 2e-2
 GEMM_RS_LIMIT = 2e-2
+# row 5's TP form against its plain version: max |d y| over 1 + max |plain
+# y| (tools/fault_margin.py --mega-tp)
+MEGA_TP_LIMIT = 1e-2
 CALLS = 3                       # fresh-input calls checked per kernel row
+WARM_LAUNCHES, WARM_S = 64, 0.01  # idle_share's warm-up step: launches a card, then a wait
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM, NVIDIA data sheet
 BF16_FLOPS_PER_S = 989e12
 F32_FLOPS_PER_S = 67e12
@@ -109,11 +124,13 @@ SOURCES = {
                       "triton_dist_tpu/kernels/moe_reduce_ar.py:215"),
     "p2p_shift": ("triton_dist_tpu_torch/kernels/csrc/p2p.cu",
                   "triton_dist_tpu/kernels/p2p.py:48"),
+    "mega_decode": ("triton_dist_tpu_torch/kernels/csrc/mega_decode.cu",
+                    "triton_dist_tpu/mega/decode_layer.py:462"),
 }
 # the comm kernels each backend runs (the one-rank GEMM kernel, "gemm",
 # runs on none of them at n > 1)
 BACKEND_COMM = {"ar": ("all_reduce",), "gemm_ar": ("gemm_allreduce",),
-                "dist": ("ag_gemm", "gemm_rs")}
+                "dist": ("ag_gemm", "gemm_rs"), "mega": ()}
 
 
 def sync(mesh) -> None:
@@ -357,20 +374,295 @@ def kernel_rows(mesh, seed: int = 0) -> list:
     return rows
 
 
-def idle_share(fn, steps: int, wall_s: float, label: str) -> float:
-    """torch.profiler over fn() (steps decode steps): the device's busy
-    ms per step against the timed run's wall ms per step."""
+def mega_full_layer(gen, dev, B_=B, pos=200, T=264, D_=D, F_=I, Hq=HQ, Hkv=HKV, hd=HD):
+    """Row 5's inputs at Qwen3-1.7B's widths: the layer's weight dict (f32
+    norms, bf16 panels, the rope rows at pos), x [B, D] f32 and the caches
+    [B, Hkv, T, hd] bf16, the positions past pos at 100x, drawn from gen
+    (chip_smoke.py's row 5a draws them in this order)."""
+    from triton_dist_tpu_torch.layers import precompute_rope
+
+    def rn(*shape, sc=1.0):
+        return torch.randn(shape, generator=gen, device=dev) * sc
+
+    w = dict(w_ln1=1 + 0.1 * rn(1, D_), q_norm=1 + 0.1 * rn(1, hd),
+             k_norm=1 + 0.1 * rn(1, hd), w_ln2=1 + 0.1 * rn(1, D_),
+             w_qkv=rn(D_, (Hq + 2 * Hkv) * hd, sc=D_ ** -0.5).bfloat16(),
+             w_o=rn(Hq * hd, D_, sc=(Hq * hd) ** -0.5).bfloat16(),
+             w_gu=rn(D_, 2 * F_, sc=D_ ** -0.5).bfloat16(),
+             w_d=rn(F_, D_, sc=F_ ** -0.5).bfloat16())
+    cos, sin = precompute_rope(hd, 4096, device=dev)
+    w.update(cos_row=cos[pos:pos + 1], sin_row=sin[pos:pos + 1])
+    x = rn(B_, D_)
+    ck = rn(B_, Hkv, T, hd).bfloat16()
+    cv = rn(B_, Hkv, T, hd).bfloat16()
+    ck[:, :, pos + 1:] *= 100
+    cv[:, :, pos + 1:] *= 100
+    return w, x, ck, cv, (cos, sin)
+
+
+def mega_tp_split(mesh, w, ck, cv, T: int):
+    """The full layer split over the mesh, as Engine(backend="mega") splits
+    a model (the JAX engine's contiguous column split of the packed
+    [q | k | v] and [gate | up] panels, row split of w_o and w_d; kv heads
+    by rank): (the TP MegaDecodeLayer, each rank's weight dict, each rank's
+    k and v caches), rank r's on its device."""
+    from triton_dist_tpu_torch.layers.common import split_packed, split_rows
+    from triton_dist_tpu_torch.mega import MegaDecodeLayer
+    n = mesh.size
+    hd, Hkv = ck.shape[3], ck.shape[1]
+    Hq, F_ = w["w_o"].shape[0] // hd, w["w_d"].shape[0]
+    qkv = split_packed(w["w_qkv"], (Hq * hd, Hkv * hd, Hkv * hd), n)
+    gu = split_packed(w["w_gu"], (F_, F_), n)
+    wo, wd = split_rows(w["w_o"], n), split_rows(w["w_d"], n)
+    h = Hkv // n
+    ws, cks, cvs = [], [], []
+    for r, d in enumerate(mesh.devices):
+        ws.append(dict({k: w[k].to(d) for k in ("w_ln1", "q_norm", "k_norm", "w_ln2",
+                                                 "cos_row", "sin_row")},
+                       w_qkv=qkv[r].to(d).contiguous(), w_o=wo[r].to(d).contiguous(),
+                       w_gu=gu[r].to(d).contiguous(), w_d=wd[r].to(d).contiguous()))
+        cks.append(ck[:, r * h:(r + 1) * h].to(d).contiguous())
+        cvs.append(cv[:, r * h:(r + 1) * h].to(d).contiguous())
+    layer = MegaDecodeLayer(d_model=w["w_o"].shape[1], n_heads=Hq // n, n_kv_heads=h,
+                            head_dim=hd, ffn=F_ // n, T=T, tp=n, mesh=mesh)
+    return layer, ws, cks, cvs
+
+
+def mega_tp_per_op(mesh, w, rope, pos: int, mode: str = "gemm_ar"):
+    """The port's per-op layer over the mesh on `mode` (TP_Attn and TP_MLP
+    split as to_mesh splits them), on the same weights: fn(xs, cks, cvs)
+    -> each rank's output, the yardstick of the TP megakernel layer."""
+    from triton_dist_tpu_torch.layers import TP_Attn, TP_MLP, rms_norm
+    hd = w["q_norm"].shape[1]
+    attn = TP_Attn(w_qkv=w["w_qkv"], w_o=w["w_o"], q_norm=w["q_norm"].reshape(-1),
+                   k_norm=w["k_norm"].reshape(-1), n_heads=w["w_o"].shape[0] // hd,
+                   n_kv_heads=(w["w_qkv"].shape[1] // hd - w["w_o"].shape[0] // hd) // 2,
+                   head_dim=hd).to_mesh(mesh)
+    mlp = TP_MLP(w_gate_up=w["w_gu"], w_down=w["w_d"]).to_mesh(mesh)
+    ln1 = mesh.replicate(w["w_ln1"].reshape(-1))
+    ln2 = mesh.replicate(w["w_ln2"].reshape(-1))
+    coss, sins = mesh.replicate(rope[0]), mesh.replicate(rope[1])
+
+    def fn(xs, cks, cvs):
+        xb = [x.bfloat16() for x in xs]
+        a, _ = attn.fwd_cached([rms_norm(x, g) for x, g in zip(xb, ln1)], coss, sins,
+                               xs[0].shape[0], list(zip(cks, cvs)), pos, mode)
+        x2 = [x + ar for x, ar in zip(xb, a)]
+        y = mlp([rms_norm(x, g) for x, g in zip(x2, ln2)], mode)
+        return [x + yr for x, yr in zip(x2, y)]
+    return fn
+
+
+def mega_tp_bytes(w, B_: int, pos: int, n: int, Hkv: int, hd: int) -> int:
+    """Row 5's TP form: each input read once, each output written once:
+    the weights (the ranks' shards together), K/V of the keys walked,
+    every rank's x and y, and of each all-reduce section the n f32
+    partials in and the n sums out (as the all_reduce rows count a
+    collective; the slots the one-shot pushes are its own traffic)."""
+    n_params = sum(w[k].numel() for k in ("w_qkv", "w_o", "w_gu", "w_d"))
+    D_ = w["w_o"].shape[1]
+    return (2 * n_params + 2 * n * B_ * D_ * 4 + 2 * B_ * Hkv * (pos + 1) * hd * 2
+            + 2 * 2 * n * B_ * D_ * 4)
+
+
+def mega_tp_gaps(ys, ys_ref, cks, cvs, ck0, cv0, ck_ref, cv_ref, pos: int, label: str):
+    """Row 5's TP checks (one call's outputs): every rank's y bitwise equal
+    to rank 0's; the new cache rows within one bf16 ulp of the plain
+    version's largest; every other row unchanged. Returns the gap, max |d
+    y| over 1 + max |plain y| (the worst rank)."""
+    dev = ys[0].device
+    for r, y in enumerate(ys):
+        check(torch.equal(y.to(dev), ys[0]), f"{label}: rank {r}'s y differs from rank 0's")
+    gap = max(((y.to(dev) - yr.to(dev)).abs().max()
+               / (1 + yr.to(dev).abs().max())).item() for y, yr in zip(ys, ys_ref))
+    k, v = (torch.cat([t.to(dev) for t in ts], 1) for ts in (cks, cvs))
+    kr, vr = (torch.cat([t.to(dev) for t in ts], 1) for ts in (ck_ref, cv_ref))
+    other = torch.arange(k.shape[2], device=dev) != pos
+    new = max((a[:, :, pos].float() - b[:, :, pos].float()).abs().max().item()
+              for a, b in ((k, kr), (v, vr)))
+    top = max(b[:, :, pos].float().abs().max().item() for b in (kr, vr))
+    check(new <= 2 ** -7 * top, f"{label}: new K/V rows {new} > one bf16 ulp of {top}")
+    changed = int(((k != ck0) | (v != cv0))[:, :, other].sum())
+    check(changed == 0, f"{label}: {changed} other cache entries changed")
+    return gap
+
+
+def device_ms(fn, mesh, symbol: str, reps: int = 10) -> float:
+    """Mean device ms of one record of the kernels whose name holds
+    `symbol` over reps calls of fn() under torch.profiler: the kernel's
+    own time, without the host work around its launch (on n cards, a
+    card's)."""
     from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    fn()
+    sync(mesh)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        sync(mesh)
+    ev = [e for e in prof.key_averages()
+          if e.device_type == torch.autograd.DeviceType.CUDA and symbol in e.key]
+    check(bool(ev), f"device_ms: the profile holds no {symbol} kernel")
+    return sum(e.self_device_time_total for e in ev) / sum(e.count for e in ev) / 1e3
+
+
+def mega_tp_row(mesh, seed: int = 0, inputs=None, pos: int = 200) -> dict:
+    """Row 5's TP form held to its plain version (the checks of
+    mega_tp_gaps, within MEGA_TP_LIMIT of 1 + max |plain y|), then timed
+    beside its plain version and the port's per-op "gemm_ar" layer on the
+    same shards; launches left None. inputs: mega_full_layer's (w, x, ck,
+    cv, rope) with w's rope rows at pos, checked in one call; else CALLS
+    calls on fresh ones at the engine's decode shape (B=128, T=264). ms is
+    the event pair around the wrapper's call, device_ms the kernel's own
+    time."""
+    from triton_dist_tpu_torch.mega import mega_decode_layer_ref
+    dev0 = mesh.devices[0]
+    gen = torch.Generator(device=dev0).manual_seed(seed)
+    n, T = mesh.size, 264
+    gap = err = 0.0
+    tol = float("inf")
+    for _ in range(1 if inputs else CALLS):
+        w, x, ck, cv, rope = inputs or mega_full_layer(gen, dev0, pos=pos, T=T)
+        T = ck.shape[2]
+        layer, ws, cks, cvs = mega_tp_split(mesh, w, ck, cv, T)
+        ck0 = torch.cat([t.to(dev0) for t in cks], 1)
+        cv0 = torch.cat([t.to(dev0) for t in cvs], 1)
+        kr, vr = [t.clone() for t in cks], [t.clone() for t in cvs]
+        xs = mesh.replicate(x)
+        ys, _, _ = layer(xs, pos, ws, cks, cvs)
+        ys_ref, _, _ = mega_decode_layer_ref(xs, pos, ws, kr, vr, n_heads=layer.n_heads,
+                                             n_kv_heads=layer.n_kv_heads,
+                                             head_dim=layer.head_dim, tp=n)
+        sync(mesh)
+        g = mega_tp_gaps(ys, ys_ref, cks, cvs, ck0, cv0, kr, vr, pos, "mega_decode tp")
+        check(g <= MEGA_TP_LIMIT, f"mega_decode tp: gap {g} > {MEGA_TP_LIMIT}")
+        gap = max(gap, g)
+        err = max(err, max((y.to(dev0) - yr.to(dev0)).abs().max().item()
+                           for y, yr in zip(ys, ys_ref)))
+        tol = min(tol, MEGA_TP_LIMIT * (1 + max(yr.abs().max().item() for yr in ys_ref)))
+    Bx, hd, Hkv = x.shape[0], ck.shape[3], ck.shape[1]
+    Hq = w["w_o"].shape[0] // hd
+    per_op = mega_tp_per_op(mesh, w, rope, pos)
+    nbytes = mega_tp_bytes(w, Bx, pos, n, Hkv, hd)
+    flops = 2.0 * Bx * sum(w[k].numel() for k in ("w_qkv", "w_o", "w_gu", "w_d")) \
+        + 4.0 * hd * Hq * Bx * (pos + 1)
+    if emulated(mesh):
+        b_ms, b_by = max((nbytes / HBM_BYTES_PER_S * 1e3, "bytes"),
+                         (flops / BF16_FLOPS_PER_S * 1e3, "operations"))
+    else:
+        from triton_dist_tpu_torch.tools.perf_model import collective_sol_us
+        b_ms, b_by = max((nbytes / n / HBM_BYTES_PER_S * 1e3, "bytes"),
+                         (2 * collective_sol_us("ar", Bx * w["w_o"].shape[1] * 4, n) / 1e3,
+                          "bytes"),
+                         (flops / n / BF16_FLOPS_PER_S * 1e3, "operations"))
+    src, rep = SOURCES["mega_decode"]
+
+    def call():
+        return layer(xs, pos, ws, cks, cvs)
+
+    r = dict(name="mega_decode/tp",
+             case=f"TP form B={Bx} pos={pos} T={T} bf16, D={w['w_o'].shape[1]} "
+                  f"F/{n}={w['w_d'].shape[0] // n} Hq/{n}={Hq // n} Hkv/{n}={Hkv // n}"
+                  + (f" ({n} ranks emulated on one card)" if emulated(mesh)
+                     else f" ({n} cards)"),
+             route="cuda", source=src, replaces=rep, launches=None, max_abs_err=err,
+             tol=tol, gap=gap, ms=cuda_ms(call, mesh),
+             device_ms=device_ms(call, mesh, "mega_tp_kernel"),
+             plain_ms=cuda_ms(lambda: mega_decode_layer_ref(
+                 xs, pos, ws, kr, vr, n_heads=layer.n_heads, n_kv_heads=layer.n_kv_heads,
+                 head_dim=hd, tp=n), mesh, reps=5),
+             bound_ms=b_ms, bound_by=b_by, library_ms=None,
+             per_op_layer_ms=cuda_ms(lambda: per_op(xs, kr, vr), mesh))
+    print(f"kernel mega_decode/tp [{r['case']}]: max_abs_err {err:.3g} (tol {tol:.3g}), gap "
+          f"{gap:.3g} of 1 + max (limit {MEGA_TP_LIMIT}) over {1 if inputs else CALLS} "
+          f"call(s), every rank's y bitwise equal; ms {r['ms']:.4f} device_ms "
+          f"{r['device_ms']:.4f} plain_ms {r['plain_ms']:.4f} per-op gemm_ar layer ms "
+          f"{r['per_op_layer_ms']:.4f} bound_ms {b_ms:.4f} ({b_by})", flush=True)
+    return r
+
+
+def idle_share(fn, steps: int, wall_s: float, label: str, devices: int = 1,
+               expect=None):
+    """torch.profiler over fn() (steps decode steps), one window: the
+    devices' busy ms per step, summed over `devices` cards, against the
+    timed run's wall ms per step; the idle share on one card (None on
+    several, where device time holds waits on peers). The window is
+    complete when it holds a device record for each kernel launch call it
+    recorded on the host and, for each (symbol, count) in `expect`,
+    exactly count records of kernels whose name holds symbol; an
+    incomplete window is reported and gives None (not measured). A
+    warm-up step runs first with the tracer on and its records dropped: a
+    window traced from a cold start lost the records of its first
+    launches (chip_smoke.py's later phases, 31-52 of 52-11,000)."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    def drain():
+        for d in range(torch.cuda.device_count()):
+            torch.cuda.synchronize(d)
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1)) as prof:
+        for d in range(torch.cuda.device_count()):
+            for _ in range(WARM_LAUNCHES):
+                torch.zeros(1, device=f"cuda:{d}")
+        drain()
+        time.sleep(WARM_S)
+        prof.step()
         fn()
-        torch.cuda.synchronize()
-    ev = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy = sum(e.self_device_time_total for e in ev) / 1e3 / steps
-    idle = 1 - busy / (wall_s * 1e3)
+        drain()
+    ev = prof.key_averages()
+    # the step's own span on the device timeline is no work
+    dev = [e for e in ev if e.device_type == torch.autograd.DeviceType.CUDA
+           and not e.key.startswith("ProfilerStep")]
+    kernels = sum(e.count for e in dev if not e.key.startswith(("Memcpy", "Memset")))
+    calls = sum(e.count for e in ev if e.device_type != torch.autograd.DeviceType.CUDA
+                and e.key.startswith(("cudaLaunch", "cuLaunch")) and "Kernel" in e.key)
+    got = {sym: sum(e.count for e in dev if sym in e.key) for sym in (expect or {})}
+    busy = sum(e.self_device_time_total for e in dev) / 1e3 / steps
+    if kernels < calls or any(got[sym] != n for sym, n in (expect or {}).items()):
+        print(f"profile {label}: window incomplete, {kernels} kernel records for {calls} "
+              f"launch calls, {got} of {expect}: idle share not measured; "
+              f"{lost_launches(prof)}", flush=True)
+        return None
+    # on several cards a collective's device time holds its wait for peers
+    # that the one host thread has not launched yet: busy is then no work
+    idle = 1 - busy / devices / (wall_s * 1e3) if devices == 1 else None
     print(f"profile {label}: device busy {busy:.3f} ms per step of {wall_s * 1e3:.3f} ms "
-          f"wall ({idle:.1%} idle, busy summed over the mesh's devices), "
-          f"{sum(e.count for e in ev) // steps} device launches per step", flush=True)
+          f"wall, summed over {devices} card(s) ({share(idle)} idle"
+          f"{'' if devices == 1 else ': the device time holds waits on peers'}), "
+          f"{sum(e.count for e in dev) // steps} device records per step, {kernels} kernel "
+          f"records for {calls} launch calls", flush=True)
     return idle
+
+
+def lost_launches(prof, most: int = 3) -> str:
+    """The launch calls of a profile that have no kernel record (matched
+    by correlation id in its trace): each one's place among the window's
+    launches, its offset in the window and the ops that made it."""
+    import json
+    import tempfile
+    with tempfile.TemporaryDirectory() as d:
+        path = f"{d}/trace.json"
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            ev = [e for e in json.load(f)["traceEvents"] if e.get("ph") == "X"]
+    kernels = {e["args"].get("correlation") for e in ev if e.get("cat") == "kernel"}
+    calls = sorted((e for e in ev if e.get("cat") in ("cuda_runtime", "cuda_driver")
+                    and e["name"].startswith(("cudaLaunch", "cuLaunch"))
+                    and "Kernel" in e["name"]), key=lambda e: e["ts"])
+    t0 = min(e["ts"] for e in ev)
+    out = []
+    for i, e in enumerate(calls):
+        if e["args"].get("correlation") not in kernels and len(out) < most:
+            ops = [o["name"] for o in ev if o.get("cat") == "cpu_op"
+                   and o["args"].get("External id") == e["args"].get("External id")]
+            out.append(f"launch {i} of {len(calls)} ({e['name']}, +{e['ts'] - t0:.0f} us, "
+                       f"ops {ops[:3]})")
+    return "no kernel record for " + ("; ".join(out) if out else "none by correlation")
+
+
+def share(v) -> str:
+    """An idle share for a line of output."""
+    return "not measured" if v is None else f"{v:.1%}"
 
 
 def engine_check(m, k, mesh, ref_model, model, ids, backend: str, card: str) -> dict:
@@ -398,7 +690,18 @@ def engine_check(m, k, mesh, ref_model, model, ids, backend: str, card: str) -> 
     # a collective counts one launch per distinct device of the mesh
     per_call = len(mesh.device_groups())
     L = model.config.num_layers
-    if backend == "dist":
+    if backend == "mega":
+        # prefill on "flash" (its psum the plain version's); each decode
+        # step one TP megakernel launch per layer and device, and nothing else
+        only_launched(c_prefill, path, "tp mega prefill (on flash)")
+        for name in path:
+            check(c_prefill[name] > 0, f"tp mega: prefill launched no {name} ({c_prefill})")
+        want = L * GEN * per_call
+        check(c_decode["mega_decode"] == want and by_method.get("mega_decode tp") == want,
+              f"tp mega: decode launched mega_decode {c_decode['mega_decode']} times "
+              f"({by_method}); want {want}, all of the TP form")
+        path = ("mega_decode",)
+    elif backend == "dist":
         # prefill through the rings too: two ag_gemm and two gemm_rs a
         # layer and forward
         want = 2 * L * per_call
@@ -407,7 +710,7 @@ def engine_check(m, k, mesh, ref_model, model, ids, backend: str, card: str) -> 
                   f"tp dist: {name} launched {c_prefill[name]} times in prefill, "
                   f"{c_decode[name]} in decode; want {want} and {want * GEN}")
         only_launched(c_prefill, path, "tp dist prefill")
-    else:
+    elif backend != "mega":
         only_launched(c_prefill, (), f"tp {backend} prefill (on xla)")
     for name in path:
         check(c_decode[name] > 0, f"tp {backend}: {name} did not run in decode ({c_decode})")
@@ -433,14 +736,17 @@ def engine_check(m, k, mesh, ref_model, model, ids, backend: str, card: str) -> 
             break
         lf = eng.decode_step(toks[:, t], cf)
         lr = ref.decode_step(toks[:, t], cr)
+    # the mega window's kernels are known exactly: one TP launch a layer,
+    # step and device
     idle = idle_share(lambda: [eng.decode_step(toks[:, t], cf) for t in range(TF_STEPS,
                                                                                TF_STEPS + 2)],
-                      2, decode_s / GEN, f"tp {backend} decode")
+                      2, decode_s / GEN, f"tp {backend} decode", len(mesh.device_groups()),
+                      {"mega_tp_kernel": 2 * L * per_call} if backend == "mega" else None)
     print(f"engine tp={mesh.size} {backend}: teacher-forced vs one-rank xla, prefill and "
           f"{TF_STEPS} steps: max|d| / max|ref| per step {[round(e, 5) for e in errs]} "
           f"(gate {GATE}), {forced} greedy tokens checked", flush=True)
-    return dict(prefill=c_prefill, decode=c_decode, ms_per_step=step_ms, idle=idle,
-                gaps=errs, prefill_ms=prefill_s * 1e3)
+    return dict(prefill=c_prefill, decode=c_decode, methods=by_method, ms_per_step=step_ms,
+                idle=idle, gaps=errs, prefill_ms=prefill_s * 1e3)
 
 
 def serving_check(m, k, mesh, model, reqs, backend: str, card: str):
@@ -496,13 +802,14 @@ def serving_check(m, k, mesh, model, reqs, backend: str, card: str):
     return counts, out
 
 
-def run(mesh, *, card: str, n_layers=None, n_req: int = N_REQ) -> dict:
+def run(mesh, *, card: str, n_layers=None, n_req: int = N_REQ, mega_row: bool = True) -> dict:
     """Every check on `mesh`; returns the kernel rows and the launch counts
-    of each phase."""
+    of each phase. mega_row: row 5's TP form too (chip_smoke.py measures
+    it as case 5c, on row 5a's inputs)."""
     import triton_dist_tpu_torch.kernels as k
     import triton_dist_tpu_torch.models as m
     t0 = time.perf_counter()
-    rows = kernel_rows(mesh)
+    rows = kernel_rows(mesh) + ([mega_tp_row(mesh)] if mega_row else [])
     print(f"[tp {time.perf_counter() - t0:.1f} s] kernel rows done", flush=True)
     cfg = m.qwen3_1p7b()
     if n_layers is not None:
@@ -513,7 +820,7 @@ def run(mesh, *, card: str, n_layers=None, n_req: int = N_REQ) -> dict:
     ref_model = m.DenseLLM.random_init(cfg, device=mesh.devices[0], seed=0)
     model = ref_model.to_mesh(mesh)
     counts = {}
-    for backend in ("ar", "gemm_ar", "dist"):
+    for backend in ("ar", "gemm_ar", "dist", "mega"):
         counts[backend] = engine_check(m, k, mesh, ref_model, model, ids, backend, card)
         print(f"[tp {time.perf_counter() - t0:.1f} s] engine {backend} done", flush=True)
     reqs = serving_requests(m, cfg.vocab_size, n_req)
@@ -736,7 +1043,7 @@ def ep_engine_check(m, k, mesh, model, ids, backend: str, card: str) -> dict:
     step_ms = decode_s * 1e3 / GEN
     # one profiled step: key_averages over 27,000 launches is itself seconds
     idle = idle_share(lambda: eng.decode_step(toks[:, 0], cache), 1, decode_s / GEN,
-                      f"ep {backend} decode")
+                      f"ep {backend} decode", len(mesh.device_groups()))
     print(f"engine ep={n} {backend} on {card}: prefill {prefill_s * 1e3:.1f} ms (B={B}, "
           f"S={S}), decode {GEN} steps {decode_s * 1e3:.1f} ms ({step_ms:.2f} ms/step, "
           f"{B * GEN / decode_s:.1f} tok/s), launches a step "
@@ -1195,7 +1502,7 @@ def tp_moe_engine_check(m, k, mesh, model, ids, backend: str, card: str) -> dict
           f"{bool(torch.isfinite(logits).all())}")
     step_ms = decode_s * 1e3 / GEN
     idle = idle_share(lambda: eng.decode_step(toks[:, 0], cache), 1, decode_s / GEN,
-                      f"tp-moe {backend} decode")
+                      f"tp-moe {backend} decode", len(mesh.device_groups()))
     print(f"engine tp-moe tp={n} {backend} on {card}: prefill {prefill_s * 1e3:.1f} ms (B={B}, "
           f"S={S}, on {eng.prefill_backend}), decode {GEN} steps {decode_s * 1e3:.1f} ms "
           f"({step_ms:.2f} ms/step, {B * GEN / decode_s:.1f} tok/s), launches a step "
